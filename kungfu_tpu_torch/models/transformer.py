@@ -1,0 +1,324 @@
+"""Flagship decoder-only transformer LM, training path
+(counterpart of kungfu_tpu.models.transformer).
+
+Same configuration knobs, parameter names and mixed precision as the flax
+model, so weights converted by `convert.params_from_flax` give the same
+logits, loss and gradients:
+
+  parameters    f32
+  Dense         input, kernel and bias cast to cfg.dtype; output cfg.dtype
+  Embed         returns cfg.dtype
+  norms         computed and returned in f32 (LayerNorm has no bias)
+  residuals     cfg.dtype
+  head          f32 (tied or not)
+  lm_loss       f32 mean over B * (L - 1) positions
+
+Parameter names follow the flax tree with torch's layout (Dense.kernel
+[in, out] becomes `weight` [out, in]; MLP "in" becomes `in_`).
+
+Decode and generate, MoE, ring/ulysses attention, head="hidden" with its
+chunked loss, dropout and remat_policy="dots" wait for later slices and
+raise NotImplementedError when configured.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..compat import kernel_mode, resolve_device
+from ..ops.flash import flash_attention
+from ..parallel.ring_attention import full_attention
+
+
+# The flagship GPT: config 9 of the JAX package's benchmarks
+# (kungfu_tpu/benchmarks/baseline_matrix.py config_gpt_mfu), LayerNorm,
+# GELU and an untied head by default.
+FLAGSHIP_GPT = dict(vocab_size=32000, d_model=1024, n_layers=24, n_heads=16, d_ff=4096,
+                    max_len=2048, causal=True, rope=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 8
+    n_heads: int = 8
+    d_ff: int = 2048
+    max_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    # "auto" = flash on a card, full on the CPU; "flash" | "full"
+    attention: str = "auto"
+    causal: bool = True
+    # grouped-query attention: number of K/V heads (0 = n_heads)
+    n_kv_heads: int = 0
+    rope: bool = False
+    rope_theta: float = 10000.0
+    # sliding window: 0 = unlimited (requires causal; flash/full paths)
+    window: int = 0
+    # flash tile sizes (None = 128); see ops.flash.flash_attention_with_lse
+    flash_block_q: Optional[int] = None
+    flash_block_k: Optional[int] = None
+    # flash backward arm: None/"pallas" = the CUDA kernels, "xla" = plain
+    flash_backward: Optional[str] = None
+    ffn: str = "gelu"  # "gelu" | "swiglu"
+    norm: str = "layer"  # "layer" | "rms"
+    norm_eps: float = 1e-6
+    attention_bias: bool = False
+    dropout: float = 0.0
+    tie_embeddings: bool = False
+    # checkpoint each block (torch.utils.checkpoint); policy "none"/"full"
+    remat: bool = False
+    remat_policy: str = "none"
+    head: str = "dense"
+    n_experts: int = 0
+    decode: bool = False
+
+    def __post_init__(self):
+        if self.d_model % self.n_heads:
+            raise ValueError("d_model must be a multiple of n_heads")
+        if self.n_kv_heads and self.n_heads % self.n_kv_heads:
+            raise ValueError("query heads must be a multiple of kv heads")
+        if self.rope and (self.d_model // self.n_heads) % 2:
+            raise ValueError("rope rotates feature pairs: head_dim must be even")
+        if self.window:
+            if self.window < 0 or not self.causal:
+                raise ValueError("window must be positive and needs causal attention")
+        for name, value, allowed in (
+            ("attention", self.attention, ("auto", "flash", "full", "ring", "ulysses")),
+            ("ffn", self.ffn, ("gelu", "swiglu")),
+            ("norm", self.norm, ("layer", "rms")),
+            ("remat_policy", self.remat_policy, ("none", "full", "dots")),
+            ("flash_backward", self.flash_backward, (None, "pallas", "xla")),
+            ("head", self.head, ("dense", "hidden")),
+        ):
+            if value not in allowed:
+                raise ValueError(f"{name}={value!r}, expected one of {allowed}")
+        later = [
+            (self.attention in ("ring", "ulysses"), f"attention={self.attention!r}"),
+            (self.decode, "decode"),
+            (self.n_experts > 0, "MoE (n_experts)"),
+            (self.head == "hidden", 'head="hidden"'),
+            (self.dropout > 0, "dropout"),
+            (self.remat_policy == "dots", 'remat_policy="dots"'),
+        ]
+        for configured, what in later:
+            if configured:
+                raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+
+def _attention_kind(cfg: TransformerConfig, device) -> str:
+    """"auto" resolves through the kernel gate: flash where the kernels
+    run (a card), full attention where they do not (the CPU)."""
+    if cfg.attention != "auto":
+        return cfg.attention
+    return "flash" if kernel_mode(device) == "kernel" else "full"
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding on [B, L, H, D] with positions [L] or [B, L]:
+    rotates the halves (x[..., :D/2], x[..., D/2:]) in f32, casts back."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = positions.float()[..., None] * freqs
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """flax Dense: input, weight and bias cast to `dtype` before the product."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 bias: bool, device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Norm(nn.Module):
+    """flax LayerNorm (no bias, fast variance) or RMSNorm, computed in f32."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.rms = cfg.norm == "rms"
+        self.eps = cfg.norm_eps
+        self.scale = nn.Parameter(torch.ones(cfg.d_model, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mu2 = (xf * xf).mean(dim=-1, keepdim=True)
+        if self.rms:
+            return xf * (torch.rsqrt(mu2 + self.eps) * self.scale)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        return (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.d_model // cfg.n_heads
+        kv = cfg.kv_heads * hd
+        ab = cfg.attention_bias
+        self.q = Dense(cfg.d_model, cfg.d_model, cfg.dtype, ab, device)
+        self.k = Dense(cfg.d_model, kv, cfg.dtype, ab, device)
+        self.v = Dense(cfg.d_model, kv, cfg.dtype, ab, device)
+        self.out = Dense(cfg.d_model, cfg.d_model, cfg.dtype, False, device)
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, L, _ = x.shape
+        H, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.d_model // cfg.n_heads
+        q = self.q(x).view(B, L, H, D)
+        k = self.k(x).view(B, L, Hkv, D)
+        v = self.v(x).view(B, L, Hkv, D)
+        if cfg.rope:
+            pos = torch.arange(L, device=x.device)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        if _attention_kind(cfg, x.device) == "flash":
+            o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window or None,
+                                block_q=cfg.flash_block_q or 128,
+                                block_k=cfg.flash_block_k or 128,
+                                backward=cfg.flash_backward)
+        else:
+            o = full_attention(q, k, v, causal=cfg.causal, window=cfg.window or None)
+        return self.out(o.reshape(B, L, cfg.d_model))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.swiglu = cfg.ffn == "swiglu"
+        self.in_ = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False, device)
+        if self.swiglu:
+            self.gate = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False, device)
+        self.out = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, False, device)
+
+    def forward(self, x):
+        h = self.in_(x)
+        if self.swiglu:
+            h = F.silu(self.gate(x)) * h
+        else:
+            h = F.gelu(h, approximate="tanh")  # flax nn.gelu's default
+        return self.out(h)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.ln1 = Norm(cfg, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = Norm(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class Embed(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+
+    def forward(self, tokens, dtype):
+        return F.embedding(tokens, self.embedding).to(dtype)
+
+
+class _Head(nn.Module):
+    """lm_head: f32 logits = f32 hidden @ weight^T, weight [vocab, d_model]."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight)
+
+
+class TransformerLM(nn.Module):
+    """tokens [B, L] (int64) -> logits [B, L, vocab] (f32).
+
+    Parameters are made on `device` ("cuda" unless the caller says "cpu")
+    and drawn from `generator` (a fresh one seeded 0 on that device when
+    None): normal(0, 0.02) for projections and embeddings, ones for norm
+    scales, zeros for biases, as the flax initializers do."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        self.embed = Embed(cfg, dev)
+        if not cfg.rope:
+            self.pos_embed = nn.Parameter(torch.empty(cfg.max_len, cfg.d_model, device=dev))
+        for i in range(cfg.n_layers):
+            self.add_module(f"block_{i}", Block(cfg, dev))
+        self.ln_f = Norm(cfg, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = _Head(cfg, dev)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self._init_weights(generator)
+
+    @torch.no_grad()
+    def _init_weights(self, generator: torch.Generator) -> None:
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        L = tokens.shape[1]
+        x = self.embed(tokens, cfg.dtype)
+        if not cfg.rope:
+            x = x + self.pos_embed[None, :L].to(cfg.dtype)
+        for block in self.blocks():
+            x = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
+        x = self.ln_f(x)
+        if cfg.tie_embeddings:
+            return F.linear(x.float(), self.embed.embedding.float())
+        return self.lm_head(x)
+
+
+def _token_ll(logits: torch.Tensor, targets: torch.Tensor):
+    """Per-token log-likelihood (f32) and the log normalizer log Z."""
+    lg = logits.float()
+    log_z = torch.logsumexp(lg, dim=-1)
+    ll = lg.gather(-1, targets[..., None])[..., 0] - log_z
+    return ll, log_z
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> torch.Tensor:
+    """Next-token cross entropy, mean over all positions; `z_loss` adds
+    z_loss * mean(log Z^2)."""
+    ll, log_z = _token_ll(logits[:, :-1], tokens[:, 1:])
+    loss = -ll.mean()
+    if z_loss:
+        loss = loss + z_loss * (log_z ** 2).mean()
+    return loss

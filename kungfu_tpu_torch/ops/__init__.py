@@ -1,0 +1,4 @@
+"""Kernels of the port; each wrapper's plain PyTorch version sits beside it."""
+from .flash import KERNELS, flash_attention, flash_attention_with_lse
+
+__all__ = ["KERNELS", "flash_attention", "flash_attention_with_lse"]

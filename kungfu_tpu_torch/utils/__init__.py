@@ -1,0 +1,3 @@
+from .log import get_logger
+
+__all__ = ["get_logger"]
