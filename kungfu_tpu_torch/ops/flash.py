@@ -219,6 +219,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
     return dq
 
 
+def _require_mha(q, k) -> None:
+    """The GQA dk/dv kernel (B4) is not ported: a GQA backward on CUDA
+    raises here, the one place to remove when it lands."""
+    if k.shape[2] != q.shape[2]:
+        raise NotImplementedError(
+            "GQA dk/dv has no CUDA kernel yet (ROADMAP B4, kungfu_tpu/ops/flash.py:442 "
+            "_bwd_dkv_gqa_kernel); pass backward='xla' for the plain blocked backward")
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: (dk, dv) [B, L, H, D], MHA."""
@@ -226,10 +235,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
     if kernel_mode(q.device) == "plain":
         return _plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, _PLAIN_BLOCK_K,
                                window)[1:]
-    if k.shape[2] != h:
-        raise NotImplementedError(
-            "flash_bwd_dkv: GQA dk/dv has no CUDA kernel yet (ROADMAP B4, "
-            "kungfu_tpu/ops/flash.py:442 _bwd_dkv_gqa_kernel)")
+    _require_mha(q, k)
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -266,11 +272,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_k, window, backward):
-        if (kernel_mode(q.device) == "kernel" and k.shape[2] != q.shape[2]
-                and backward != "xla" and any(ctx.needs_input_grad[:3])):
-            raise NotImplementedError(
-                "GQA flash backward has no CUDA dk/dv kernel yet (ROADMAP B4); "
-                "pass backward='xla' for the plain blocked backward")
+        if (kernel_mode(q.device) == "kernel" and backward != "xla"
+                and any(ctx.needs_input_grad[:3])):
+            _require_mha(q, k)  # fail before the forward, not in the backward
         o, lse = flash_fwd(q, k, v, scale, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (scale, causal, block_k, window, backward)

@@ -4,13 +4,14 @@
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
 attention) with DataParallelTrainer + synchronous_sgd(adamw(3e-4)), as
-chip_smoke.py's main phase does, warms up for two steps, then profiles
-`--steps` steps with torch.profiler.  Prints the step time on the host
-clock, the device time of every kernel summed by category (the port's
-flash kernels, matrix products, the optimizer, everything else), the
-device's idle share (1 - the union of kernel intervals / the step's wall
-time), and the kernels that take the most device time; the last line is
-the same as one JSON object.  Needs a CUDA card.
+chip_smoke.py's main phase does (both build it with flagship_step), warms
+up for two steps, then profiles `--steps` steps with torch.profiler.
+Prints the step time on the host clock, the device time of every kernel
+summed by category (the port's flash kernels, matrix products, the
+optimizer, everything else), the device's idle share (1 - the union of
+kernel intervals / the step's wall time), and the kernels that take the
+most device time; the last line is the same as one JSON object.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -55,6 +56,23 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def flagship_step(batch: int, seed: int, device="cuda"):
+    """The flagship GPT training step that chip_smoke.py drives and main()
+    profiles: the bf16 flash-attention model with random weights from
+    `seed`, DataParallelTrainer + synchronous_sgd(adamw(3e-4, b1=0.9,
+    b2=0.95)), and one random [batch, seq] token batch from `seed + 1`.
+    Returns (cfg, trainer, state, tokens)."""
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **FLAGSHIP_GPT)
+    model = TransformerLM(cfg, device=device,
+                          generator=torch.Generator(device=device).manual_seed(seed))
+    trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
+                                  synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95)), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    tokens = trainer.shard_batch(torch.randint(0, cfg.vocab_size, (batch, cfg.max_len),
+                                               generator=gen, device=device))
+    return cfg, trainer, trainer.init(model), tokens
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -64,15 +82,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
         return 2
-    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **FLAGSHIP_GPT)
-    model = TransformerLM(cfg, device="cuda",
-                          generator=torch.Generator(device="cuda").manual_seed(args.seed))
-    trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
-                                  synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95)), device="cuda")
-    state = trainer.init(model)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, cfg.max_len), generator=gen,
-                           device="cuda")
+    cfg, trainer, state, tokens = flagship_step(args.batch, args.seed)
     for _ in range(2):
         state, m = trainer.train_step(state, tokens)
     m["loss"].item()

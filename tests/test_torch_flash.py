@@ -15,9 +15,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _flash_faults import FAULTS, planted_faults
 from _torch_reference import jax_reference
 from kungfu_tpu_torch.ops import flash as tflash
 from kungfu_tpu_torch.parallel.ring_attention import full_attention
+from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
 
 ATOL = 2e-5
 
@@ -139,3 +141,43 @@ def test_input_checks():
     meta = q.to("meta")
     with pytest.raises(ValueError, match="device"):
         tflash.flash_fwd(meta, meta, meta, 0.125, True)
+
+
+# -- the card's kernel check: normwise relative error per 64-row block --
+
+def _plain_results(q, k, v, do, scale):
+    o, lse = tflash._plain_fwd_blhd(q, k, v, scale, True, 0)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = tflash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, 0)
+    return (o, lse, delta) + grads
+
+
+@pytest.fixture(scope="module")
+def plain_l512():
+    """Plain causal results at L=512 on bf16-valued inputs: in f32, and in
+    bf16, which rounds P and dS before their products as the kernels do."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(512, 2, 2, seed=4)[:4])
+    f32 = [x.float() for x in (q, k, v, do)]
+    return f32, _plain_results(*f32, 0.125), _plain_results(q, k, v, do, 0.125)
+
+
+def test_kernel_check_accepts_bf16_rounding(plain_l512):
+    """bf16 arithmetic of the same computation stays inside the bf16 limit
+    that the card holds the kernels to."""
+    _, want, got = plain_l512
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got[:1] + got[3:], want[:1] + want[3:]):
+        whole, worst = rel_errs(g, w)
+        assert worst <= REL_LIMIT[torch.bfloat16], f"{name}: worst block {worst:.3g}"
+    assert (got[1] - want[1]).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_kernel_check_rejects_planted_faults(plain_l512, fault):
+    """A kernel that skips one 64-wide key or query block fails the bf16
+    limit, though the terms it drops are small next to the largest entry."""
+    (q, k, v, do), (o, lse, delta, dq, dk, dv), _ = plain_l512
+    name, bad = planted_faults(q, k, v, do, lse, delta, 0.125, o, dq, dk, dv)[fault]
+    want = dict(o=o, dq=dq, dk=dk, dv=dv)[name]
+    whole, worst = rel_errs(bad, want)
+    assert worst > 10 * REL_LIMIT[torch.bfloat16], f"{fault}: worst block {worst:.3g}"

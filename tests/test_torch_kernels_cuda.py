@@ -9,21 +9,22 @@ with an H100 with
 (`--noconftest`: the repo's conftest sets up JAX, which that machine need
 not have; this file imports none of it).
 
-Tolerances, as a multiple of max(1, max |reference|): f32 2e-4 (same
-products, another summation order); fp16 5e-3 and bf16 2e-2, a few
-roundings of the operand type (2^-11 and 2^-8 relative): P and dS are
-rounded before their products in the kernels, the output once more.
+Each output is judged by its normwise relative error over 64-row blocks,
+worst block against kungfu_tpu_torch.utils.compare.REL_LIMIT (f32 1e-5,
+fp16 2e-3, bf16 1e-2, set and explained there), and lse by LSE_ATOL.
+The readings are printed (`-s` shows them).  One test plants faults, a
+key or query block left out at L=2048, and shows the check rejects them.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from _flash_faults import FAULTS, planted_faults
 from kungfu_tpu_torch.ops import flash
+from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
 
 pytestmark = pytest.mark.cuda
-
-TOL = {torch.float32: 2e-4, torch.float16: 5e-3, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture(scope="module")
@@ -45,9 +46,14 @@ def _inputs(card, b, l, h, hkv, d, dtype, seed=0):
 
 
 def _close(got, want, dtype, what):
-    tol = TOL[dtype] * max(1.0, want.float().abs().max().item())
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol, f"{what}: max abs err {err:.3g} > {tol:.3g}"
+    whole, worst = rel_errs(got, want)
+    print(f"{what} {dtype}: normwise relative error {whole:.3g}, worst block {worst:.3g}")
+    assert worst <= REL_LIMIT[dtype], f"{what}: worst block {worst:.3g} > {REL_LIMIT[dtype]}"
+
+
+def _lse_close(got, want):
+    err = (got - want).abs().max().item()
+    assert err <= LSE_ATOL, f"lse: max abs err {err:.3g} > {LSE_ATOL}"
 
 
 CASES = [
@@ -71,7 +77,7 @@ def test_kernels_match_plain(card, dtype, b, l, h, hkv, d, causal, window):
     o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
     o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
     _close(o, o_ref, dtype, "o")
-    _close(lse, lse_ref, torch.float32, "lse")
+    _lse_close(lse, lse_ref)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
@@ -96,6 +102,31 @@ def test_gqa_forward_and_dq_kernels(card, dtype):
         flash.flash_bwd_dkv(q, k, v, do, lse, delta, 0.125, True)
     with pytest.raises(NotImplementedError, match="B4"):
         flash.flash_attention(q.requires_grad_(), k, v, causal=True)
+
+
+def test_check_rejects_planted_faults(card):
+    """At the flagship length (L=2048, bf16), the kernels pass the check
+    and every planted fault (a 64-wide key or query block left out, whose
+    terms are small next to the largest entry) fails it."""
+    q, k, v, do = _inputs(card, 1, 2048, 2, 2, 64, torch.bfloat16, seed=3)
+    scale = 0.125
+    o, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    got = dict(o=o, dq=flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True))
+    got["dk"], got["dv"] = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, True, 0)
+    want = dict(zip(("dq", "dk", "dv"), flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale,
+                                                              True, 128, 0)), o=o_ref)
+    for name in want:
+        _close(got[name], want[name], torch.bfloat16, name)
+    limit = REL_LIMIT[torch.bfloat16]
+    faults = planted_faults(q, k, v, do, lse, delta, scale, want["o"], want["dq"],
+                            want["dk"], want["dv"])
+    for fault in FAULTS:
+        name, bad = faults[fault]
+        worst = rel_errs(bad, want[name])[1]
+        print(f"planted fault, {fault}: worst block {worst:.3g}")
+        assert worst > limit, f"the check passed a planted fault: {fault} ({worst:.3g})"
 
 
 def test_autograd_counts_launches(card):
