@@ -1,32 +1,55 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (kungfu_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--steps 5] [--batch 8] [--seed 0]
+    python3 chip_smoke.py [--steps 5] [--batch 8] [--seed 0] [--rank-steps 3]
+                          [--bucket-mib 256]
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
  1. device   the card's name and power limit (nvidia-smi), torch's view
  2. build    every CUDA kernel of the main path, built from csrc/ with nvcc
- 3. kernels  each kernel against its plain PyTorch version at the flagship
-             attention shape (B=8, H=16, L=2048, D=64, bf16, causal), plus
-             the ragged L=2000 and window=256 cases; times of kernel, plain
-             version and the library call (scaled_dot_product_attention,
-             a yardstick the port never calls), and the least time the card
-             could take (bound)
+             (flash attention and the ring collectives), before any rank
+             starts
+ 3. kernels  each flash kernel against its plain PyTorch version at the
+             flagship attention shape (B=8, H=16, L=2048, D=64, bf16,
+             causal), plus the ragged L=2000 and window=256 cases; times of
+             kernel, plain version and the library call
+             (scaled_dot_product_attention, a yardstick the port never
+             calls), and the least time the card could take (bound)
  4. check    a small f32 model: flash kernels against full attention on the
              same weights (loss and every gradient)
  5. main     the flagship GPT (vocab 32000, d_model 1024, 24 layers, 16
              heads, d_ff 4096, seq 2048, bf16, RoPE, causal) training with
              DataParallelTrainer + synchronous_sgd(AdamW(3e-4, (0.9, 0.95),
-             wd 1e-4)) for a few steps on one repeated random batch: the loss
-             must be finite and fall, and each kernel must launch once per
-             layer per step
- 6. report   one JSON line of kernels, then the last line
-             {"ok": true, "device": {"platform": "gpu", ...}}
+             wd 1e-4)) for a few steps on one repeated random batch of 8, in
+             this process: the loss must be finite and fall, and each
+             kernel must launch once per layer per step
+ 6. ring     4 ranks started by `python -m kungfu_tpu_torch.run`, rank r on
+             card r mod count (all four on a machine with one card), each
+             running tools/ring_check: the ring reduce-scatter (B5) and
+             all-gather (B6) kernels and their all-reduce against the
+             stacked plain versions, bit for bit, in f32 at the flagship's
+             gradient size, in bf16 at 64M values and in a ragged f32 case
+             of 1,000,003 values, with planted faults rejected; their times
+             (median of 5 calls, CUDA events), the plain versions' times,
+             NCCL's where every rank has a card of its own, and the bound
+ 7. ranks    the new main path: the same flagship GPT on 4 ranks started by
+             the launcher, batch 2 each (the same 8 sequences as phase main),
+             synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
+             bucket_bytes=--bucket-mib MiB) for --rank-steps steps: loss
+             finite and falling, the first step's loss within 1e-2 of phase
+             main's, the replicas bit-identical after the last step (a
+             checksum of every parameter's bits, gathered over the group),
+             each flash kernel launched once per layer per step and each
+             ring kernel once per bucket per step on every rank
+ 8. report   one JSON line of kernels (launches from rank 0 of phase ranks),
+             then the last line {"ok": true, "device": {"platform": "gpu", ...}}
 
-f32 products on the card run in full f32: TF32 is switched off for matmuls
-and cuDNN.  Imports nothing of JAX.  Without a CUDA device, or without the
-package beside it, it exits non-zero before printing a result.
+A rank that fails fails the run: the parent prints the ranks' output and
+exits non-zero.  f32 products on the card run in full f32: TF32 is switched
+off for matmuls and cuDNN in every process.  Imports nothing of JAX, and
+every rank checks that too.  Without a CUDA device, or without the package
+beside it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
@@ -59,6 +82,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # error of 1e-5.
 TOL_MODEL_LOSS = 1e-4
 TOL_MODEL_GRAD = 1e-5
+# Phase ranks against phase main, first step (no update yet): the same
+# weights and sequences, the loss averaged over 4 shards instead of taken
+# over one batch of 8, so only bf16 products of other shapes differ.
+TOL_RANKS_LOSS = 1e-2
+N_RANKS = 4
+RANKS_LINE = "RANKS_RESULT "
 
 
 class SmokeFailure(Exception):
@@ -89,6 +118,31 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def tf32_off() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def jax_free() -> bool:
+    return not any(m.split(".")[0] in ("jax", "kungfu_tpu") for m in sys.modules)
+
+
+def spawn_ranks(worker_args, tag: str, timeout: float):
+    """This script in rank mode on N_RANKS ranks, started by the launcher;
+    {rank: its `tag` line}.  A failed rank fails the phase, with the
+    ranks' output."""
+    from kungfu_tpu_torch.tools import ring_check
+
+    rc, out, results = ring_check.launch(
+        N_RANKS, [sys.executable, os.path.abspath(__file__), "--rank-phase", *worker_args],
+        timeout=timeout, tag=tag)
+    if rc != 0 or sorted(results) != list(range(N_RANKS)):
+        print(out[-12000:], file=sys.stderr)
+        raise SmokeFailure(f"rank phase {worker_args[0]}: launcher exit {rc}, "
+                           f"results from ranks {sorted(results)}")
+    return out, results
+
+
 # ----------------------------------------------------------------- phases --
 
 def phase_device():
@@ -99,8 +153,7 @@ def phase_device():
     print(card)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     print("[device] tf32 off for matmuls and cuDNN: f32 products run in full f32")
     return card, kind, count
 
@@ -285,15 +338,147 @@ def phase_main(steps: int, batch: int, seed: int):
     print(f"[main] steady step {step_s * 1e3:.1f} ms (median of steps 2-{steps}), "
           f"{batch * cfg.max_len / step_s:.0f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {json.dumps(launches)}")
-    return launches
+    return losses, n_params
+
+
+def phase_ring(n_params: int, seed: int):
+    """B5 and B6 on N_RANKS ranks against their stacked plain versions."""
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    cases = f"f32:{n_params},bf16:{64 << 20},f32:1000003"
+    _, res = spawn_ranks(["ring", "--cases", cases, "--iters", "5", "--seed", str(seed),
+                          "--faults"], "RING_CHECK ", 600)
+    for r, rr in sorted(res.items()):
+        for case in rr["cases"]:
+            check(all(case["ok"].values()), f"ring rank {r} {case['dtype']} x {case['size']}: "
+                  f"{json.dumps(case['ok'])}, max abs err {json.dumps(case['max_abs_err'])}")
+    r0 = res[0]
+    print(f"[ring] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
+          f"reduce-scatter, all-gather and all-reduce (sum, mean) equal the stacked plain "
+          f"versions bit for bit; planted faults rejected")
+    for i, case in enumerate(r0["cases"]):
+        slowest = {k: max(rr["cases"][i]["ms"][k] for rr in res.values()) for k in case["ms"]}
+        lib = case["library_ms"]
+        lib = ({k: max(rr["cases"][i]["library_ms"][k] for rr in res.values()) for k in lib}
+               if lib else None)
+        print(f"[ring] {case['dtype']} x {case['size']} (chunk {case['chunk']}): kernel ms "
+              f"(slowest rank's median) rs {slowest['rs']:.3f} ag {slowest['ag']:.3f} "
+              f"all-reduce {slowest['ar']:.3f}; plain ms {json.dumps(case['plain_ms'])}; "
+              f"bound ms {json.dumps(case['bound_ms'])} ({case['bound_note']}); NCCL ms "
+              f"{json.dumps(lib) if lib else 'null: ' + case['library_note']}")
+        case["slowest_ms"], case["library_slowest_ms"] = slowest, lib
+    big = r0["cases"][0]  # the flagship's gradient size
+    keys = {RC.RING_RS.name: "rs", RC.RING_AG.name: "ag"}
+    errs = {name: max(c["max_abs_err"][k] for rr in res.values() for c in rr["cases"])
+            for name, k in keys.items()}
+    ms = {name: big["slowest_ms"][k] for name, k in keys.items()}
+    plain = {name: big["plain_ms"][k] for name, k in keys.items()}
+    library = {name: (big["library_slowest_ms"][k] if big["library_slowest_ms"] else None)
+               for name, k in keys.items()}
+    bounds = {name: (big["bound_ms"][k], "bytes") for name, k in keys.items()}
+    return errs, ms, plain, library, bounds
+
+
+def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, main_loss1: float):
+    """The flagship S-SGD step on N_RANKS ranks through the ring kernels."""
+    out, res = spawn_ranks(["train", "--steps", str(steps), "--batch", str(batch), "--seed",
+                            str(seed), "--bucket-mib", str(bucket_mib)], RANKS_LINE, 900)
+    for line in out.splitlines():
+        if "[ranks]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        check(rr["ok"], f"ranks: rank {r} failed its checks: {json.dumps(rr['checks'])}")
+    r0 = res[0]
+    loss1 = r0["losses"][0]
+    check(abs(loss1 - main_loss1) <= TOL_RANKS_LOSS,
+          f"ranks: first-step loss {loss1} vs phase main's {main_loss1}")
+    step_s = max(rr["step_s"] for rr in res.values())
+    peaks = " ".join(f"{rr['peak_gib']:.2f}" for rr in res.values())
+    print(f"[ranks] {N_RANKS} ranks x batch {batch // N_RANKS} ({r0['backend']}, "
+          f"{r0['buckets']} buckets of at most {bucket_mib} MiB): losses "
+          f"{' '.join(f'{x:.4f}' for x in r0['losses'])}, first step {loss1:.4f} vs phase "
+          f"main's {main_loss1:.4f}; replicas bit-identical; steady step "
+          f"{step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} tokens/s, peak "
+          f"memory per rank {peaks} GiB; "
+          f"rank 0 launches {json.dumps(r0['launches'])}")
+    return r0["launches"]
+
+
+def rank_train(argv) -> int:
+    """One rank of phase ranks (run by the launcher)."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.tools.step_profile import flagship_step
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    args = ap.parse_args(argv)
+    tf32_off()
+    world = distributed.init_distributed(device="cuda")
+    rank = dist.get_rank()
+    bucket = args.bucket_mib << 20
+    cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl="pallas_ring",
+                                                bucket_bytes=bucket or None)
+    per = args.batch // world
+    batch = tokens[rank * per:(rank + 1) * per]
+    params = list(state.params.parameters())
+    buckets = len(_pack_buckets(params, bucket)) if bucket else len(params)
+    kernels = flash.KERNELS + RC.KERNELS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        print(f"[ranks] rank {rank} step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms", flush=True)
+    launches = {k.name: k.launches for k in kernels}
+    sums = [p.detach().view(torch.int32).to(torch.int64).sum().item() for p in params]
+    every = [None] * world
+    dist.all_gather_object(every, sums)
+    want = {k.name: cfg.n_layers * args.steps for k in flash.KERNELS}
+    want.update({k.name: buckets * args.steps for k in RC.KERNELS})
+    checks = {
+        "loss finite": all(math.isfinite(x) for x in losses),
+        "loss falls": losses[-1] < losses[0],
+        "replicas bit-identical": all(s == every[0] for s in every),
+        "launches": launches == want,
+        "no JAX": jax_free(),
+    }
+    result = {"rank": rank, "backend": dist.get_backend(), "losses": losses,
+              "step_s": statistics.median(times[1:]) if args.steps > 1 else times[0],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "buckets": buckets,
+              "launches": launches, "expected_launches": want, "checks": checks,
+              "ok": all(checks.values())}
+    print(RANKS_LINE + json.dumps(result), flush=True)
+    distributed.shutdown_distributed()
+    return 0 if result["ok"] else 1
+
+
+def rank_ring(argv) -> int:
+    """One rank of phase ring (run by the launcher)."""
+    from kungfu_tpu_torch.tools import ring_check
+
+    tf32_off()
+    rc = ring_check.main(argv)
+    if not jax_free():
+        print("chip_smoke: JAX or the JAX package was imported", file=sys.stderr)
+        return 1
+    return rc
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -301,25 +486,42 @@ def main() -> int:
         print("chip_smoke: kungfu_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--rank-phase"]:  # one rank of phase ring or ranks
+        phase, rest = sys.argv[2], sys.argv[3:]
+        return rank_ring(rest) if phase == "ring" else rank_train(rest)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-steps", type=int, default=3)
+    ap.add_argument("--bucket-mib", type=int, default=256,
+                    help="bucket_bytes of phase ranks in MiB (0: one ring call per gradient)")
+    args = ap.parse_args()
     from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
 
     try:
         _, kind, count = phase_device()
         phase_build()
-        errs, ms, plain, library, bounds = phase_kernels(args.seed)
+        results = [phase_kernels(args.seed)]
         phase_model_check(args.seed)
-        launches = phase_main(args.steps, args.batch, args.seed)
-        check(not any(m.split(".")[0] in ("jax", "kungfu_tpu") for m in sys.modules),
-              "JAX or the JAX package was imported")
+        main_losses, n_params = phase_main(args.steps, args.batch, args.seed)
+        torch.cuda.empty_cache()  # the ranks need the card's memory
+        results.append(phase_ring(n_params, args.seed))
+        launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
+                               main_losses[0])
+        check(jax_free(), "JAX or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    errs, ms, plain, library, bounds = ({k: v for r in results for k, v in r[i].items()}
+                                        for i in range(5))
     kernels = [{
         "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
         "launches": launches[k.name], "max_abs_err": errs[k.name], "ms": ms[k.name],
         "plain_ms": plain[k.name], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
-    } for k in flash.KERNELS]
+    } for k in flash.KERNELS + RC.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

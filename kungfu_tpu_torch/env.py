@@ -11,6 +11,10 @@ The launcher configures each worker through these variables:
   KFT_CONFIG_SERVER        URL of the elastic config service
   KFT_CONFIG_URLS          comma-separated replica URLs (wins over
                            KFT_CONFIG_SERVER)
+  KFT_JOB_START / KFT_PROC_START  timestamps for event tracing
+
+Tuning tier: every KFT_CONFIG_* variable of the launcher's environment is
+forwarded to the workers (`worker_env`).
 
 Single-process fallback (no KFT_SELF_SPEC): one worker 127.0.0.1:10000,
 exactly as the JAX package does.
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .plan import DEFAULT_STRATEGY, Cluster, PeerID, PeerList, Strategy
 
@@ -31,6 +35,15 @@ PARENT_ID = "KFT_PARENT_ID"
 ALLREDUCE_STRATEGY = "KFT_ALLREDUCE_STRATEGY"
 CONFIG_SERVER = "KFT_CONFIG_SERVER"
 CONFIG_URLS = "KFT_CONFIG_URLS"
+JOB_START = "KFT_JOB_START"
+PROC_START = "KFT_PROC_START"
+
+CONFIG_PREFIX = "KFT_CONFIG_"
+
+ALL_WORKER_ENVS: List[str] = [
+    SELF_SPEC, INIT_PEERS, INIT_RUNNERS, INIT_CLUSTER_VERSION,
+    PARENT_ID, ALLREDUCE_STRATEGY, CONFIG_SERVER, JOB_START, PROC_START,
+]
 
 
 @dataclasses.dataclass
@@ -82,3 +95,34 @@ def parse_config_from_env(env: Optional[Dict[str, str]] = None) -> Config:
         config_server=config_server,
         parent=PeerID.parse(e[PARENT_ID]) if e.get(PARENT_ID) else None,
     )
+
+
+def worker_env(
+    self_id: PeerID,
+    cluster: Cluster,
+    version: int,
+    strategy: Strategy,
+    parent: Optional[PeerID] = None,
+    config_server: str = "",
+) -> Dict[str, str]:
+    """Env block the launcher injects into a worker: the same keys and
+    values as the JAX package's `worker_env` for the same cluster."""
+    env = {
+        SELF_SPEC: str(self_id),
+        INIT_PEERS: ",".join(str(p) for p in cluster.workers),
+        INIT_RUNNERS: ",".join(str(p) for p in cluster.runners),
+        INIT_CLUSTER_VERSION: str(version),
+        ALLREDUCE_STRATEGY: strategy.name,
+    }
+    if parent is not None:
+        env[PARENT_ID] = str(parent)
+    if config_server:
+        env[CONFIG_SERVER] = config_server
+        if "," in config_server:  # a replicated ensemble rides both variables
+            env[CONFIG_URLS] = config_server
+    # forward the tuning tier; never clobber the contract above
+    # (KFT_CONFIG_SERVER shares the prefix)
+    for k, v in os.environ.items():
+        if k.startswith(CONFIG_PREFIX) and k not in env and k not in ALL_WORKER_ENVS:
+            env[k] = v
+    return env

@@ -5,12 +5,15 @@ with a plain C interface, loaded with ctypes.  The libraries land in
 `kungfu_tpu_torch/_build/` (listed in .gitignore) under a name that
 carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  The first call builds every
-source at once, one `nvcc` process each.  Nothing is built at import:
-the CPU has no compiler and needs none.
+source at once, one `nvcc` process each.  Processes that start together
+(the ranks of one host) build one at a time under a file lock, so the
+first builds and the others load what it built.  Nothing is built at
+import: the CPU has no compiler and needs none.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -30,7 +33,11 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of every exported function: (argtypes, source stem)
+_L, _U = ctypes.c_longlong, ctypes.c_ulonglong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_RING = [_P, _P, _I, _I, _I, _L, _L, _I, _U, _U, _U, _P, _P]  # own ... stream
+# C signature of every exported function: (argtypes, source stem); each
+# returns a CUDA error code unless RESTYPES says otherwise
 SIGNATURES = {
     "kft_flash_fwd": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_fwd"),
@@ -38,7 +45,17 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
     "kft_flash_bwd_dkv": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
+    "kft_ring_rs": ([_P, _L, _L, _L, _P, _L, _I] + _RING, "ring"),
+    "kft_ring_ag": ([_P, _L, _P, _L, _L, _L, _I] + _RING, "ring"),
+    "kft_ring_header_bytes": ([_I, _I], "ring"),
+    "kft_ws_alloc": ([_I, _L, _PP, _P], "ring"),
+    "kft_ws_open": ([_I, _P, _PP], "ring"),
+    "kft_ws_close": ([_I, _P], "ring"),
+    "kft_ws_free": ([_I, _P], "ring"),
+    "kft_host_alloc": ([_L, _PP], "ring"),
+    "kft_host_free": ([_P], "ring"),
 }
+RESTYPES = {"kft_ring_header_bytes": _L}
 SOURCES = sorted({stem for _, stem in SIGNATURES.values()})
 
 _lock = threading.Lock()
@@ -75,9 +92,18 @@ def build_all() -> Dict[str, str]:
     (`-Xptxas -v`) is kept beside each library as `<lib>.log`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {stem: _lib_path(stem) for stem in SOURCES}
+    if all(os.path.exists(p) for p in paths.values()):
+        return paths
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _build_missing(paths)
+    return paths
+
+
+def _build_missing(paths: Dict[str, str]) -> None:
     todo = {s: p for s, p in paths.items() if not os.path.exists(p)}
     if not todo:
-        return paths
+        return
     nvcc = _nvcc()
     procs = {}
     for stem, path in todo.items():
@@ -97,10 +123,9 @@ def build_all() -> Dict[str, str]:
             os.unlink(tmp)
             failed.append(f"{stem}.cu (exit {proc.returncode}):\n{out[-4000:]}")
         else:
-            os.replace(tmp, paths[stem])  # atomic: concurrent builders agree
+            os.replace(tmp, paths[stem])  # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return paths
 
 
 def function(name: str):
@@ -114,5 +139,5 @@ def function(name: str):
             lib = _libs[stem]
     fn = getattr(lib, name)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = RESTYPES.get(name, ctypes.c_int)
     return fn

@@ -3,19 +3,29 @@ optimizer (counterpart of kungfu_tpu.optimizers.sync).
 
 The JAX package composes optax transforms inside the compiled step.  Here
 the inner optimizer is a `torch.optim` one, and the wrapper averages each
-parameter's `.grad` in place with `dist.all_reduce(SUM) / world` before
-the inner step, so every rank applies the same update and the replicas
-stay identical.
+parameter's `.grad` in place before the inner step, so every rank applies
+the same update and the replicas stay identical.
 
-    tx = synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), bucket_bytes=4 << 20)
+    tx = synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
+                         bucket_bytes=4 << 20)
     opt = tx(model.parameters())
     loss.backward(); opt.step()
 
+`impl` names the schedule, as in the JAX package:
+
+  pmean        dist.all_reduce(SUM) / world (NCCL or gloo pick the order)
+  pallas_ring  the hand-written ring kernels B5 + B6
+               (ops.ring_collectives.ring_all_reduce(g, op="mean")); a CPU
+               gradient runs their plain ring over the process group
+  ring         the lax ring of ops/collective.py, times 1/world
+  rs_ag        reduce-scatter + all-gather of ops/collective.py, times 1/world
+
 `bucket_bytes` packs consecutive same-dtype gradients into flat buffers of
-at most that size and reduces each buffer with one collective; the mean
-is element-wise, so bucketed and unbucketed results are identical.
-`impl="pallas_ring"` (the hand-scheduled ring kernels) and
-`bucket_bytes="auto"` (the tuner) are not ported yet and raise.
+at most that size and reduces each buffer with one collective.  The pmean
+is element-wise, so bucketed and unbucketed results are identical; the
+rings chunk the buffer they are given, so bucketing moves chunk
+boundaries and with them the order of some adds.  `bucket_bytes="auto"`
+(the tuner) and impl="hierarchical" are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,6 +33,9 @@ from typing import Callable, Iterable, List, Optional, Union
 
 import torch
 import torch.distributed as dist
+
+from ..ops import collective as C
+from ..ops import peer_memory, ring_collectives
 
 BucketBytes = Union[int, str, None]
 
@@ -41,10 +54,22 @@ def _mean_reducer(group, impl: str) -> Callable[[torch.Tensor], None]:
                 flat.div_(world)
 
         return reduce
-    if impl == "pallas_ring":
+    rings = {
+        "pallas_ring": lambda g: ring_collectives.ring_all_reduce(g, group, op="mean"),
+        "ring": lambda g: C.ring_all_reduce(g, group).mul_(1.0 / _world(group)),
+        "rs_ag": lambda g: C.rs_ag_all_reduce(g, group).mul_(1.0 / _world(group)),
+    }
+    if impl in rings:
+        mean = rings[impl]
+
+        def reduce(flat: torch.Tensor) -> None:
+            if _world(group) > 1:
+                flat.copy_(mean(flat))
+
+        return reduce
+    if impl == "hierarchical":
         raise NotImplementedError(
-            "impl='pallas_ring' needs the ring reduce-scatter/all-gather "
-            "kernels, not ported yet (ROADMAP B5/B6)")
+            "impl='hierarchical' needs (dcn, ici) groups, not ported yet (ROADMAP A4)")
     raise ValueError(f"unknown reduce impl {impl!r}")
 
 
@@ -103,6 +128,8 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
     else:
         for g in grads:
             reduce(g)
+    if impl == "pallas_ring":
+        peer_memory.check_all()  # a ring kernel that gave up on a peer raises here
 
 
 class SynchronousSGDOptimizer:

@@ -1,11 +1,16 @@
 """Where the time of one training step goes on the card.
 
     python -m kungfu_tpu_torch.tools.step_profile [--batch 8] [--steps 2]
+    python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
+        --impl pallas_ring --bucket-mib 256
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
-attention) with DataParallelTrainer + synchronous_sgd(adamw(3e-4)), as
-chip_smoke.py's main phase does (both build it with flagship_step), warms
-up for two steps, then profiles `--steps` steps with torch.profiler.
+attention) with DataParallelTrainer + synchronous_sgd(adamw(3e-4), impl,
+bucket_bytes), as chip_smoke.py's main and ranks phases do (both build it
+with flagship_step), warms up for two steps, then profiles `--steps`
+steps with torch.profiler.  Started by the launcher, each rank trains on
+its share of the batch of `--batch` and profiles its own process: where
+ranks share a card, the others' kernels fill its idle time.
 Prints the step time on the host clock, the device time of every kernel
 summed by category (the port's flash kernels, matrix products, the
 optimizer, everything else), the device's idle share (1 - the union of
@@ -23,15 +28,18 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .. import distributed
 from ..models.transformer import FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss
 from ..optimizers import adamw, synchronous_sgd
 from ..train import DataParallelTrainer
 
 CATEGORIES = (  # first match wins
     ("flash kernels (port)", re.compile(r"flash_(fwd|bwd)")),
+    ("ring kernels (port)", re.compile(r"ring_(rs|ag)_kernel")),
     ("matrix products", re.compile(r"gemm|sm90_|cutlass|xmma|nvjet|cublas", re.I)),
     ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
 )
@@ -56,17 +64,19 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def flagship_step(batch: int, seed: int, device="cuda"):
+def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
+                  bucket_bytes=None):
     """The flagship GPT training step that chip_smoke.py drives and main()
     profiles: the bf16 flash-attention model with random weights from
     `seed`, DataParallelTrainer + synchronous_sgd(adamw(3e-4, b1=0.9,
-    b2=0.95)), and one random [batch, seq] token batch from `seed + 1`.
-    Returns (cfg, trainer, state, tokens)."""
+    b2=0.95), impl, bucket_bytes), and one random [batch, seq] token batch
+    from `seed + 1`.  Returns (cfg, trainer, state, tokens)."""
     cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **FLAGSHIP_GPT)
     model = TransformerLM(cfg, device=device,
                           generator=torch.Generator(device=device).manual_seed(seed))
     trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
-                                  synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95)), device=device)
+                                  synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl=impl,
+                                                  bucket_bytes=bucket_bytes), device=device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     tokens = trainer.shard_batch(torch.randint(0, cfg.vocab_size, (batch, cfg.max_len),
                                                generator=gen, device=device))
@@ -78,11 +88,18 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--impl", default="pmean", help="synchronous_sgd's gradient mean")
+    ap.add_argument("--bucket-mib", type=int, default=0, help="bucket_bytes in MiB (0: per leaf)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
         return 2
-    cfg, trainer, state, tokens = flagship_step(args.batch, args.seed)
+    world = distributed.init_distributed(device="cuda")
+    rank = dist.get_rank() if world > 1 else 0
+    cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
+                                                bucket_bytes=(args.bucket_mib << 20) or None)
+    per = args.batch // world
+    tokens = tokens[rank * per:(rank + 1) * per]
     for _ in range(2):
         state, m = trainer.train_step(state, tokens)
     m["loss"].item()
@@ -108,7 +125,8 @@ def main() -> int:
     steps = args.steps
     step_ms = wall_us / steps / 1e3
     print(f"[profile] {torch.cuda.get_device_name(0)}, flagship GPT batch {args.batch} x "
-          f"{cfg.max_len}: step {step_ms:.1f} ms on the host clock, device busy "
+          f"{cfg.max_len} (rank {rank} of {world}, batch {per}, impl={args.impl}): step "
+          f"{step_ms:.1f} ms on the host clock, this process's device busy "
           f"{busy_us / steps / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: {us / steps / 1e3:.1f} ms/step "
@@ -117,11 +135,12 @@ def main() -> int:
     for name, us in top:
         print(f"[profile]   {us / steps / 1e3:8.2f} ms/step  {name[:110]}")
     print(json.dumps({
-        "step_ms": step_ms, "device_busy_ms": busy_us / steps / 1e3,
+        "rank": rank, "world": world, "step_ms": step_ms, "device_busy_ms": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,
         "categories_ms": {k: v / steps / 1e3 for k, v in by_cat.items()},
         "top_kernels_ms": {k[:110]: v / steps / 1e3 for k, v in top},
     }))
+    distributed.shutdown_distributed()
     return 0
 
 

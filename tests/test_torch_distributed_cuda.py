@@ -1,11 +1,20 @@
-"""S-SGD across cards: ranks brought up from the KungFu env contract over
-NCCL, each training on its batch shard with the flash kernels, against
-one process training on the whole batch.
+"""S-SGD across ranks: ranks brought up from the KungFu env contract, each
+training on its batch shard with the flash kernels.
 
-Marked `cuda`; skips without two cards (the check runs in a fixture).
-Tolerance: parameters to 1e-5 absolute after three AdamW steps at lr
-1e-3, f32 throughout (the same f32 products; the gradient mean is taken
-over shards instead of the whole batch, another summation order).
+NCCL (impl="pmean", ranks on cards of their own) against one process
+training on the whole batch.  Tolerance: parameters to 1e-5 absolute after
+three AdamW steps at lr 1e-3, f32 throughout (the same f32 products; the
+gradient mean is taken over shards instead of the whole batch, another
+summation order).
+
+The ring kernels (impl="pallas_ring") against impl="pmean" on the same two
+ranks, bit for bit: with two ranks every sum is one add of two values,
+which is the same in either order, and halving is exact, so the two means
+are the same numbers.  The ranks share the one card there is (a gloo
+group) or have a card each (NCCL).
+
+Marked `cuda`; skips without a card, and the NCCL case without two (the
+check runs in a fixture).
 """
 from __future__ import annotations
 
@@ -38,17 +47,18 @@ WORKER = textwrap.dedent("""
     from kungfu_tpu_torch import distributed
     from kungfu_tpu_torch.models import transformer as tt
     from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
     from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
     from kungfu_tpu_torch.train import DataParallelTrainer
 
-    common, lr, steps, per_rank, world = eval(sys.argv[2])
+    common, lr, steps, per_rank, world, impl = eval(sys.argv[2])
     assert distributed.init_distributed(device="cuda") == world
     rank = dist.get_rank()
     cfg = tt.TransformerConfig(**common)
     model = tt.TransformerLM(cfg, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(rank))
     trainer = DataParallelTrainer(lambda m, b: tt.lm_loss(m(b), b),
-                                  synchronous_sgd(adamw(lr), bucket_bytes=1 << 20),
+                                  synchronous_sgd(adamw(lr), impl=impl, bucket_bytes=1 << 20),
                                   device="cuda")
     state = trainer.init(model)  # every rank starts from rank 0's weights
     tokens = torch.from_numpy(np.load(sys.argv[1] + ".tokens.npy")).long()
@@ -56,6 +66,8 @@ WORKER = textwrap.dedent("""
     for _ in range(steps):
         state, m = trainer.train_step(state, batch)
     assert all(k.launches == steps * cfg.n_layers for k in flash.KERNELS)
+    ring = [k.launches for k in RC.KERNELS]
+    assert (min(ring) > 0 and ring[0] == ring[1]) if impl == "pallas_ring" else ring == [0, 0]
     out = {k: v.cpu().numpy() for k, v in trainer.eval_params(state).items()}
     np.savez(sys.argv[1] + f".{rank}.npz", loss=m["loss"].item(), **out)
     distributed.shutdown_distributed()
@@ -64,10 +76,13 @@ WORKER = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def cards():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return min(torch.cuda.device_count(), 4)
+    from kungfu_tpu_torch.ops import _build
+
+    _build.build_all()  # once, before the ranks start
+    return torch.cuda.device_count()
 
 
 def _free_port() -> int:
@@ -76,14 +91,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_nccl_ssgd_matches_one_process(cards, tmp_path):
-    world = cards
+def _train_ranks(world, impl, tmp_path):
+    """Every rank's final parameters and loss, checked to be the same on
+    every rank; and the tokens of the whole batch."""
     tokens = np.random.default_rng(0).integers(
         0, COMMON["vocab_size"], (world * PER_RANK, COMMON["max_len"]))
+    tmp_path.mkdir(parents=True, exist_ok=True)
     np.save(tmp_path / "run.tokens.npy", tokens)
     port = _free_port()
     peers = ",".join(f"127.0.0.1:{port + r}" for r in range(world))
-    args = repr((COMMON, LR, STEPS, PER_RANK, world))
+    args = repr((COMMON, LR, STEPS, PER_RANK, world, impl))
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(tmp_path / "run"), args],
         env=dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,
@@ -96,7 +113,13 @@ def test_nccl_ssgd_matches_one_process(cards, tmp_path):
     for res in results[1:]:  # S-SGD keeps the replicas identical, bit for bit
         for key in results[0].files:
             np.testing.assert_array_equal(res[key], results[0][key])
+    return results[0], tokens
 
+
+def test_nccl_ssgd_matches_one_process(cards, tmp_path):
+    if cards < 2:
+        pytest.skip("needs two CUDA cards")
+    result, tokens = _train_ranks(min(cards, 4), "pmean", tmp_path)
     cfg = tt.TransformerConfig(**COMMON)
     model = tt.TransformerLM(cfg, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(0))
@@ -106,5 +129,12 @@ def test_nccl_ssgd_matches_one_process(cards, tmp_path):
     state, m = trainer.train_steps(state, trainer.shard_batch(torch.from_numpy(tokens).long()),
                                    STEPS)
     for key, want in trainer.eval_params(state).items():
-        np.testing.assert_allclose(results[0][key], want.cpu().numpy(), atol=1e-5, err_msg=key)
-    assert abs(float(results[0]["loss"]) - m["loss"].item()) < 1e-5
+        np.testing.assert_allclose(result[key], want.cpu().numpy(), atol=1e-5, err_msg=key)
+    assert abs(float(result["loss"]) - m["loss"].item()) < 1e-5
+
+
+def test_pallas_ring_ssgd_matches_pmean(cards, tmp_path):
+    ring, _ = _train_ranks(2, "pallas_ring", tmp_path / "ring")
+    pmean, _ = _train_ranks(2, "pmean", tmp_path / "pmean")
+    for key in pmean.files:
+        np.testing.assert_array_equal(ring[key], pmean[key], err_msg=key)

@@ -11,7 +11,8 @@ import torch
 
 from _torch_reference import jax_reference
 from kungfu_tpu_torch import compat, env as tenv
-from kungfu_tpu_torch.distributed import init_distributed
+from kungfu_tpu_torch.distributed import init_distributed, placement
+from kungfu_tpu_torch.plan import PeerID, PeerList
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,6 +70,32 @@ def test_bad_env_raises_like_jax(jenv):
 
 def test_single_peer_needs_no_group():
     assert init_distributed(tenv.parse_config_from_env({}), device="cpu") == 1
+
+
+ONE_HOST = "127.0.0.1:10000,127.0.0.1:10001,127.0.0.1:10002,127.0.0.1:10003"
+TWO_HOSTS = "a:10000,a:10001,b:10000,b:10001"
+
+
+@pytest.mark.parametrize("peers,me,device,cards,want", [
+    (ONE_HOST, "127.0.0.1:10002", "cuda", 1, (0, "gloo")),  # four ranks share the card
+    (ONE_HOST, "127.0.0.1:10003", "cuda", 4, (3, "nccl")),  # a card each
+    (ONE_HOST, "127.0.0.1:10003", "cuda", 2, (1, "gloo")),  # two ranks a card
+    (ONE_HOST, "127.0.0.1:10001", "cuda", 8, (1, "nccl")),
+    (TWO_HOSTS, "b:10001", "cuda", 2, (1, "nccl")),  # local rank 1 of host b
+    (TWO_HOSTS, "b:10000", "cuda", 1, (0, "gloo")),
+    (ONE_HOST, "127.0.0.1:10002", "cpu", 0, (None, "gloo")),
+])
+def test_placement_picks_card_and_backend(peers, me, device, cards, want):
+    """Card = local rank mod the cards a rank sees; NCCL only when every
+    rank of a host has a card of its own, since NCCL refuses two ranks of
+    one communicator on one card."""
+    peer_list = PeerList(PeerID.parse(p) for p in peers.split(","))
+    assert placement(peer_list, PeerID.parse(me), device, cards) == want
+
+
+def test_placement_needs_a_card_for_cuda():
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        placement(PeerList([PeerID("h", 1)]), PeerID("h", 1), "cuda", 0)
 
 
 PROBE = """

@@ -2,9 +2,11 @@
 
 Three `DataParallelTrainer` steps of `synchronous_sgd(adamw)` on a small
 TransformerLM, f32 on the CPU, from the same converted weights and data:
-one rank against the JAX trainer on a one-device mesh, then two gloo
-ranks (brought up from the KungFu env contract) against it on a
-two-device mesh.
+one rank against the JAX trainer on a one-device mesh, then n gloo ranks
+(brought up from the KungFu env contract) against it on an n-device
+mesh: the default pmean at n=2, and impl="pallas_ring" at n=2 and n=3,
+where the JAX trainer runs the Pallas ring kernels in interpret mode and
+the port's ranks run their plain ring over gloo.
 
 Tolerance: losses to 2e-5 and parameters to 1e-5 absolute.  Each AdamW
 step moves a parameter by at most about the learning rate (1e-3); the
@@ -57,7 +59,7 @@ def _data(seed=0, ranks=1):
                         ).astype(np.int32)
 
 
-def _jax_run(ref, tokens, n_devices):
+def _jax_run(ref, tokens, n_devices, impl="pmean"):
     """(initial params, losses, final params) of the JAX trainer."""
     jt, nn, optax, jsync, JTrainer = ref
     from jax.sharding import Mesh
@@ -72,7 +74,7 @@ def _jax_run(ref, tokens, n_devices):
         return jt.lm_loss(model.apply({"params": p}, batch), batch)
 
     mesh = Mesh(np.array(jax.devices()[:n_devices]), ("dp",))
-    trainer = JTrainer(loss_fn, jsync(optax.adamw(LR, b1=0.9, b2=0.95)), mesh=mesh)
+    trainer = JTrainer(loss_fn, jsync(optax.adamw(LR, b1=0.9, b2=0.95), impl=impl), mesh=mesh)
     state = trainer.init(params)
     batch = trainer.shard_batch(jnp.asarray(tokens))
     losses = []
@@ -173,7 +175,7 @@ WORKER = textwrap.dedent("""
     from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
     from kungfu_tpu_torch.train import DataParallelTrainer
 
-    common, lr, steps, per_rank = eval(sys.argv[3])
+    common, lr, steps, per_rank, world, impl, bucket_bytes = eval(sys.argv[3])
     data = np.load(sys.argv[1])
     tree = {}
     for key in data.files:
@@ -184,14 +186,15 @@ WORKER = textwrap.dedent("""
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = data[key]
-    assert distributed.init_distributed(device="cpu") == 2
+    assert distributed.init_distributed(device="cpu") == world
     rank = dist.get_rank()
     cfg = tt.TransformerConfig(dtype=torch.float32, **common)
     model = tt.TransformerLM(cfg, device="cpu")
     model.load_state_dict(convert.params_from_flax(tree, cfg))
     trainer = DataParallelTrainer(
         lambda m, b: tt.lm_loss(m(b), b),
-        synchronous_sgd(adamw(lr, b1=0.9, b2=0.95), bucket_bytes=4096), device="cpu")
+        synchronous_sgd(adamw(lr, b1=0.9, b2=0.95), impl=impl, bucket_bytes=bucket_bytes),
+        device="cpu")
     state = trainer.init(model)
     tokens = torch.from_numpy(data["tokens"]).long()
     batch = trainer.shard_batch(tokens[rank * per_rank:(rank + 1) * per_rank])
@@ -211,40 +214,47 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_rank_gloo_steps_match_jax(ref, tmp_path):
-    tokens = _data(seed=1, ranks=2)
-    init, losses_ref, final_ref = _jax_run(ref, tokens, 2)
+# (impl, ranks, bucket_bytes): the JAX trainer reduces per leaf; pmean's
+# mean is element-wise, so bucketing it changes nothing, while a ring's
+# chunks follow the buffer, so the ring cases reduce per leaf as JAX does
+@pytest.mark.parametrize("impl,world,bucket_bytes",
+                         [("pmean", 2, 4096), ("pallas_ring", 2, None), ("pallas_ring", 3, None)])
+def test_two_rank_gloo_steps_match_jax(ref, tmp_path, monkeypatch, impl, world, bucket_bytes):
+    monkeypatch.setenv("KFT_PALLAS", "interpret")  # the JAX ring runs the Pallas kernels
+    tokens = _data(seed=1, ranks=world)
+    init, losses_ref, final_ref = _jax_run(ref, tokens, world, impl)
     flat = {jax.tree_util.keystr(p, simple=True, separator="/"): v
             for p, v in jax.tree_util.tree_flatten_with_path(init)[0]}
     data = tmp_path / "in.npz"
     np.savez(data, tokens=tokens, **flat)
     port = _free_port()
-    peers = f"127.0.0.1:{port},127.0.0.1:{port + 1}"
+    peers = ",".join(f"127.0.0.1:{port + r}" for r in range(world))
     procs = []
-    for rank in range(2):
+    for rank in range(world):
         env = dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + rank}",
                    KFT_INIT_PEERS=peers, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", WORKER, str(data), str(tmp_path / "out"),
-             repr((COMMON, LR, STEPS, PER_RANK))],
+             repr((COMMON, LR, STEPS, PER_RANK, world, impl, bucket_bytes))],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for p in procs:
         out, _ = p.communicate(timeout=120)
         assert p.returncode == 0, out
     cfg = tt.TransformerConfig(dtype=torch.float32, **COMMON)
-    results = [np.load(tmp_path / f"out.{r}.npz") for r in range(2)]
+    results = [np.load(tmp_path / f"out.{r}.npz") for r in range(world)]
     for res in results:
         np.testing.assert_allclose(res["losses"], losses_ref, atol=2e-5)
-    # S-SGD: both replicas hold the same parameters, bit for bit
-    for key in results[0].files:
-        np.testing.assert_array_equal(results[0][key], results[1][key])
+    # S-SGD: every replica holds the same parameters, bit for bit
+    for res in results[1:]:
+        for key in results[0].files:
+            np.testing.assert_array_equal(res[key], results[0][key])
     _assert_params_close({k: torch.from_numpy(results[0][k]) for k in results[0].files
                           if k != "losses"}, final_ref, cfg)
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="B5"):
-        synchronous_sgd(adamw(LR), impl="pallas_ring")
+    with pytest.raises(NotImplementedError, match="A4"):
+        synchronous_sgd(adamw(LR), impl="hierarchical")
     with pytest.raises(NotImplementedError):
         synchronous_sgd(adamw(LR), bucket_bytes="auto")
     with pytest.raises(NotImplementedError):
