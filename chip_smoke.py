@@ -15,7 +15,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              causal), plus the ragged L=2000 and window=256 cases; times of
              kernel, plain version and the library call
              (scaled_dot_product_attention, a yardstick the port never
-             calls), and the least time the card could take (bound)
+             calls), and the least time the card could take (bound); then
+             the same at the GQA flagship's shape (Hkv=8): the forward, dq
+             and the GQA dk/dv kernel (B4) against the plain versions, a
+             planted B4 fault (a 64-wide key block missing half its query
+             rows) rejected, and B4's times (library: the GQA backward of
+             scaled_dot_product_attention(enable_gqa=True))
  4. check    a small f32 model: flash kernels against full attention on the
              same weights (loss and every gradient)
  5. main     the flagship GPT (vocab 32000, d_model 1024, 24 layers, 16
@@ -24,16 +29,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              wd 1e-4)) for a few steps on one repeated random batch of 8, in
              this process: the loss must be finite and fall, and each
              kernel must launch once per layer per step
- 6. ring     4 ranks started by `python -m kungfu_tpu_torch.run`, rank r on
+ 6. gqa-ref  the GQA flagship (n_kv_heads=8, otherwise as phase main) with
+             the same seed: its loss on the same 8 sequences in one process
+             (forward only), its parameter count and gradient shapes
+    ef       the error-feedback residual kernel (compression.error_feedback
+             .residual_, csrc/ring.cu) against its plain version
+             (compression.quant.residual on the card), bit for bit, int8 and
+             fp8, at every gradient size of the GQA flagship and a ragged
+             1,000,003; its time at the largest gradient and over one step's
+             gradients, the plain version's, and the bound
+ 7. ring     4 ranks started by `python -m kungfu_tpu_torch.run`, rank r on
              card r mod count (all four on a machine with one card), each
              running tools/ring_check: the ring reduce-scatter (B5) and
              all-gather (B6) kernels and their all-reduce against the
              stacked plain versions, bit for bit, in f32 at the flagship's
              gradient size, in bf16 at 64M values and in a ragged f32 case
-             of 1,000,003 values, with planted faults rejected; their times
-             (median of 5 calls, CUDA events), the plain versions' times,
-             NCCL's where every rank has a card of its own, and the bound
- 7. ranks    the new main path: the same flagship GPT on 4 ranks started by
+             of 1,000,003 values, with planted faults rejected; then the
+             fused-codec kernels B7 (reduce-scatter) and B8 (all-gather)
+             through fused_ring_all_reduce, int8 and fp8, at the GQA
+             flagship's gradient size and at 1,000,003 values: bit-equal to
+             the stacked plain version on every rank, within the JAX
+             package's quantization tolerance of the exact sum, planted
+             faults (a hop's scales dropped, a block's codes zeroed)
+             rejected; their times (median of 5 calls, CUDA events), the
+             plain versions' times, NCCL's where every rank has a card of
+             its own, and the bound
+ 8. ranks    slice 2's main path: the same flagship GPT on 4 ranks started by
              the launcher, batch 2 each (the same 8 sequences as phase main),
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              bucket_bytes=--bucket-mib MiB) for --rank-steps steps: loss
@@ -42,8 +63,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              checksum of every parameter's bits, gathered over the group),
              each flash kernel launched once per layer per step and each
              ring kernel once per bucket per step on every rank
- 8. report   one JSON line of kernels (launches from rank 0 of phase ranks),
-             then the last line {"ok": true, "device": {"platform": "gpu", ...}}
+ 9. gqa      this slice's main path: the GQA flagship on 4 ranks x batch 2,
+             synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
+             compression="int8", bucket_bytes=--bucket-mib MiB) with
+             error feedback, --rank-steps steps: loss finite and falling, the
+             first step's loss within 1e-2 of phase gqa-ref's, the replicas
+             bit-identical, B1, B2 and B4 launched once per layer per step,
+             B7 and B8 once per bucket per step, the residual kernel once
+             per gradient per step, B3, B5 and B6 never
+10. report   one JSON line of kernels B1-B8 and the residual kernel
+             (launches from rank 0 of the path that runs each: phase ranks
+             for B1-B3, B5, B6, phase gqa for the others), then the last
+             line {"ok": true, "device":
+             {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
 exits non-zero.  f32 products on the card run in full f32: TF32 is switched
@@ -133,9 +165,14 @@ def spawn_ranks(worker_args, tag: str, timeout: float):
     ranks' output."""
     from kungfu_tpu_torch.tools import ring_check
 
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    print(f"[{worker_args[0]}] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"of the card while {N_RANKS} ranks run")
+    # expandable segments: less memory stranded between the ranks' allocations
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     rc, out, results = ring_check.launch(
         N_RANKS, [sys.executable, os.path.abspath(__file__), "--rank-phase", *worker_args],
-        timeout=timeout, tag=tag)
+        env=env, timeout=timeout, tag=tag)
     if rc != 0 or sorted(results) != list(range(N_RANKS)):
         print(out[-12000:], file=sys.stderr)
         raise SmokeFailure(f"rank phase {worker_args[0]}: launcher exit {rc}, "
@@ -272,6 +309,177 @@ def phase_kernels(seed: int):
     return errs, ms, plain, library, bounds
 
 
+def _dkv_fault(q, k, v, do, lse, delta, scale, dk, dv):
+    """What a dk/dv kernel that left key block 0's query rows >= L/2 out
+    would return: the plain dk, dv of those rows alone replaced."""
+    from kungfu_tpu_torch.ops import flash
+
+    L = q.shape[1]
+    do, delta = do.clone(), delta.clone()
+    do[:, L // 2:] = 0
+    delta[:, :, L // 2:] = 0
+    dk_late, dv_late = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, 0)[1:]
+    dk_bad, dv_bad = dk.float().clone(), dv.float().clone()
+    dk_bad[:, :64], dv_bad[:, :64] = dk_late[:, :64].float(), dv_late[:, :64].float()
+    return dk_bad, dv_bad
+
+
+def phase_kernels_gqa(seed: int):
+    """B1, B2 and B4 at the GQA flagship's attention shape (Hkv=8)."""
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
+
+    B, H, HKV, D, dtype = 8, 16, 8, 64, torch.bfloat16
+    scale = D ** -0.5
+    limit = REL_LIMIT[dtype]
+    err = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+
+    def inputs(L):
+        def rnd(h):
+            return torch.randn(B, L, h, D, generator=gen, device="cuda").to(dtype)
+
+        return rnd(H), rnd(HKV), rnd(HKV), rnd(H)
+
+    for L, window in ((2048, 0), (2000, 0), (2048, 256)):
+        q, k, v, do = inputs(L)
+        o, lse = flash.flash_fwd(q, k, v, scale, True, window)
+        o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, True, window)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True, window)
+        dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True, window)
+        refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, window)
+        torch.cuda.synchronize()
+        case = f"GQA H={H} Hkv={HKV} L={L} window={window}"
+        rel = {}
+        for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                                ("dv", dv, refs[2])):
+            whole, worst = rel[name] = rel_errs(got, want)
+            check(worst <= limit, f"{name} kernel vs plain at {case}: normwise relative "
+                  f"error {whole:.3g}, worst 64-row block {worst:.3g} > {limit}")
+        e_lse = max_err(lse, lse_ref)
+        check(e_lse <= LSE_ATOL, f"lse at {case}: max abs err {e_lse:.4g} > {LSE_ATOL}")
+        err = max(err, max_err(dk, refs[1]), max_err(dv, refs[2]))
+        print(f"[kernels] {case}: normwise relative error (whole, worst 64-row block) "
+              + ", ".join(f"{n} {w:.3g} {b:.3g}" for n, (w, b) in rel.items())
+              + f" (bf16, limit {limit}); lse max abs err {e_lse:.3g}; dk/dv max abs err "
+              f"{max(max_err(dk, refs[1]), max_err(dv, refs[2])):.3g}")
+        if L == 2048 and not window:
+            dk_bad, dv_bad = _dkv_fault(q, k, v, do, lse, delta, scale, refs[1], refs[2])
+            worst = max(rel_errs(dk_bad, refs[1])[1], rel_errs(dv_bad, refs[2])[1])
+            check(worst > limit, f"the check passed a planted B4 fault ({worst:.3g})")
+            print(f"[kernels] {case}: planted B4 fault (key block 0 without query rows "
+                  f">= L/2) rejected, worst block {worst:.3g} > {limit}")
+        del o_ref, refs
+
+    L = 2048
+    q, k, v, do = inputs(L)
+    o, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    name = flash.FLASH_BWD_DKV_GQA.name
+    ms = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True), 20)
+    plain = time_ms(lambda: flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, 0),
+                    3, 1)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True), 10)
+    pairs = _pairs(L, True, 0) * B * H
+    elem = q.element_size()
+    flops = 8 * D * pairs
+    nbytes = (2 * B * L * H * D + 4 * B * L * HKV * D) * elem + 2 * B * H * L * 4
+    bound = _bound(flops, nbytes, dtype)
+    print(f"[kernels] {name} (B4) at B={B} H={H} Hkv={HKV} L={L} D={D} bf16 causal: "
+          f"{ms:.3f} ms, plain backward (dq, dk, dv) {plain:.3f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s achieved; library scaled_dot_product_attention"
+          f"(enable_gqa=True) backward (dq, dk, dv in one call) {lib:.3f} ms")
+    return {name: err}, {name: ms}, {name: plain}, {name: lib}, {name: bound}
+
+
+def phase_gqa_reference(batch: int, seed: int):
+    """The GQA flagship's loss on phase main's 8 sequences, in one process."""
+    from kungfu_tpu_torch import convert
+    from kungfu_tpu_torch.models import lm_loss
+    from kungfu_tpu_torch.tools.step_profile import flagship_model
+
+    cfg, model = flagship_model(seed, "cuda", n_kv_heads=8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_len), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        loss = lm_loss(model(tokens), tokens).item()
+    n_params = sum(p.numel() for p in model.parameters())
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    check(math.isfinite(loss), f"gqa-ref: non-finite loss {loss}")
+    # the weights convert to the JAX package's layout and back at full width
+    sd = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    tree = convert.params_to_flax(sd, cfg)
+    kv = tree["block_0"]["attn"]["k"]["kernel"].shape
+    check(kv == (cfg.d_model, cfg.kv_heads * cfg.d_model // cfg.n_heads),
+          f"gqa-ref: converted k kernel {kv}")
+    back = convert.params_from_flax(tree, cfg)
+    check(all(torch.equal(back[k], v) for k, v in sd.items()), "gqa-ref: convert round trip")
+    del sd, tree, back
+    print(f"[gqa-ref] GQA flagship {n_params / 1e6:.1f}M params ({cfg.n_heads} query heads, "
+          f"{cfg.kv_heads} kv heads; converts to the JAX layout and back), loss on the {batch} "
+          f"sequences in one process {loss:.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return loss, n_params, shapes
+
+
+def phase_ef(shapes, seed: int):
+    """The error-feedback residual kernel against its plain version at the
+    GQA flagship's gradient sizes; its times and bound."""
+    from kungfu_tpu_torch import compression as tc
+    from kungfu_tpu_torch.compression import error_feedback as EF
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+
+    def gradient(n):  # gradient-like values of mixed magnitude, an all-zero block
+        x = torch.randn(n, generator=gen, device="cuda")
+        x *= torch.rand(n, generator=gen, device="cuda") * 1e-2
+        x[256:512] = 0
+        return x
+
+    sizes = sorted({math.prod(s) for s in shapes}) + [1000003]
+    err = 0.0
+    for scheme in ("int8", "fp8"):
+        cfg = tc.resolve(scheme)
+        for n in sizes:
+            c = gradient(n)
+            want = tc.quant.residual(c, cfg)
+            got = EF.residual_(c, cfg)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"ef_residual {scheme} x {n}: not bit-equal to the plain version "
+                  f"(max abs err {max_err(got, want):.3g})")
+            err = max(err, max_err(got, want))
+            del c, want, got
+    print(f"[ef] residual kernel bit-equal to the plain version, int8 and fp8, at "
+          f"{len(sizes)} sizes from {sizes[0]} to {sizes[-1]} values")
+    cfg = tc.INT8
+    n = max(sizes)
+    c = gradient(n)
+    x = c.clone()
+    ms = time_ms(lambda: EF.residual_(x, cfg), 20)
+    plain = time_ms(lambda: tc.quant.residual(c, cfg), 3, 1)
+    bound = _bound(6 * n, 8 * n, torch.float32)  # read and write 4 bytes a value
+    del c, x
+    bufs = [torch.randn(math.prod(s), generator=gen, device="cuda") for s in shapes]
+    total = sum(b.numel() for b in bufs)
+    step_ms = time_ms(lambda: [EF.residual_(b, cfg) for b in bufs], 3, 1)
+    print(f"[ef] int8 at the largest gradient ({n} values): {ms:.3f} ms, plain {plain:.3f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}: {8 * n / 1e6:.1f} MB); one step's "
+          f"{len(bufs)} gradients ({total} values): {step_ms:.3f} ms in {len(bufs)} launches, "
+          f"bound {8 * total / PEAK_BYTES_PER_S * 1e3:.4f} ms; library: none computes a "
+          f"blockwise quantization residual")
+    del bufs
+    torch.cuda.empty_cache()
+    name = EF.EF_RESIDUAL.name
+    return {name: err}, {name: ms}, {name: plain}, {name: None}, {name: bound}
+
+
 def phase_model_check(seed: int):
     """Small f32 model on the card: the flash kernels against plain full
     attention on the same weights, loss and every gradient."""
@@ -294,7 +502,7 @@ def phase_model_check(seed: int):
         loss = lm_loss(model(tokens), tokens)
         loss.backward()
         launched = [k.launches - n for k, n in zip(flash.KERNELS, before)]
-        check(launched == ([2, 2, 2] if attention == "flash" else [0, 0, 0]),
+        check(launched == ([2, 2, 2, 0] if attention == "flash" else [0, 0, 0, 0]),
               f"model check ({attention}): kernel launches {launched}")
         results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
     (l_flash, g_flash), (l_full, g_full) = results
@@ -331,9 +539,9 @@ def phase_main(steps: int, batch: int, seed: int):
     launches = {k.name: k.launches for k in flash.KERNELS}
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = cfg.n_layers * steps
-    check(all(n == want for n in launches.values()),
-          f"kernel launches {launches}, expected {want} each ({cfg.n_layers} per step)")
+    want = {k.name: cfg.n_layers * steps for k in flash.KERNELS}
+    want[flash.FLASH_BWD_DKV_GQA.name] = 0  # the flagship is MHA
+    check(launches == want, f"kernel launches {launches}, expected {want}")
     step_s = statistics.median(times[1:]) if steps > 1 else times[0]
     print(f"[main] steady step {step_s * 1e3:.1f} ms (median of steps 2-{steps}), "
           f"{batch * cfg.max_len / step_s:.0f} tokens/s, peak memory "
@@ -341,11 +549,15 @@ def phase_main(steps: int, batch: int, seed: int):
     return losses, n_params
 
 
-def phase_ring(n_params: int, seed: int):
-    """B5 and B6 on N_RANKS ranks against their stacked plain versions."""
+def phase_ring(n_params: int, gqa_params: int, seed: int):
+    """B5 and B6, then B7 and B8, on N_RANKS ranks against their stacked
+    plain versions."""
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
-    cases = f"f32:{n_params},bf16:{64 << 20},f32:1000003"
+    # the fused cases first: the plain slots of the 367.6M-value case stay
+    # allocated for the rest of the phase, and four ranks share the card
+    cases = (f"int8:{gqa_params},fp8:{gqa_params},int8:1000003,fp8:1000003,"
+             f"f32:{n_params},bf16:{64 << 20},f32:1000003")
     _, res = spawn_ranks(["ring", "--cases", cases, "--iters", "5", "--seed", str(seed),
                           "--faults"], "RING_CHECK ", 600)
     for r, rr in sorted(res.items()):
@@ -355,52 +567,77 @@ def phase_ring(n_params: int, seed: int):
     r0 = res[0]
     print(f"[ring] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
           f"reduce-scatter, all-gather and all-reduce (sum, mean) equal the stacked plain "
-          f"versions bit for bit; planted faults rejected")
+          f"versions bit for bit, and so do the fused int8/fp8 all-reduces (sum, mean), "
+          f"within the reference's tolerance of the exact sum; planted faults rejected")
     for i, case in enumerate(r0["cases"]):
         slowest = {k: max(rr["cases"][i]["ms"][k] for rr in res.values()) for k in case["ms"]}
         lib = case["library_ms"]
         lib = ({k: max(rr["cases"][i]["library_ms"][k] for rr in res.values()) for k in lib}
                if lib else None)
+        extra = ""
+        if "tolerance" in case:
+            worst = max(rr["cases"][i]["max_abs_err"]["fused_sum vs exact"] for rr in res.values())
+            extra = f"; error vs exact sum {worst:.4g} (tolerance {case['tolerance']:.4g})"
+        if case.get("nccl_f32_ms"):
+            extra += f"; NCCL f32 at this size (context) {json.dumps(case['nccl_f32_ms'])}"
         print(f"[ring] {case['dtype']} x {case['size']} (chunk {case['chunk']}): kernel ms "
               f"(slowest rank's median) rs {slowest['rs']:.3f} ag {slowest['ag']:.3f} "
               f"all-reduce {slowest['ar']:.3f}; plain ms {json.dumps(case['plain_ms'])}; "
-              f"bound ms {json.dumps(case['bound_ms'])} ({case['bound_note']}); NCCL ms "
-              f"{json.dumps(lib) if lib else 'null: ' + case['library_note']}")
+              f"bound ms {json.dumps(case['bound_ms'])} ({case['bound_note']}); library ms "
+              f"{json.dumps(lib) if lib else 'null: ' + case['library_note']}{extra}")
         case["slowest_ms"], case["library_slowest_ms"] = slowest, lib
-    big = r0["cases"][0]  # the flagship's gradient size
-    keys = {RC.RING_RS.name: "rs", RC.RING_AG.name: "ag"}
-    errs = {name: max(c["max_abs_err"][k] for rr in res.values() for c in rr["cases"])
-            for name, k in keys.items()}
-    ms = {name: big["slowest_ms"][k] for name, k in keys.items()}
-    plain = {name: big["plain_ms"][k] for name, k in keys.items()}
-    library = {name: (big["library_slowest_ms"][k] if big["library_slowest_ms"] else None)
-               for name, k in keys.items()}
-    bounds = {name: (big["bound_ms"][k], "bytes") for name, k in keys.items()}
+    by_case = {(c["dtype"], c["size"]): c for c in r0["cases"]}
+    big, fused = by_case[("f32", n_params)], by_case[("int8", gqa_params)]
+    keys = {RC.RING_RS.name: (big, "rs"), RC.RING_AG.name: (big, "ag"),
+            RC.FUSED_RS.name: (fused, "rs"), RC.FUSED_AG.name: (fused, "ag")}
+
+    def worst(fused_cases: bool, names) -> float:
+        """Largest error against the stacked plain version, every rank and case."""
+        return max(v for rr in res.values() for c in rr["cases"]
+                   if (c["dtype"] in ("int8", "fp8")) == fused_cases
+                   for e, v in c["max_abs_err"].items() if e in names)
+
+    # B7 and B8 are held together: the fused all-reduce against its plain version
+    errs = {RC.RING_RS.name: worst(False, ("rs",)), RC.RING_AG.name: worst(False, ("ag",)),
+            RC.FUSED_RS.name: worst(True, ("fused_sum", "fused_mean")),
+            RC.FUSED_AG.name: worst(True, ("fused_sum", "fused_mean"))}
+    ms = {name: case["slowest_ms"][k] for name, (case, k) in keys.items()}
+    # the stacked plain fused all-reduce computes both kernels' work at once
+    plain = {name: case["plain_ms"][k if case is big else "ar"]
+             for name, (case, k) in keys.items()}
+    library = {name: (case["library_slowest_ms"][k] if case["library_slowest_ms"] else None)
+               for name, (case, k) in keys.items()}
+    bounds = {name: (case["bound_ms"][k], "bytes") for name, (case, k) in keys.items()}
     return errs, ms, plain, library, bounds
 
 
-def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, main_loss1: float):
-    """The flagship S-SGD step on N_RANKS ranks through the ring kernels."""
+def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, ref_loss1: float,
+                compression=None):
+    """The flagship S-SGD step on N_RANKS ranks through the ring kernels;
+    with `compression`, the GQA flagship through the fused-codec kernels."""
+    label = "gqa" if compression else "ranks"
+    extra = ["--n-kv-heads", "8", "--compression", compression] if compression else []
     out, res = spawn_ranks(["train", "--steps", str(steps), "--batch", str(batch), "--seed",
-                            str(seed), "--bucket-mib", str(bucket_mib)], RANKS_LINE, 900)
+                            str(seed), "--bucket-mib", str(bucket_mib), *extra], RANKS_LINE, 900)
     for line in out.splitlines():
         if "[ranks]" in line:
-            print(line)
+            print(line.replace("[ranks]", f"[{label}]"))
     for r, rr in sorted(res.items()):
-        check(rr["ok"], f"ranks: rank {r} failed its checks: {json.dumps(rr['checks'])}")
+        check(rr["ok"], f"{label}: rank {r} failed its checks: {json.dumps(rr['checks'])}")
     r0 = res[0]
     loss1 = r0["losses"][0]
-    check(abs(loss1 - main_loss1) <= TOL_RANKS_LOSS,
-          f"ranks: first-step loss {loss1} vs phase main's {main_loss1}")
+    ref = "phase gqa-ref" if compression else "phase main"
+    check(abs(loss1 - ref_loss1) <= TOL_RANKS_LOSS,
+          f"{label}: first-step loss {loss1} vs {ref}'s {ref_loss1}")
     step_s = max(rr["step_s"] for rr in res.values())
     peaks = " ".join(f"{rr['peak_gib']:.2f}" for rr in res.values())
-    print(f"[ranks] {N_RANKS} ranks x batch {batch // N_RANKS} ({r0['backend']}, "
-          f"{r0['buckets']} buckets of at most {bucket_mib} MiB): losses "
-          f"{' '.join(f'{x:.4f}' for x in r0['losses'])}, first step {loss1:.4f} vs phase "
-          f"main's {main_loss1:.4f}; replicas bit-identical; steady step "
-          f"{step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} tokens/s, peak "
-          f"memory per rank {peaks} GiB; "
-          f"rank 0 launches {json.dumps(r0['launches'])}")
+    print(f"[{label}] {N_RANKS} ranks x batch {batch // N_RANKS} ({r0['backend']}, "
+          f"{r0['kv_heads']} kv heads, compression {compression}, {r0['buckets']} buckets of "
+          f"at most {bucket_mib} MiB): losses {' '.join(f'{x:.4f}' for x in r0['losses'])}, "
+          f"first step {loss1:.4f} vs {ref}'s {ref_loss1:.4f}; replicas bit-identical; "
+          f"steady step {step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} "
+          f"tokens/s, peak memory per rank {peaks} GiB; rank 0 launches "
+          f"{json.dumps(r0['launches'])}")
     return r0["launches"]
 
 
@@ -409,6 +646,7 @@ def rank_train(argv) -> int:
     import torch.distributed as dist
 
     from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.compression import error_feedback as EF
     from kungfu_tpu_torch.ops import flash
     from kungfu_tpu_torch.ops import ring_collectives as RC
     from kungfu_tpu_torch.optimizers.sync import _pack_buckets
@@ -419,18 +657,22 @@ def rank_train(argv) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bucket-mib", type=int, default=256)
+    ap.add_argument("--n-kv-heads", type=int, default=0)
+    ap.add_argument("--compression", default=None)
     args = ap.parse_args(argv)
     tf32_off()
     world = distributed.init_distributed(device="cuda")
     rank = dist.get_rank()
     bucket = args.bucket_mib << 20
     cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl="pallas_ring",
-                                                bucket_bytes=bucket or None)
+                                                bucket_bytes=bucket or None,
+                                                compression=args.compression,
+                                                n_kv_heads=args.n_kv_heads)
     per = args.batch // world
     batch = tokens[rank * per:(rank + 1) * per]
     params = list(state.params.parameters())
     buckets = len(_pack_buckets(params, bucket)) if bucket else len(params)
-    kernels = flash.KERNELS + RC.KERNELS
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
@@ -447,8 +689,14 @@ def rank_train(argv) -> int:
     sums = [p.detach().view(torch.int32).to(torch.int64).sum().item() for p in params]
     every = [None] * world
     dist.all_gather_object(every, sums)
-    want = {k.name: cfg.n_layers * args.steps for k in flash.KERNELS}
-    want.update({k.name: buckets * args.steps for k in RC.KERNELS})
+    gqa = cfg.kv_heads < cfg.n_heads
+    per_layer = {flash.FLASH_FWD: True, flash.FLASH_BWD_DQ: True,
+                 flash.FLASH_BWD_DKV: not gqa, flash.FLASH_BWD_DKV_GQA: gqa}
+    per_bucket = {RC.RING_RS: not args.compression, RC.RING_AG: not args.compression,
+                  RC.FUSED_RS: bool(args.compression), RC.FUSED_AG: bool(args.compression)}
+    want = {k.name: cfg.n_layers * args.steps * on for k, on in per_layer.items()}
+    want.update({k.name: buckets * args.steps * on for k, on in per_bucket.items()})
+    want[EF.EF_RESIDUAL.name] = len(params) * args.steps * bool(args.compression)
     checks = {
         "loss finite": all(math.isfinite(x) for x in losses),
         "loss falls": losses[-1] < losses[0],
@@ -459,6 +707,7 @@ def rank_train(argv) -> int:
     result = {"rank": rank, "backend": dist.get_backend(), "losses": losses,
               "step_s": statistics.median(times[1:]) if args.steps > 1 else times[0],
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "buckets": buckets,
+              "kv_heads": cfg.kv_heads,
               "launches": launches, "expected_launches": want, "checks": checks,
               "ok": all(checks.values())}
     print(RANKS_LINE + json.dumps(result), flush=True)
@@ -495,21 +744,30 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank-steps", type=int, default=3)
     ap.add_argument("--bucket-mib", type=int, default=256,
-                    help="bucket_bytes of phase ranks in MiB (0: one ring call per gradient)")
+                    help="bucket_bytes of phases ranks and gqa in MiB (0: one ring call per "
+                    "gradient)")
     args = ap.parse_args()
+    from kungfu_tpu_torch.compression import error_feedback as EF
     from kungfu_tpu_torch.ops import flash
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
     try:
         _, kind, count = phase_device()
         phase_build()
-        results = [phase_kernels(args.seed)]
+        results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
         phase_model_check(args.seed)
         main_losses, n_params = phase_main(args.steps, args.batch, args.seed)
         torch.cuda.empty_cache()  # the ranks need the card's memory
-        results.append(phase_ring(n_params, args.seed))
-        launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
-                               main_losses[0])
+        gqa_loss, gqa_params, gqa_shapes = phase_gqa_reference(args.batch, args.seed)
+        results.append(phase_ef(gqa_shapes, args.seed))
+        results.append(phase_ring(n_params, gqa_params, args.seed))
+        ranks_launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
+                                     main_losses[0])
+        gqa_launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
+                                   gqa_loss, compression="int8")
+        # each kernel's launches from the path that runs it
+        launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
+        check(all(launches.values()), f"a kernel of the main paths never launched: {launches}")
         check(jax_free(), "JAX or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -521,7 +779,7 @@ def main() -> int:
         "launches": launches[k.name], "max_abs_err": errs[k.name], "ms": ms[k.name],
         "plain_ms": plain[k.name], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
-    } for k in flash.KERNELS + RC.KERNELS]
+    } for k in flash.KERNELS + RC.KERNELS + EF.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

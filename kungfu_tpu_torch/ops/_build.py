@@ -35,7 +35,7 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 _PP = ctypes.POINTER(ctypes.c_void_p)
-_RING = [_P, _P, _I, _I, _I, _L, _L, _I, _U, _U, _U, _P, _P]  # own ... stream
+_RING = [_P, _P, _I, _I, _I, _L, _L, _L, _I, _U, _U, _U, _P, _P]  # own ... stream
 # C signature of every exported function: (argtypes, source stem); each
 # returns a CUDA error code unless RESTYPES says otherwise
 SIGNATURES = {
@@ -45,8 +45,13 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
     "kft_flash_bwd_dkv": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
+    "kft_flash_bwd_dkv_gqa": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
     "kft_ring_rs": ([_P, _L, _L, _L, _P, _L, _I] + _RING, "ring"),
     "kft_ring_ag": ([_P, _L, _P, _L, _L, _L, _I] + _RING, "ring"),
+    "kft_ring_frs": ([_P, _L, _P, _I, _I, _F] + _RING, "ring"),
+    "kft_ring_fag": ([_P, _P, _L, _I, _I, _F] + _RING, "ring"),
+    "kft_ef_residual": ([_P, _L, _I, _I, _F, _P], "ring"),
     "kft_ring_header_bytes": ([_I, _I], "ring"),
     "kft_ws_alloc": ([_I, _L, _PP, _P], "ring"),
     "kft_ws_open": ([_I, _P, _PP], "ring"),

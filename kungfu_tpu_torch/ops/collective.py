@@ -18,17 +18,30 @@ summed as ((x_{c+o} + x_{c+o+1}) + ...) around the ring), so the two give
 different roundings for n > 2 and each matches its JAX counterpart bit for
 bit.
 
-The stacked versions at the bottom (`_plain_ring_*`) take every rank's
-input in one process and return every rank's output, with the kernels'
-association; the card checks hold each rank's kernel result against them.
+The fused-codec ring (`fused_ring_all_reduce_chunks`) is the plain
+version of the ring kernels B7/B8: the same schedule, but each hop carries
+int8/fp8 codes plus one f32 scale per quantization block, requantized at
+every reduce-scatter hop (own chunk + received codes * scales, one fused
+multiply-add per element, as XLA computes the reference kernels), and the
+all-gather forwards the codes of each reduced chunk, quantized once.
+
+The stacked versions at the bottom (`_plain_ring_*`,
+`_plain_fused_ring_all_reduce`) take every rank's input in one process and
+return every rank's output, with the kernels' association and codec; the
+card checks hold each rank's kernel result against them.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..compression.config import CompressionConfig
+from ..compression.quant import (QTensor, add_dequantized, dequantize, from_wire, quantize,
+                                 to_wire)
 
 TILE = 1024  # chunk padding unit of the Pallas ring (8 x 128 lanes)
 
@@ -86,6 +99,37 @@ def ring_all_gather_chunks(mine: torch.Tensor, group=None, owner: int = 0
         _exchange(out[(d + owner - s) % n], recv, right, left, group)
         out[(d + owner - s - 1) % n] = recv
     return out
+
+
+def fused_chunk_elems(total: int, n: int, cfg: CompressionConfig) -> int:
+    """Chunk of the fused-codec ring: ceil(total/n) padded to a multiple of
+    lcm(block, 1024), so every chunk holds whole quantization blocks."""
+    return _chunk_elems(total, n, math.lcm(cfg.block, TILE))
+
+
+def fused_ring_all_reduce_chunks(chunks: torch.Tensor, group, cfg: CompressionConfig,
+                                 op: str = "sum") -> torch.Tensor:
+    """Rank d's (n, chunk) f32 contributions -> every chunk's reduced f32
+    values (n * chunk), through the fused-codec ring of the kernels B7/B8:
+    rank d ends the reduce-scatter with chunk d; op "mean" multiplies it
+    by 1/n before the all-gather quantizes it."""
+    n, d, right, left = _neighbours(group)
+    recv = None
+    for s in range(n - 1):
+        c = (d - s - 1) % n
+        payload = chunks[c] if recv is None else add_dequantized(chunks[c], recv)
+        sent = quantize(payload, cfg)
+        codes, scale = torch.empty_like(to_wire(sent.data)), torch.empty_like(sent.scale)
+        _exchange(to_wire(sent.data), codes, right, left, group)
+        _exchange(sent.scale, scale, right, left, group)
+        recv = QTensor(from_wire(codes, cfg), scale)
+    mine = add_dequantized(chunks[d], recv)
+    if op == "mean":
+        mine = mine * (1.0 / n)
+    q = quantize(mine, cfg)
+    codes = ring_all_gather_chunks(to_wire(q.data).contiguous(), group)
+    scales = ring_all_gather_chunks(q.scale.contiguous(), group)
+    return torch.cat([dequantize(QTensor(from_wire(c, cfg), s)) for c, s in zip(codes, scales)])
 
 
 def _padded_chunks(x: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
@@ -167,3 +211,29 @@ def _plain_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum"
     if op == "mean":
         out = out * (1.0 / n)
     return [out] * n
+
+
+def _plain_fused_ring_all_reduce(xs: Sequence[torch.Tensor], cfg: CompressionConfig,
+                                 op: str = "sum") -> List[torch.Tensor]:
+    """The fused-codec ring all-reduce (B7 then B8) of every rank's x, in
+    x's dtype; every rank returns the same tensor.  Chunk c is quantized
+    first by rank c+1, requantized with each later rank's part added, and
+    completed in f32 by rank c; the mean times 1/n; then quantized once."""
+    n, x0 = len(xs), xs[0]
+    size = x0.numel()
+    chunk = fused_chunk_elems(size, n, cfg)
+    flats = [x.reshape(-1) for x in xs]
+    out = torch.empty(size, dtype=x0.dtype, device=x0.device)
+    for c in range(n):  # one chunk of every rank's payload at a time
+        part = slice(c * chunk, min(size, (c + 1) * chunk))
+        if part.start >= part.stop:
+            continue
+        parts = [F.pad(f[part].float(), (0, chunk - (part.stop - part.start))) for f in flats]
+        q = quantize(parts[(c + 1) % n], cfg)
+        for k in range(2, n):
+            q = quantize(add_dequantized(parts[(c + k) % n], q), cfg)
+        mine = add_dequantized(parts[c], q)
+        if op == "mean":
+            mine = mine * (1.0 / n)
+        out[part] = dequantize(quantize(mine, cfg))[:part.stop - part.start].to(x0.dtype)
+    return [out.view(x0.shape)] * n

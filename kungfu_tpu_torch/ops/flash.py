@@ -1,11 +1,17 @@
 """Flash attention on hand-written CUDA kernels for Hopper.
 
-Counterpart of kungfu_tpu/ops/flash.py.  Three kernels carry it on a card
+Counterpart of kungfu_tpu/ops/flash.py.  Four kernels carry it on a card
 (sources in csrc/, built by _build.py on first use):
 
-  flash_fwd      csrc/flash_fwd.cu   replaces `_fwd_kernel`      (B1)
-  flash_bwd_dq   csrc/flash_bwd.cu   replaces `_bwd_dq_kernel`   (B2)
-  flash_bwd_dkv  csrc/flash_bwd.cu   replaces `_bwd_dkv_kernel`  (B3, MHA)
+  flash_fwd          csrc/flash_fwd.cu  replaces `_fwd_kernel`          (B1)
+  flash_bwd_dq       csrc/flash_bwd.cu  replaces `_bwd_dq_kernel`       (B2)
+  flash_bwd_dkv      csrc/flash_bwd.cu  replaces `_bwd_dkv_kernel`      (B3, MHA)
+  flash_bwd_dkv_gqa  csrc/flash_bwd.cu  replaces `_bwd_dkv_gqa_kernel`  (B4, GQA)
+
+`flash_bwd_dkv` launches B3 when k and v carry as many heads as q and B4
+when they carry fewer (grouped-query attention).  B3 and B4 are one CUDA
+kernel: a block loops over the query heads of its kv head, one for MHA,
+and each launch counts for the TPU kernel it replaces.
 
 Each wrapper below launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; it never moves a CUDA tensor to the plain
@@ -15,8 +21,7 @@ holds the kernels against them.  Each kernel's `launches` count says how
 often the wrapper launched it.
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
-`interpret` has no counterpart here.  The GQA dk/dv kernel (B4) is not
-ported yet, so a GQA backward on CUDA raises.
+`interpret` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -49,7 +54,9 @@ FLASH_BWD_DQ = Kernel("flash_bwd_dq", "kungfu_tpu_torch/ops/csrc/flash_bwd.cu",
                       "kungfu_tpu/ops/flash.py:272")  # _bwd_dq_kernel
 FLASH_BWD_DKV = Kernel("flash_bwd_dkv", "kungfu_tpu_torch/ops/csrc/flash_bwd.cu",
                        "kungfu_tpu/ops/flash.py:429")  # _bwd_dkv_kernel
-KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV)
+FLASH_BWD_DKV_GQA = Kernel("flash_bwd_dkv_gqa", "kungfu_tpu_torch/ops/csrc/flash_bwd.cu",
+                           "kungfu_tpu/ops/flash.py:442")  # _bwd_dkv_gqa_kernel
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_DKV_GQA)
 
 
 # ------------------------------------------------------ plain versions ----
@@ -219,30 +226,25 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
     return dq
 
 
-def _require_mha(q, k) -> None:
-    """The GQA dk/dv kernel (B4) is not ported: a GQA backward on CUDA
-    raises here, the one place to remove when it lands."""
-    if k.shape[2] != q.shape[2]:
-        raise NotImplementedError(
-            "GQA dk/dv has no CUDA kernel yet (ROADMAP B4, kungfu_tpu/ops/flash.py:442 "
-            "_bwd_dkv_gqa_kernel); pass backward='xla' for the plain blocked backward")
-
-
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B3: (dk, dv) [B, L, H, D], MHA."""
+    """B3 (MHA) or B4 (GQA, k and v with Hkv < H heads): (dk, dv)
+    [B, L, Hkv, D]."""
     b, l, h, d = q.shape
+    hkv = k.shape[2]
     if kernel_mode(q.device) == "plain":
         return _plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, _PLAIN_BLOCK_K,
                                window)[1:]
-    _require_mha(q, k)
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(FLASH_BWD_DKV, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, l, d, float(scale),
-            int(causal), int(window))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h)
+    tail = (l, d, float(scale), int(causal), int(window))
+    if hkv == h:
+        _launch(FLASH_BWD_DKV, q.device, *ptrs, *tail)
+    else:
+        _launch(FLASH_BWD_DKV_GQA, q.device, *ptrs, hkv, *tail)
     return dk, dv
 
 
@@ -272,9 +274,6 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_k, window, backward):
-        if (kernel_mode(q.device) == "kernel" and backward != "xla"
-                and any(ctx.needs_input_grad[:3])):
-            _require_mha(q, k)  # fail before the forward, not in the backward
         o, lse = flash_fwd(q, k, v, scale, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (scale, causal, block_k, window, backward)

@@ -11,15 +11,23 @@ same device memory when the ranks share a card.
 
 One `Workspace` per process group, symmetric across its ranks:
 
-  header    flag words, one per (hop, block) for each kernel, the
-            acknowledgement counters and the error claim (csrc/ring.cu,
-            `header_bytes`)
-  rs slots  n-1 receive slots of the reduce-scatter, one per hop
-  ag slots  n-1 landing slots of the all-gather, one per hop
+  header     flag words, one per (hop, block) for each kind of call, an
+             acknowledgement counter per kind and the error claim
+             (csrc/ring.cu, `header_bytes`)
+  rs slots   n-1 receive slots of the reduce-scatter (B5), one per hop
+  ag slots   n-1 landing slots of the all-gather (B6), one per hop
+  frs slots  n-1 slots of the fused-codec reduce-scatter (B7): codes, then
+             one f32 scale per quantization block
+  fag slots  n-1 slots of the fused-codec all-gather (B8), the same layout
+
+The four kinds ("rs", "ag", "frs", "fag") have their own flags, counters
+and slots, so calls of any kinds and sizes interleave safely: a kernel
+waits only on the flags and acknowledgements of its own kind.
 
 It is allocated with `cudaMalloc` (an IPC handle names a whole
-allocation, not a slice of torch's caching allocator), sized for the
-largest call so far and grown on demand, which every rank does at the
+allocation, not a slice of torch's caching allocator), its plain and fused
+slots each sized for the largest call of theirs so far and grown on
+demand, which every rank does at the
 same call because every rank makes the same calls.  The handles are
 exchanged over the process group when the workspace is made or grown,
 never per call.  `close_all` (from `distributed.shutdown_distributed`)
@@ -44,8 +52,11 @@ log = get_logger("kungfu.peer_memory")
 
 IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 SLOT_ALIGN = 4096
-_ERR_KINDS = {1: "reduce-scatter data", 2: "reduce-scatter acknowledgement",
-              3: "all-gather data", 4: "all-gather acknowledgement"}
+KINDS = ("rs", "ag", "frs", "fag")  # csrc/ring.cu `Kind`, in order
+_KIND_NAMES = ("reduce-scatter", "all-gather", "fused reduce-scatter", "fused all-gather")
+# csrc/ring.cu records 1 + 2 * kind for a data wait, 2 + 2 * kind for an ack
+_ERR_KINDS = {1 + 2 * i + a: f"{name} {'acknowledgement' if a else 'data'}"
+              for i, name in enumerate(_KIND_NAMES) for a in (0, 1)}
 
 
 def _timeout_ns() -> int:
@@ -82,7 +93,8 @@ class Workspace:
         from . import _build
 
         self.header = _build.function("kft_ring_header_bytes")(self.n, self.max_blocks)
-        self.cap = 0  # bytes per slot
+        self.cap = 0  # bytes per slot of the plain kernels
+        self.fcap = 0  # bytes per slot of the fused kernels
         self.own: Optional[int] = None
         self.right: Optional[int] = None
         self._fresh_counts()
@@ -93,17 +105,19 @@ class Workspace:
 
     @property
     def nbytes(self) -> int:
-        return self.header + 2 * (self.n - 1) * self.cap
+        return self.header + 2 * (self.n - 1) * (self.cap + self.fcap)
 
-    def reserve(self, slot_bytes: int) -> None:
-        """Grow every rank's workspace to slots of at least `slot_bytes`.
+    def reserve(self, slot_bytes: int = 0, fused_slot_bytes: int = 0) -> None:
+        """Grow every rank's workspace to plain slots of at least
+        `slot_bytes` and fused slots of at least `fused_slot_bytes`.
         Collective: every rank of the group must call it with the same
-        size, as the ring wrappers do."""
-        if slot_bytes <= self.cap:
+        sizes, as the ring wrappers do."""
+        if slot_bytes <= self.cap and fused_slot_bytes <= self.fcap:
             return
-        cap = -(-slot_bytes // SLOT_ALIGN) * SLOT_ALIGN
+        cap = max(self.cap, -(-slot_bytes // SLOT_ALIGN) * SLOT_ALIGN)
+        fcap = max(self.fcap, -(-fused_slot_bytes // SLOT_ALIGN) * SLOT_ALIGN)
         self._release()
-        self.cap = cap
+        self.cap, self.fcap = cap, fcap
         dev = self.device.index
         own = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
@@ -116,16 +130,17 @@ class Workspace:
             handles[(self.rank + 1) % self.n], IPC_HANDLE_BYTES), ctypes.byref(right))
         self.right = right.value
         self._fresh_counts()  # the fresh flags and counters are zero
-        log.info("rank %d/%d: ring workspace %.1f MiB on %s (slots of %.1f MiB)",
-                 self.rank, self.n, self.nbytes / 2**20, self.device, self.cap / 2**20)
+        log.info("rank %d/%d: ring workspace %.1f MiB on %s (slots of %.1f MiB, fused %.1f MiB)",
+                 self.rank, self.n, self.nbytes / 2**20, self.device, self.cap / 2**20,
+                 self.fcap / 2**20)
 
     def _fresh_counts(self) -> None:
-        self.seq = {"rs": 0, "ag": 0}
-        self.blocks_done = {"rs": 0, "ag": 0}
+        self.seq = dict.fromkeys(KINDS, 0)
+        self.blocks_done = dict.fromkeys(KINDS, 0)
 
     def next_call(self, kind: str, blocks: int):
         """(sequence number, blocks of the earlier calls) of the next call
-        of `kind` ("rs" or "ag") on a grid of `blocks`."""
+        of `kind` (one of KINDS) on a grid of `blocks`."""
         self.seq[kind] += 1
         done = self.blocks_done[kind]
         self.blocks_done[kind] += blocks
@@ -144,7 +159,7 @@ class Workspace:
         dist.barrier(group=self.group)
         _call("kft_ws_free", dev, self.own)
         self.own = self.right = None
-        self.cap = 0
+        self.cap = self.fcap = 0
 
     def close(self) -> None:
         self._release()

@@ -5,28 +5,38 @@
 
 Each case is `dtype:size`.  Every rank makes every rank's input from the
 seed on its own device (rank r's is `size` normal values), so the check
-needs no communication:
+needs no communication.  For dtype f32 or bf16 (the plain kernels B5/B6):
 
   ring_reduce_scatter  rank r's x is its first n * (size // n) values as
                        (n, size // n)
   ring_all_gather      rank r's x is its first size // n values
   ring_all_reduce      the whole input, op "sum" and op "mean"
 
-and holds its own result against the stacked plain version of
-`ops/collective.py` (`_plain_ring_*`), bit for bit.  `--faults` also
-plants the faults of `planted_faults` in the cases of at most 16M values
-and shows that the comparison rejects each.
+For int8 or fp8 (the fused-codec kernels B7/B8, f32 inputs):
+
+  fused_ring_all_reduce  the whole input, op "sum" and op "mean"
+
+Each rank holds its own result against the stacked plain version of
+`ops/collective.py` (`_plain_ring_*`, `_plain_fused_ring_all_reduce`),
+bit for bit; a fused result must also lie within `fused_tolerance` of the
+exact sum (the bound the JAX package's own tests put on its fused ring).
+`--faults` also plants the faults of `planted_faults` (or
+`planted_fused_faults`) in the cases of at most 16M values and shows that
+the comparison rejects each.
 
 On a card each kernel is then timed: the median of `--iters` calls, each
-between two CUDA events, on every rank at once.  Rank 0 alone, while the
-others wait, times the stacked plain version (which computes every rank's
-result in one process).  Where every rank has a card of its own (an NCCL
-group), every rank also times NCCL's reduce_scatter_tensor,
+between two CUDA events, on every rank at once (for a fused case "rs" is
+B7 alone on the payload, "ag" B8 alone on its result).  Rank 0 alone,
+while the others wait, times the stacked plain version (which computes
+every rank's result in one process).  Where every rank has a card of its
+own (an NCCL group), every rank also times NCCL's reduce_scatter_tensor,
 all_gather_into_tensor and all_reduce on the same payload, a yardstick the
-port never calls.  The bound is the larger of two times: the bytes a rank
-sends, (n - 1) * chunk * itemsize per kernel, over 450 GB/s of NVLink each
-way (only between cards), and the bytes the ranks of one card read and
-write (each input read once, each output written once) over its
+port never calls; NCCL has no quantized all-reduce, so for a fused case
+these f32 times are context, not a library time of the same function.
+The bound is the larger of two times: the bytes a rank sends, (n - 1)
+chunks per kernel (of values, or of codes and scales), over 450 GB/s of
+NVLink each way (only between cards), and the bytes the ranks of one card
+read and write (each input read once, each output written once) over its
 3.35 TB/s.
 
 Prints one line `RING_CHECK {json}` and exits non-zero when a check
@@ -48,10 +58,13 @@ import torch
 import torch.distributed as dist
 
 from .. import distributed
+from ..compression import config as comp_config
+from ..compression.quant import QTensor, add_dequantized, dequantize, quantize
 from ..ops import collective as C
 from ..ops import ring_collectives as RC
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+SCHEMES = ("int8", "fp8")  # fused cases: f32 payloads through B7/B8
 NVLINK_BYTES_PER_S = 450e9  # one direction, H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 LINE = "RING_CHECK "
@@ -62,7 +75,7 @@ def parse_cases(spec: str) -> List[Tuple[str, int]]:
     cases = []
     for item in spec.split(","):
         name, size = item.split(":")
-        if name not in DTYPES:
+        if name not in DTYPES and name not in SCHEMES:
             raise ValueError(f"unknown dtype {name!r} in case {item!r}")
         cases.append((name, int(size)))
     return cases
@@ -101,6 +114,76 @@ def planted_faults(xs: Sequence[torch.Tensor], good: torch.Tensor
     return faults
 
 
+def _slices(size: int, step: int = 1 << 24):
+    """Slices of 2^24 values, so f64 temporaries of a large payload stay small."""
+    return [slice(i, min(size, i + step)) for i in range(0, size, step)]
+
+
+def fused_tolerance(xs: Sequence[torch.Tensor], scheme: str) -> float:
+    """Largest error a fused-codec ring sum of `xs` may show against the
+    exact sum: the bound of the JAX package's tests
+    (tests/unit/test_pallas_collectives.py `_fused_tolerance` for int8:
+    every hop rounds the travelling partial by at most its absmax over
+    2 * 127, plus one all-gather quantization, times 2; for fp8, 2 * n *
+    the largest partial * 2^-3)."""
+    flats = [x.reshape(-1) for x in xs]
+    n, partial_max, sum_max = len(xs), 0.0, 0.0
+    for s in _slices(flats[0].numel()):
+        partial = flats[0][s].double()
+        partial_max = max(partial_max, partial.abs().max().item())
+        for f in flats[1:]:
+            partial_max = max(partial_max, partial.add_(f[s]).abs().max().item())
+        sum_max = max(sum_max, partial.abs().max().item())
+    if scheme == "fp8":
+        return 2.0 * n * partial_max * 2 ** -3
+    return 2.0 * ((n - 1) * partial_max + sum_max) / (2 * 127.0)
+
+
+def _max_err(got: torch.Tensor, xs: Sequence[torch.Tensor], scale: float) -> float:
+    """max |got - scale * (exact sum of xs)|, the sum taken in f64."""
+    flats, g = [x.reshape(-1) for x in xs], got.reshape(-1)
+    worst = 0.0
+    for s in _slices(g.numel()):
+        exact = flats[0][s].double()
+        for f in flats[1:]:
+            exact.add_(f[s])
+        worst = max(worst, (g[s].double() - exact.mul_(scale)).abs().max().item())
+    return worst
+
+
+def planted_fused_faults(xs: Sequence[torch.Tensor], cfg, good: torch.Tensor
+                         ) -> List[Tuple[str, torch.Tensor]]:
+    """The plain fused-ring sum `good` of `xs` with one fault each, in
+    chunk 0: the first hop's scales dropped (read as zero: the payload of
+    rank 1 decodes to nothing) and the codes of one 256-value block of the
+    last reduce-scatter hop zeroed.  A check that accepts either is too
+    weak."""
+    n, size = len(xs), xs[0].numel()
+    chunk = C.fused_chunk_elems(size, n, cfg)
+    parts = [C._padded_chunks(x.float(), n, chunk)[0] for x in xs]
+
+    def chunk0(fault: str) -> torch.Tensor:
+        q = quantize(parts[1 % n], cfg)
+        if fault == "scales":
+            q = QTensor(q.data, torch.zeros_like(q.scale))
+        for k in range(2, n):
+            q = quantize(add_dequantized(parts[k], q), cfg)
+        if fault == "codes":
+            data = q.data.clone()
+            data.view(-1)[:256] = 0
+            q = QTensor(data, q.scale)
+        return dequantize(quantize(add_dequantized(parts[0], q), cfg))
+
+    faults = []
+    for name, fault in (("scales of a hop dropped", "scales"),
+                        ("codes of a 256-value block zeroed", "codes")):
+        bad = good.clone().reshape(-1)
+        width = min(chunk, size)
+        bad[:width] = chunk0(fault)[:width].to(bad.dtype)
+        faults.append((name, bad.view(good.shape)))
+    return faults
+
+
 def _median_ms(fn, iters: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -116,24 +199,99 @@ def _median_ms(fn, iters: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def _bounds(n: int, size: int, row: int, itemsize: int, own_cards: bool) -> Dict[str, float]:
+def _bound_ms(n: int, sends: Dict[str, float], memory: Dict[str, float],
+              own_cards: bool) -> Dict[str, float]:
     """Least time of each function in ms: max(NVLink bytes a rank sends,
     device-memory bytes of one card's ranks)."""
     ranks_per_card = 1 if own_cards else n
-    chunks = {"rs": -(-row // C.TILE) * C.TILE, "ag": -(-row // C.TILE) * C.TILE,
-              "ar": C._chunk_elems(size, n)}
-    memory = {"rs": (n * row + row), "ag": (row + n * row), "ar": 2 * size}
     out = {}
     for k in ("rs", "ag", "ar"):
-        sends = (n - 1) * chunks[k] * itemsize * (2 if k == "ar" else 1)
-        t_link = sends / NVLINK_BYTES_PER_S if own_cards else 0.0
-        t_mem = ranks_per_card * memory[k] * itemsize / HBM_BYTES_PER_S
+        t_link = sends[k] / NVLINK_BYTES_PER_S if own_cards else 0.0
+        t_mem = ranks_per_card * memory[k] / HBM_BYTES_PER_S
         out[k] = max(t_link, t_mem) * 1e3
     return out
 
 
+def _bounds(n: int, size: int, row: int, itemsize: int, own_cards: bool) -> Dict[str, float]:
+    """Bounds of B5, B6 and their all-reduce: a rank sends (n - 1) chunks
+    per kernel and reads and writes its input and output once."""
+    chunk = -(-row // C.TILE) * C.TILE
+    per_kernel = (n - 1) * itemsize
+    sends = {"rs": per_kernel * chunk, "ag": per_kernel * chunk,
+             "ar": 2 * per_kernel * C._chunk_elems(size, n)}
+    memory = {"rs": (n * row + row) * itemsize, "ag": (row + n * row) * itemsize,
+              "ar": 2 * size * itemsize}
+    return _bound_ms(n, sends, memory, own_cards)
+
+
+def fused_bounds(n: int, size: int, cfg, own_cards: bool) -> Dict[str, float]:
+    """Bounds of B7, B8 and their all-reduce on `size` f32 values: a rank
+    sends (n - 1) chunks of codes and scales per kernel; B7 reads the
+    payload and writes its chunk, B8 reads the chunk and writes the result,
+    in f32."""
+    chunk = C.fused_chunk_elems(size, n, cfg)
+    wire = (n - 1) * (chunk + chunk // cfg.block * 4)
+    sends = {"rs": wire, "ag": wire, "ar": 2 * wire}
+    memory = {"rs": 4 * (size + chunk), "ag": 4 * (chunk + size), "ar": 4 * 2 * size}
+    return _bound_ms(n, sends, memory, own_cards)
+
+
+def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, iters: int,
+                     faults: bool, own_cards: bool) -> Dict:
+    cfg = comp_config.resolve(scheme)
+    xs = make_inputs(n, size, torch.float32, seed, device)
+    chunk = C.fused_chunk_elems(size, n, cfg)
+    res: Dict = {"dtype": scheme, "size": size, "chunk": chunk}
+    ok, err = {}, {}
+    tol = fused_tolerance(xs, scheme)
+    for op in ("sum", "mean"):
+        got = RC.fused_ring_all_reduce(xs[d], None, cfg, op)
+        want = C._plain_fused_ring_all_reduce(xs, cfg, op)[d]
+        ok[f"fused_{op}"] = bool(torch.equal(got, want))
+        err[f"fused_{op}"] = max((got[s] - want[s]).abs().max().item()
+                                 for s in _slices(size))
+        scale = 1.0 / n if op == "mean" else 1.0
+        err[f"fused_{op} vs exact"] = _max_err(got, xs, scale)
+        ok[f"fused_{op} within tolerance"] = err[f"fused_{op} vs exact"] <= tol * scale
+        if op == "sum" and faults and size <= FAULT_CASE_MAX:
+            for fault, bad in planted_fused_faults(xs, cfg, want):
+                ok[f"rejects {fault}"] = not torch.equal(got, bad)
+        del got, want
+    res.update(ok=ok, max_abs_err=err, tolerance=tol)
+    if device.type == "cuda":
+        flat = xs[d]
+        mine = RC._fused_rs(flat, cfg, chunk, None)
+        calls = {"rs": lambda: RC._fused_rs(flat, cfg, chunk, None),
+                 "ag": lambda: RC._fused_ag(mine, cfg, chunk, size, None),
+                 "ar": lambda: RC.fused_ring_all_reduce(flat, None, cfg, "mean")}
+        dist.barrier()
+        res["ms"] = {k: _median_ms(fn, iters) for k, fn in calls.items()}
+        dist.barrier()
+        if d == 0:
+            res["plain_ms"] = {"ar": _median_ms(
+                lambda: C._plain_fused_ring_all_reduce(xs, cfg, "mean"), iters)}
+        dist.barrier()
+        res["library_ms"] = None
+        res["library_note"] = "NCCL has no quantized all-reduce"
+        if own_cards:
+            row = size // n
+            rs_out = torch.empty(row, device=device)
+            ag_out = torch.empty(n * row, device=device)
+            x_rs = flat[:n * row].view(n, row)
+            ctx = {"rs": lambda: dist.reduce_scatter_tensor(rs_out, x_rs),
+                   "ag": lambda: dist.all_gather_into_tensor(ag_out, flat[:row])}
+            res["nccl_f32_ms"] = {k: _median_ms(fn, iters) for k, fn in ctx.items()}
+        res["bound_ms"] = fused_bounds(n, size, cfg, own_cards)
+        res["bound_note"] = ("NVLink bytes of codes and scales each rank sends vs device "
+                             "bytes of its card" if own_cards
+                             else f"device bytes of all {n} ranks on one card")
+    return res
+
+
 def check_case(name: str, size: int, n: int, d: int, seed: int, device, iters: int,
                faults: bool, own_cards: bool) -> Dict:
+    if name in SCHEMES:
+        return check_fused_case(name, size, n, d, seed, device, iters, faults, own_cards)
     dtype = DTYPES[name]
     xs = make_inputs(n, size, dtype, seed, device)
     row = size // n
@@ -209,8 +367,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     own_cards = dist.get_backend() == "nccl"
     for k in RC.KERNELS:
         k.launches = 0
-    cases = [check_case(name, size, n, d, args.seed, device, args.iters, args.faults, own_cards)
-             for name, size in parse_cases(args.cases)]
+    cases = []
+    for name, size in parse_cases(args.cases):
+        cases.append(check_case(name, size, n, d, args.seed, device, args.iters, args.faults,
+                                own_cards))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the ranks of one card share its memory
     out = {"rank": d, "n": n, "device": str(device), "backend": dist.get_backend(),
            "card": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "cases": cases, "launches": {k.name: k.launches for k in RC.KERNELS},

@@ -2,12 +2,13 @@
 
     python -m kungfu_tpu_torch.tools.step_profile [--batch 8] [--steps 2]
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
-        --impl pallas_ring --bucket-mib 256
+        --impl pallas_ring --bucket-mib 256 [--compression int8] [--n-kv-heads 8]
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
-attention) with DataParallelTrainer + synchronous_sgd(adamw(3e-4), impl,
-bucket_bytes), as chip_smoke.py's main and ranks phases do (both build it
-with flagship_step), warms up for two steps, then profiles `--steps`
+attention; `--n-kv-heads 8` its GQA variant) with DataParallelTrainer +
+synchronous_sgd(adamw(3e-4), impl, bucket_bytes, compression), as
+chip_smoke.py's main, ranks and gqa phases do (all build it with
+flagship_step), warms up for two steps, then profiles `--steps`
 steps with torch.profiler.  Started by the launcher, each rank trains on
 its share of the batch of `--batch` and profiles its own process: where
 ranks share a card, the others' kernels fill its idle time.
@@ -39,7 +40,7 @@ from ..train import DataParallelTrainer
 
 CATEGORIES = (  # first match wins
     ("flash kernels (port)", re.compile(r"flash_(fwd|bwd)")),
-    ("ring kernels (port)", re.compile(r"ring_(rs|ag)_kernel")),
+    ("ring kernels (port)", re.compile(r"ring_(fused_)?(rs|ag)_kernel")),
     ("matrix products", re.compile(r"gemm|sm90_|cutlass|xmma|nvjet|cublas", re.I)),
     ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
 )
@@ -64,19 +65,27 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def flagship_model(seed: int, device="cuda", n_kv_heads: int = 0):
+    """(cfg, model): the bf16 flash-attention flagship GPT (GQA with
+    `n_kv_heads` kv heads, MHA when 0) with random weights from `seed`."""
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", n_kv_heads=n_kv_heads,
+                            **FLAGSHIP_GPT)
+    return cfg, TransformerLM(cfg, device=device,
+                              generator=torch.Generator(device=device).manual_seed(seed))
+
+
 def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
-                  bucket_bytes=None):
+                  bucket_bytes=None, compression=None, n_kv_heads: int = 0):
     """The flagship GPT training step that chip_smoke.py drives and main()
-    profiles: the bf16 flash-attention model with random weights from
-    `seed`, DataParallelTrainer + synchronous_sgd(adamw(3e-4, b1=0.9,
-    b2=0.95), impl, bucket_bytes), and one random [batch, seq] token batch
-    from `seed + 1`.  Returns (cfg, trainer, state, tokens)."""
-    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **FLAGSHIP_GPT)
-    model = TransformerLM(cfg, device=device,
-                          generator=torch.Generator(device=device).manual_seed(seed))
+    profiles: `flagship_model`, DataParallelTrainer +
+    synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes,
+    compression), and one random [batch, seq] token batch from `seed + 1`.
+    Returns (cfg, trainer, state, tokens)."""
+    cfg, model = flagship_model(seed, device, n_kv_heads)
     trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
                                   synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl=impl,
-                                                  bucket_bytes=bucket_bytes), device=device)
+                                                  bucket_bytes=bucket_bytes,
+                                                  compression=compression), device=device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     tokens = trainer.shard_batch(torch.randint(0, cfg.vocab_size, (batch, cfg.max_len),
                                                generator=gen, device=device))
@@ -90,6 +99,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--impl", default="pmean", help="synchronous_sgd's gradient mean")
     ap.add_argument("--bucket-mib", type=int, default=0, help="bucket_bytes in MiB (0: per leaf)")
+    ap.add_argument("--compression", default=None,
+                    help="synchronous_sgd's gradient wire format (int8, fp8, bf16; none if unset)")
+    ap.add_argument("--n-kv-heads", type=int, default=0,
+                    help="kv heads of the flagship (8: its GQA variant; 0: MHA)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
@@ -97,7 +110,9 @@ def main() -> int:
     world = distributed.init_distributed(device="cuda")
     rank = dist.get_rank() if world > 1 else 0
     cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
-                                                bucket_bytes=(args.bucket_mib << 20) or None)
+                                                bucket_bytes=(args.bucket_mib << 20) or None,
+                                                compression=args.compression,
+                                                n_kv_heads=args.n_kv_heads)
     per = args.batch // world
     tokens = tokens[rank * per:(rank + 1) * per]
     for _ in range(2):
@@ -125,7 +140,8 @@ def main() -> int:
     steps = args.steps
     step_ms = wall_us / steps / 1e3
     print(f"[profile] {torch.cuda.get_device_name(0)}, flagship GPT batch {args.batch} x "
-          f"{cfg.max_len} (rank {rank} of {world}, batch {per}, impl={args.impl}): step "
+          f"{cfg.max_len}, {cfg.kv_heads} kv heads (rank {rank} of {world}, batch {per}, "
+          f"impl={args.impl}, compression={args.compression}): step "
           f"{step_ms:.1f} ms on the host clock, this process's device busy "
           f"{busy_us / steps / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):

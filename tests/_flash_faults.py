@@ -2,8 +2,9 @@
 
 Each is what a kernel that skipped a block of its work would return, built
 from the plain version's results on the same inputs; the kernel checks
-(kungfu_tpu_torch.utils.compare) must reject every one.  Causal MHA, the
-[B, L, H, D] layout, 64-row blocks as the kernels tile them.
+(kungfu_tpu_torch.utils.compare) must reject every one.  Causal, the
+[B, L, H, D] layout, 64-row blocks as the kernels tile them; MHA for
+`planted_faults`, MHA or GQA for the dk/dv faults of `planted_dkv_faults`.
 """
 from __future__ import annotations
 
@@ -12,14 +13,16 @@ import torch
 from kungfu_tpu_torch.ops import flash
 
 BLOCK = 64
-FAULTS = (
-    "fwd skips key block 0 for rows >= L/2",
-    "dq skips key block 0 for rows >= L/2",
+DKV_FAULTS = (
     "dk of key block 0 misses query rows >= L/2",
     "dv of key block 0 misses query rows >= L/2",
     "dk query range ends one block short",
     "dv query range ends one block short",
 )
+FAULTS = (
+    "fwd skips key block 0 for rows >= L/2",
+    "dq skips key block 0 for rows >= L/2",
+) + DKV_FAULTS
 
 
 def _key_block_terms(q, k, v, do, lse, delta, scale, rows, keys):
@@ -44,6 +47,20 @@ def _dkv_without_rows(q, k, v, do, lse, delta, scale, rows):
     return flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, 0)[1:]
 
 
+def planted_dkv_faults(q, k, v, do, lse, delta, scale, dk, dv):
+    """{fault in DKV_FAULTS: (output name, faulty output)} from the plain
+    dk, dv of causal attention (k, v with H or fewer heads)."""
+    L = q.shape[1]
+    late, first = slice(L // 2, L), slice(0, BLOCK)
+    dk_late, dv_late = _dkv_without_rows(q, k, v, do, lse, delta, scale, late)
+    dk_bad, dv_bad = dk.float().clone(), dv.float().clone()
+    dk_bad[:, first], dv_bad[:, first] = dk_late[:, first], dv_late[:, first]
+    dk_short, dv_short = _dkv_without_rows(q, k, v, do, lse, delta, scale,
+                                           slice(L - BLOCK, L))
+    outputs = (("dk", dk_bad), ("dv", dv_bad), ("dk", dk_short), ("dv", dv_short))
+    return dict(zip(DKV_FAULTS, outputs))
+
+
 def planted_faults(q, k, v, do, lse, delta, scale, o, dq, dk, dv):
     """{fault in FAULTS: (output name, faulty output)} from the plain
     results o, dq, dk, dv of causal attention on q, k, v with cotangent do."""
@@ -53,11 +70,5 @@ def planted_faults(q, k, v, do, lse, delta, scale, o, dq, dk, dv):
     o_bad, dq_bad = o.float().clone(), dq.float().clone()
     o_bad[:, late] -= o_part
     dq_bad[:, late] -= dq_part
-    dk_late, dv_late = _dkv_without_rows(q, k, v, do, lse, delta, scale, late)
-    dk_bad, dv_bad = dk.float().clone(), dv.float().clone()
-    dk_bad[:, first], dv_bad[:, first] = dk_late[:, first], dv_late[:, first]
-    dk_short, dv_short = _dkv_without_rows(q, k, v, do, lse, delta, scale,
-                                           slice(L - BLOCK, L))
-    outputs = (("o", o_bad), ("dq", dq_bad), ("dk", dk_bad), ("dv", dv_bad),
-               ("dk", dk_short), ("dv", dv_short))
-    return dict(zip(FAULTS, outputs))
+    return {FAULTS[0]: ("o", o_bad), FAULTS[1]: ("dq", dq_bad),
+            **planted_dkv_faults(q, k, v, do, lse, delta, scale, dk, dv)}

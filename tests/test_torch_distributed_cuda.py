@@ -65,9 +65,12 @@ WORKER = textwrap.dedent("""
     batch = trainer.shard_batch(tokens[rank * per_rank:(rank + 1) * per_rank])
     for _ in range(steps):
         state, m = trainer.train_step(state, batch)
-    assert all(k.launches == steps * cfg.n_layers for k in flash.KERNELS)
-    ring = [k.launches for k in RC.KERNELS]
+    mha = (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)
+    assert all(k.launches == steps * cfg.n_layers for k in mha)
+    assert flash.FLASH_BWD_DKV_GQA.launches == 0  # the model is MHA
+    ring = [RC.RING_RS.launches, RC.RING_AG.launches]
     assert (min(ring) > 0 and ring[0] == ring[1]) if impl == "pallas_ring" else ring == [0, 0]
+    assert RC.FUSED_RS.launches == RC.FUSED_AG.launches == 0  # no compression
     out = {k: v.cpu().numpy() for k, v in trainer.eval_params(state).items()}
     np.savez(sys.argv[1] + f".{rank}.npz", loss=m["loss"].item(), **out)
     distributed.shutdown_distributed()

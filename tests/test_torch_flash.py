@@ -15,7 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _flash_faults import FAULTS, planted_faults
+from _flash_faults import DKV_FAULTS, FAULTS, planted_dkv_faults, planted_faults
 from _torch_reference import jax_reference
 from kungfu_tpu_torch.ops import flash as tflash
 from kungfu_tpu_torch.parallel.ring_attention import full_attention
@@ -50,6 +50,8 @@ CASES = [
     (200, 2, 2, False, 0),
     (200, 2, 2, True, 64),
     (200, 4, 2, True, 0),  # GQA: the port's plain path vs the JAX GQA kernels
+    (200, 4, 2, True, 64),
+    (200, 4, 1, False, 0),
 ]
 
 
@@ -119,6 +121,29 @@ def test_plain_wrappers_agree_with_autograd(window):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("window", [0, 64])
+def test_gqa_backward_matches_pallas_gqa_kernel(kflash, window):
+    """The GQA dk/dv of the port's plain path (the wrapper of B4 on the
+    CPU) against the JAX package's `_bwd_dkv_gqa_kernel` in interpret
+    mode, L=200, H=4, Hkv=2, from the same o and lse; 2e-5 as above."""
+    q, k, v, g_o, _ = _inputs(200, 4, 2, seed=5)
+    scale = 0.125
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g_o))
+    o, lse = tflash.flash_fwd(tq, tk, tv, scale, True, window)
+    delta = (o * tg).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = tflash.flash_bwd_dkv(tq, tk, tv, tg, lse, delta, scale, True, window)
+
+    def bhld(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])
+
+    _, jdk, jdv = kflash._bwd_pallas(
+        bhld(q), bhld(k), bhld(v), bhld(o.numpy()), jnp.asarray(lse.numpy()).reshape(4, 200),
+        bhld(g_o), scale, True, 64, 64, True, h=4, hkv=2, window=window)
+    for got, want in ((dk, jdk), (dv, jdv)):
+        want = np.asarray(want).reshape(1, 2, 200, 64).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 def test_flash_matches_full_attention_bf16():
     """bf16 on the plain path against full attention; 3e-2 absolute, the
     JAX package's own bf16 flash tolerance (tests/unit/test_flash.py)."""
@@ -170,6 +195,21 @@ def test_kernel_check_accepts_bf16_rounding(plain_l512):
         whole, worst = rel_errs(g, w)
         assert worst <= REL_LIMIT[torch.bfloat16], f"{name}: worst block {worst:.3g}"
     assert (got[1] - want[1]).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("fault", DKV_FAULTS)
+def test_kernel_check_rejects_planted_gqa_faults(fault):
+    """The same check rejects a GQA dk/dv (B4) that leaves a key block's
+    late query rows, or the last query block, out of one kv head's group."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16).float()
+                   for x in _inputs(512, 4, 2, seed=6)[:4])
+    _, _, _, _, dk, dv = _plain_results(q, k, v, do, 0.125)
+    lse = tflash._plain_fwd_blhd(q, k, v, 0.125, True, 0)[1]
+    o = tflash._plain_fwd_blhd(q, k, v, 0.125, True, 0)[0]
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    name, bad = planted_dkv_faults(q, k, v, do, lse, delta, 0.125, dk, dv)[fault]
+    worst = rel_errs(bad, dict(dk=dk, dv=dv)[name])[1]
+    assert worst > 10 * REL_LIMIT[torch.bfloat16], f"{fault}: worst block {worst:.3g}"
 
 
 @pytest.mark.parametrize("fault", FAULTS)

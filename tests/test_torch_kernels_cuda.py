@@ -12,15 +12,17 @@ not have; this file imports none of it).
 Each output is judged by its normwise relative error over 64-row blocks,
 worst block against kungfu_tpu_torch.utils.compare.REL_LIMIT (f32 1e-5,
 fp16 2e-3, bf16 1e-2, set and explained there), and lse by LSE_ATOL.
-The readings are printed (`-s` shows them).  One test plants faults, a
-key or query block left out at L=2048, and shows the check rejects them.
+The readings are printed (`-s` shows them).  Two tests plant faults, a
+key or query block left out at L=2048 (MHA, and GQA for B4), and show the
+check rejects them.  The error-feedback residual kernel is held to its
+plain version bit for bit.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from _flash_faults import FAULTS, planted_faults
+from _flash_faults import DKV_FAULTS, FAULTS, planted_dkv_faults, planted_faults
 from kungfu_tpu_torch.ops import flash
 from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
 
@@ -87,21 +89,57 @@ def test_kernels_match_plain(card, dtype, b, l, h, hkv, d, causal, window):
         _close(got, want, dtype, name)
 
 
+GQA_CASES = [
+    # (B, L, H, Hkv, D, causal, window)
+    (2, 192, 4, 2, 64, True, 0),
+    (1, 200, 4, 1, 64, True, 0),  # ragged, one kv head for four query heads
+    (2, 256, 4, 2, 64, True, 96),  # sliding window
+    (1, 333, 4, 2, 128, False, 0),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_gqa_forward_and_dq_kernels(card, dtype):
-    """B1 and B2 index-map GQA kv heads; B4 (GQA dk/dv) is not ported."""
-    q, k, v, do = _inputs(card, 2, 192, 4, 2, 64, dtype, seed=1)
-    o, lse = flash.flash_fwd(q, k, v, 0.125, True)
-    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, 0.125, True, 0)
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window", GQA_CASES)
+def test_gqa_forward_and_dq_kernels(card, dtype, b, l, h, hkv, d, causal, window):
+    """B1 and B2 index-map the GQA kv heads; B4 sums each kv head's
+    query-head group inside the block."""
+    q, k, v, do = _inputs(card, b, l, h, hkv, d, dtype, seed=1)
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
     _close(o, o_ref, dtype, "o")
+    _lse_close(lse, lse_ref)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, 0.125, True)
-    dq_ref = flash._plain_bwd_blhd(q, k, v, do, lse, delta, 0.125, True, 128, 0)[0]
-    _close(dq, dq_ref, dtype, "dq")
-    with pytest.raises(NotImplementedError, match="B4"):
-        flash.flash_bwd_dkv(q, k, v, do, lse, delta, 0.125, True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        flash.flash_attention(q.requires_grad_(), k, v, causal=True)
+    before = flash.FLASH_BWD_DKV_GQA.launches
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
+    assert flash.FLASH_BWD_DKV_GQA.launches == before + 1
+    refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, 128, window)
+    torch.cuda.synchronize()
+    assert dk.shape == k.shape and dv.shape == v.shape
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        _close(got, want, dtype, name)
+
+
+def test_check_rejects_planted_gqa_faults(card):
+    """At the flagship length (L=2048, bf16, H=16, Hkv=8), B4 passes the
+    check and every planted dk/dv fault fails it."""
+    q, k, v, do = _inputs(card, 1, 2048, 16, 8, 64, torch.bfloat16, seed=4)
+    scale = 0.125
+    o, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    got = dict(zip(("dk", "dv"), flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True)))
+    want = dict(zip(("dk", "dv"), flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True,
+                                                        128, 0)[1:]))
+    for name in want:
+        _close(got[name], want[name], torch.bfloat16, name)
+    limit = REL_LIMIT[torch.bfloat16]
+    faults = planted_dkv_faults(q, k, v, do, lse, delta, scale, want["dk"], want["dv"])
+    for fault in DKV_FAULTS:
+        name, bad = faults[fault]
+        worst = rel_errs(bad, want[name])[1]
+        print(f"planted GQA fault, {fault}: worst block {worst:.3g}")
+        assert worst > limit, f"the check passed a planted fault: {fault} ({worst:.3g})"
 
 
 def test_check_rejects_planted_faults(card):
@@ -129,12 +167,14 @@ def test_check_rejects_planted_faults(card):
         assert worst > limit, f"the check passed a planted fault: {fault} ({worst:.3g})"
 
 
-def test_autograd_counts_launches(card):
-    q, k, v, do = (x.requires_grad_() for x in _inputs(card, 1, 128, 2, 2, 64, torch.bfloat16))
+@pytest.mark.parametrize("hkv,want", [(2, [1, 1, 1, 0]), (1, [1, 1, 0, 1])], ids=["mha", "gqa"])
+def test_autograd_counts_launches(card, hkv, want):
+    q, k, v, do = (x.requires_grad_()
+                   for x in _inputs(card, 1, 128, 2, hkv, 64, torch.bfloat16))
     before = [kern.launches for kern in flash.KERNELS]
     o = flash.flash_attention(q, k, v, causal=True)
     o.backward(do)
-    assert [kern.launches - n for kern, n in zip(flash.KERNELS, before)] == [1, 1, 1]
+    assert [kern.launches - n for kern, n in zip(flash.KERNELS, before)] == want
 
 
 def test_xla_backward_takes_the_plain_arm(card):
@@ -147,7 +187,7 @@ def test_xla_backward_takes_the_plain_arm(card):
         before = [kern.launches for kern in flash.KERNELS]
         flash.flash_attention(*leaves, causal=True, backward=arm).backward(do)
         launched = [kern.launches - n for kern, n in zip(flash.KERNELS, before)]
-        assert launched == ([1, 0, 0] if arm == "xla" else [1, 1, 1])
+        assert launched == ([1, 0, 0, 0] if arm == "xla" else [1, 1, 1, 0])
         grads[arm] = [x.grad for x in leaves]
     for name, got, want in zip("qkv", grads["xla"], grads[None]):
         _close(got, want, torch.float32, f"d{name}")
@@ -164,3 +204,38 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         flash.flash_fwd(q.double(), k.double(), v.double(), 0.1, True)
     with pytest.raises(ValueError, match="on"):
         flash.flash_fwd(q, k.cpu(), v, 0.1, True)
+
+
+# The error-feedback residual kernel (csrc/ring.cu `ef_residual_kernel`)
+# against its plain version, compression.quant.residual on the same card
+# tensor: bit for bit, at sizes that end mid-block, with an all-zero block,
+# values at the clamp and a start that is not 16-byte aligned.
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("size", [1, 300, 65536, 1000003])
+@pytest.mark.parametrize("block", [256, 64])
+@pytest.mark.parametrize("scheme", ["int8", "fp8"])
+def test_ef_residual_kernel_matches_plain(card, scheme, block, size, offset):
+    from kungfu_tpu_torch import compression as tc
+    from kungfu_tpu_torch.compression import error_feedback as ef
+
+    cfg = tc.CompressionConfig(scheme=scheme, block=block)
+    g = torch.Generator(device=card).manual_seed(size + block)
+    base = torch.randn(size + offset, generator=g, device=card)
+    base *= torch.rand(size + offset, generator=g, device=card) * 50
+    x = base[offset:]
+    if size >= 4 * block:
+        x[block:2 * block] = 0
+        x[3 * block:4 * block] = 3.5
+    want = tc.quant.residual(x, cfg)
+    before = ef.EF_RESIDUAL.launches
+    got = ef.residual_(x, cfg)
+    assert got.data_ptr() == x.data_ptr() and ef.EF_RESIDUAL.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ef_residual_kernel_refuses_a_block_it_cannot_run(card):
+    from kungfu_tpu_torch import compression as tc
+    from kungfu_tpu_torch.compression import error_feedback as ef
+
+    with pytest.raises(NotImplementedError, match="block 512"):
+        ef.residual_(torch.ones(1024, device=card), tc.CompressionConfig(scheme="int8", block=512))

@@ -38,6 +38,8 @@ CONFIGS = {
                                       tie_embeddings=True, attention="full",
                                       attention_bias=True),
     "gqa-rope-full": dict(n_kv_heads=2, rope=True, attention="full"),
+    "gqa-rope-flash": dict(n_kv_heads=2, rope=True, attention="flash", flash_block_q=8,
+                           flash_block_k=8),
     "rope-window-flash": dict(rope=True, window=6, attention="flash",
                               flash_block_q=8, flash_block_k=8),
     "auto-remat": dict(attention="auto", rope=True, remat=True),
