@@ -12,7 +12,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              starts
  3. kernels  each flash kernel against its plain PyTorch version at the
              flagship attention shape (B=8, H=16, L=2048, D=64, bf16,
-             causal), plus the ragged L=2000 and window=256 cases; times of
+             causal), plus the ragged L=2000, window=256 and non-causal
+             cases, and the backward (B2, B3) with a non-zero lse
+             cotangent, causal and not, against the plain blocked
+             backward (ring attention's full hops and merges); times of
              kernel, plain version and the library call
              (scaled_dot_product_attention, a yardstick the port never
              calls), and the least time the card could take (bound); then
@@ -71,10 +74,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              bit-identical, B1, B2 and B4 launched once per layer per step,
              B7 and B8 once per bucket per step, the residual kernel once
              per gradient per step, B3, B5 and B6 never
-10. report   one JSON line of kernels B1-B8 and the residual kernel
+10. shift    4 ranks through the launcher, each running tools/shift_check:
+             the ring shift kernel (B11) bit-equal to its stacked plain
+             version (torch.roll over the ranks' payloads) on a K/V pair of
+             one ring-attention hop (2 x [2, 2048, 16, 64] bf16, 16.8 MB) at
+             shift +1 and -1 and on an odd byte count at +1 and +2, then
+             interleaved with B5-B8 calls of other sizes; planted faults (a
+             pair shifted the wrong way, a 16-byte vector corrupted)
+             rejected; its time per call (median of 5), the plain
+             version's, NCCL's batch_isend_irecv where every rank has a card
+             of its own, and the bound
+11. sp-ref   the flagship at 8192 positions (max_len 8192) on the 2
+             sequences of phase sp, in one process with flash attention
+             over the whole sequence, forward only: the first-step loss
+12. sp       this slice's main path: the 8192-position flagship on 4 ranks
+             as a mesh of dp=1 x sp=4 (each rank 2048 positions of both
+             sequences), attention="ring" (K/V rotating through B11, each
+             hop's block on B1-B3), MeshTrainer with adamw(3e-4, b1=0.9,
+             b2=0.95) and the gradient sum under impl="pallas_ring" (B5,
+             B6, --bucket-mib buckets), 3 steps (SP_STEPS): loss finite and
+             falling, the first step's loss within 1e-2 of phase sp-ref's,
+             the replicas bit-identical, B11 launched 2 x 3 x 24 = 144 times
+             a step on every rank and B1, B2 and B3 24 x (r + 1) times on
+             rank r (the causal ring skips the blocks of later ranks), B5
+             and B6 once per bucket; the slowest rank's step time, tokens/s
+             and peak memory per rank
+13. report   one JSON line of kernels B1-B8, B11 and the residual kernel
              (launches from rank 0 of the path that runs each: phase ranks
-             for B1-B3, B5, B6, phase gqa for the others), then the last
-             line {"ok": true, "device":
+             for B1-B3, B5, B6, phase sp for B11, phase gqa for the
+             others), then the last line {"ok": true, "device":
              {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
@@ -118,8 +146,16 @@ TOL_MODEL_GRAD = 1e-5
 # weights and sequences, the loss averaged over 4 shards instead of taken
 # over one batch of 8, so only bf16 products of other shapes differ.
 TOL_RANKS_LOSS = 1e-2
+# Phase sp against phase sp-ref, first step: the same weights and
+# sequences; ring attention merges four blocks per row in f32 where the
+# one-process flash kernel folds them in one pass, the loss a sum of four
+# shares, and the bf16 products take other shapes.
+TOL_SP_LOSS = 1e-2
 N_RANKS = 4
+SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
+SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
 RANKS_LINE = "RANKS_RESULT "
+SP_LINE = "SP_RESULT "
 
 
 class SmokeFailure(Exception):
@@ -232,18 +268,19 @@ def phase_kernels(seed: int):
     scale = D ** -0.5
     errs = {k.name: 0.0 for k in flash.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for L, window in ((2048, 0), (2000, 0), (2048, 256)):
+    for L, window, causal in ((2048, 0, True), (2000, 0, True), (2048, 256, True),
+                              (2048, 0, False)):
         q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
-        o, lse = flash.flash_fwd(q, k, v, scale, True, window)
-        o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, True, window)
+        o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+        o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
         delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True, window)
-        dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True, window)
+        dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+        dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
         dq_ref, dk_ref, dv_ref = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale,
-                                                       True, 128, window)
+                                                       causal, 128, window)
         torch.cuda.synchronize()
-        case = f"L={L} window={window}"
+        case = f"L={L} window={window}" + ("" if causal else " non-causal")
         limit = REL_LIMIT[dtype]
         rel = {}
         for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
@@ -263,6 +300,34 @@ def phase_kernels(seed: int):
         for name, x in e.items():
             errs[name] = max(errs[name], x)
         del o_ref, dq_ref, dk_ref, dv_ref
+
+    # the backward with a non-zero lse cotangent, folded into delta (ring
+    # attention differentiates its merges through lse): the kernels against
+    # the plain blocked backward, both through the autograd dispatcher
+    L = 2048
+    for causal in (True, False):
+        q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        g_lse = torch.randn(B, H, L, generator=gen, device="cuda")
+        o, lse = flash.flash_fwd(q, k, v, scale, causal)
+        got = flash._dispatch_bwd(q, k, v, o, lse, do, scale, causal, 128, g_lse, 0, None)
+        want = flash._dispatch_bwd(q, k, v, o, lse, do, scale, causal, 128, g_lse, 0, "xla")
+        torch.cuda.synchronize()
+        case = f"L={L} lse cotangent" + ("" if causal else " non-causal")
+        limit = REL_LIMIT[dtype]
+        rel = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            whole, worst = rel[name] = rel_errs(g, w)
+            check(worst <= limit, f"{name} kernel vs plain at {case}: normwise relative "
+                  f"error {whole:.3g}, worst 64-row block {worst:.3g} > {limit}")
+        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], max_err(got[0], want[0]))
+        errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], max_err(got[1], want[1]),
+                                    max_err(got[2], want[2]))
+        print(f"[kernels] {case}: normwise relative error (whole, worst 64-row block) "
+              + ", ".join(f"{n} {w:.3g} {b:.3g}" for n, (w, b) in rel.items())
+              + f" (bf16, limit {limit}); max abs err dq {max_err(got[0], want[0]):.3g} "
+              f"dk/dv {max(max_err(got[1], want[1]), max_err(got[2], want[2])):.3g}")
+        del got, want
 
     # timing at the flagship shape (fresh inputs, causal, no window)
     L, window = 2048, 0
@@ -641,6 +706,80 @@ def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, ref_loss1: f
     return r0["launches"]
 
 
+def phase_shift(seed: int):
+    """B11 on N_RANKS ranks against its stacked plain version, interleaved
+    with B5-B8; its time, the plain version's and the bound."""
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+
+    _, res = spawn_ranks(["shift", "--interleave", "--faults", "--iters", "20", "--seed",
+                          str(seed)], "SHIFT_CHECK ", 600)
+    for r, rr in sorted(res.items()):
+        bad = [k for k, v in rr["ok"].items() if not v]
+        check(rr["ok_all"], f"shift rank {r}: failed {bad}, max abs err "
+              f"{json.dumps(rr['max_abs_err'])}")
+    r0 = res[0]
+    t0 = r0["timing"]
+    ms = max(rr["timing"]["ms"] for rr in res.values())
+    lib = (max(rr["timing"]["library_ms"] for rr in res.values())
+           if t0["library_ms"] is not None else None)
+    err = max(v for rr in res.values() for v in rr["max_abs_err"].values())
+    print(f"[shift] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
+          f"shifts ({', '.join(k for k in r0['ok'] if 'rejects' not in k)}) equal the stacked "
+          f"plain version bit for bit; planted faults rejected; launches on rank 0 "
+          f"{json.dumps(r0['launches'])}")
+    print(f"[shift] K/V pair {r0['kv']} bf16 x 2 ({t0['bytes'] / 1e6:.1f} MB) at +1: kernel "
+          f"{ms:.3f} ms (slowest rank; {r0['timing']['how']}), plain {t0['plain_ms']:.3f} ms (all ranks in one "
+          f"process), bound {t0['bound_ms']:.4f} ms ({t0['bound_note']}), library "
+          f"{f'{lib:.3f} ms (NCCL batch_isend_irecv)' if lib is not None else 'null: ' + t0['library_note']}")
+    name = FM.SHIFT.name
+    return ({name: err}, {name: ms}, {name: t0["plain_ms"]}, {name: lib},
+            {name: (t0["bound_ms"], "bytes")})
+
+
+def phase_sp_reference(seed: int):
+    """The 8192-position flagship's loss on phase sp's sequences, one process."""
+    from kungfu_tpu_torch.models import lm_loss
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens
+
+    cfg, model = flagship_model(seed, "cuda", max_len=SP_SEQ)
+    tokens = flagship_tokens(cfg, SP_BATCH, seed)
+    with torch.no_grad():
+        loss = lm_loss(model(tokens), tokens).item()
+    check(math.isfinite(loss), f"sp-ref: non-finite loss {loss}")
+    print(f"[sp-ref] flagship at {SP_SEQ} positions, {SP_BATCH} sequences, flash attention over "
+          f"the whole sequence in one process: loss {loss:.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_sp(steps: int, seed: int, bucket_mib: int, ref_loss: float):
+    """The sequence-parallel flagship step on N_RANKS ranks (dp=1 x sp=4)."""
+    out, res = spawn_ranks(["sp", "--steps", str(steps), "--seed", str(seed), "--bucket-mib",
+                            str(bucket_mib)], SP_LINE, 900)
+    for line in out.splitlines():
+        if "[sp]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        check(rr["ok"], f"sp: rank {r} failed its checks: {json.dumps(rr['checks'])}; "
+              f"launches {json.dumps(rr['launches'])}, expected "
+              f"{json.dumps(rr['expected_launches'])}")
+    r0 = res[0]
+    loss1 = r0["losses"][0]
+    check(abs(loss1 - ref_loss) <= TOL_SP_LOSS,
+          f"sp: first-step loss {loss1} vs phase sp-ref's {ref_loss}")
+    step_s = max(rr["step_s"] for rr in res.values())
+    peaks = " ".join(f"{res[r]['peak_gib']:.2f}" for r in sorted(res))
+    print(f"[sp] {N_RANKS} ranks as dp=1 x sp=4 ({r0['backend']}, {r0['buckets']} buckets of at "
+          f"most {bucket_mib} MiB), {SP_BATCH} x {SP_SEQ} tokens a step: losses "
+          f"{' '.join(f'{x:.4f}' for x in r0['losses'])}, first step {loss1:.4f} vs phase "
+          f"sp-ref's {ref_loss:.4f}; replicas bit-identical; launches exact on every rank; "
+          f"steady step {step_s * 1e3:.1f} ms (slowest rank), {SP_BATCH * SP_SEQ / step_s:.0f} "
+          f"tokens/s, peak memory per rank {peaks} GiB; launches per rank "
+          + "; ".join(f"{r}: {json.dumps(res[r]['launches'])}" for r in sorted(res)))
+    return r0["launches"]
+
+
 def rank_train(argv) -> int:
     """One rank of phase ranks (run by the launcher)."""
     import torch.distributed as dist
@@ -727,6 +866,87 @@ def rank_ring(argv) -> int:
     return rc
 
 
+def rank_shift(argv) -> int:
+    """One rank of phase shift (run by the launcher)."""
+    from kungfu_tpu_torch.tools import shift_check
+
+    rc = shift_check.main(argv)
+    if not jax_free():
+        print("chip_smoke: JAX or the JAX package was imported", file=sys.stderr)
+        return 1
+    return rc
+
+
+def rank_sp(argv) -> int:
+    """One rank of phase sp (run by the launcher)."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.tools.step_profile import flagship_sp_step
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    args = ap.parse_args(argv)
+    tf32_off()
+    world = distributed.init_distributed(device="cuda")
+    rank = dist.get_rank()
+    bucket = args.bucket_mib << 20
+    cfg, trainer, state, shard = flagship_sp_step(SP_BATCH, SP_SEQ, world, args.seed,
+                                                  impl="pallas_ring", bucket_bytes=bucket or None)
+    sp_rank = trainer.mesh.coord("sp")
+    params = list(state.params.parameters())
+    buckets = len(_pack_buckets(params, bucket)) if bucket else len(params)
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS + FM.KERNELS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, shard)
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        print(f"[sp] rank {rank} step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms", flush=True)
+    launches = {k.name: k.launches for k in kernels}
+    sums = [p.detach().view(torch.int32).to(torch.int64).sum().item() for p in params]
+    every = [None] * world
+    dist.all_gather_object(every, sums)
+    # per step: rank r runs r + 1 of the 4 blocks of each layer (the causal
+    # ring skips the blocks of later ranks), the K/V pair shifts 3 times a
+    # layer forward and 3 times backward, and every bucket is summed once
+    blocks = cfg.n_layers * (sp_rank + 1) * args.steps
+    want = {k.name: 0 for k in kernels}
+    want.update({flash.FLASH_FWD.name: blocks, flash.FLASH_BWD_DQ.name: blocks,
+                 flash.FLASH_BWD_DKV.name: blocks, RC.RING_RS.name: buckets * args.steps,
+                 RC.RING_AG.name: buckets * args.steps,
+                 FM.SHIFT.name: cfg.n_layers * 2 * (world - 1) * args.steps})
+    checks = {
+        "loss finite": all(math.isfinite(x) for x in losses),
+        "loss falls": losses[-1] < losses[0],
+        "replicas bit-identical": all(s == every[0] for s in every),
+        "launches": launches == want,
+        "no JAX": jax_free(),
+    }
+    result = {"rank": rank, "sp_rank": sp_rank, "backend": dist.get_backend(),
+              "losses": losses,
+              "step_s": statistics.median(times[1:]) if args.steps > 1 else times[0],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "buckets": buckets,
+              "launches": launches, "expected_launches": want, "checks": checks,
+              "ok": all(checks.values())}
+    print(SP_LINE + json.dumps(result), flush=True)
+    distributed.shutdown_distributed()
+    return 0 if result["ok"] else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -735,20 +955,22 @@ def main() -> int:
         print("chip_smoke: kungfu_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    if sys.argv[1:2] == ["--rank-phase"]:  # one rank of phase ring or ranks
+    if sys.argv[1:2] == ["--rank-phase"]:  # one rank of a phase started by the launcher
         phase, rest = sys.argv[2], sys.argv[3:]
-        return rank_ring(rest) if phase == "ring" else rank_train(rest)
+        workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp}
+        return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank-steps", type=int, default=3)
     ap.add_argument("--bucket-mib", type=int, default=256,
-                    help="bucket_bytes of phases ranks and gqa in MiB (0: one ring call per "
-                    "gradient)")
+                    help="bucket_bytes of phases ranks, gqa and sp in MiB (0: one ring call "
+                    "per gradient)")
     args = ap.parse_args()
     from kungfu_tpu_torch.compression import error_feedback as EF
     from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
     try:
@@ -765,8 +987,12 @@ def main() -> int:
                                      main_losses[0])
         gqa_launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                    gqa_loss, compression="int8")
+        results.append(phase_shift(args.seed))
+        sp_loss = phase_sp_reference(args.seed)
+        sp_launches = phase_sp(SP_STEPS, args.seed, args.bucket_mib, sp_loss)
         # each kernel's launches from the path that runs it
         launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
+        launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
         check(all(launches.values()), f"a kernel of the main paths never launched: {launches}")
         check(jax_free(), "JAX or the JAX package was imported")
     except SmokeFailure as e:
@@ -779,7 +1005,7 @@ def main() -> int:
         "launches": launches[k.name], "max_abs_err": errs[k.name], "ms": ms[k.name],
         "plain_ms": plain[k.name], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
-    } for k in flash.KERNELS + RC.KERNELS + EF.KERNELS]
+    } for k in flash.KERNELS + RC.KERNELS + FM.KERNELS + EF.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

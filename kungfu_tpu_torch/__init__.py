@@ -12,7 +12,11 @@ card or across ranks started by `python -m kungfu_tpu_torch.run`: its
 attention on hand-written CUDA kernels for Hopper (`ops/flash.py`), its
 gradient mean on hand-written ring kernels (`ops/ring_collectives.py`),
 plain or with int8/fp8 codes on the wire and error feedback
-(`compression/`); the kernel sources are in `ops/csrc/`.
+(`compression/`); and the flagship's sequence-parallel step
+(`trainer.MeshTrainer` over `plan.make_mesh(dp=..., sp=...)`, ring
+attention in `parallel/ring_attention.py` with K/V rotating through a
+hand-written shift kernel, `ops/fused_matmul.py`).  The kernel sources are
+in `ops/csrc/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; on
 the CPU every kernel wrapper runs its plain PyTorch version instead.

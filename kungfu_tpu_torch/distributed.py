@@ -13,12 +13,14 @@ one, since NCCL refuses two ranks of one communicator on one card; the CPU
 is always gloo.  The group carries only the broadcast at init, the loss
 mean and the ring workspace's handle exchange: the gradient mean of
 impl="pallas_ring" runs through the ring kernels on either backend.
+`sub_group` makes the groups of a mesh axis (`plan/mesh.py`) on the same
+backend.
 """
 from __future__ import annotations
 
 import collections
 import datetime
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,6 +80,15 @@ def init_distributed(config: Optional[Config] = None, device=None) -> int:
     where = f"card {card} of {count}" if card is not None else "cpu"
     log.info("rank %d/%d joined at %s: %s, backend %s", cfg.rank, world, root, where, backend)
     return world
+
+
+def sub_group(partition: Sequence[Sequence[int]]):
+    """One process group per list of global ranks in `partition` (every
+    rank in exactly one list), made in the same order on every rank, as
+    `dist.new_group` requires; returns the group that holds this rank.
+    The groups take the world's backend: gloo where ranks share a card."""
+    mine, _ = dist.new_subgroups_by_enumeration([list(ranks) for ranks in partition])
+    return mine
 
 
 def shutdown_distributed() -> None:

@@ -1,3 +1,3 @@
-from .transformer import TransformerConfig, TransformerLM, apply_rope, lm_loss
+from .transformer import TransformerConfig, TransformerLM, apply_rope, lm_loss, lm_loss_shard
 
-__all__ = ["TransformerConfig", "TransformerLM", "apply_rope", "lm_loss"]
+__all__ = ["TransformerConfig", "TransformerLM", "apply_rope", "lm_loss", "lm_loss_shard"]

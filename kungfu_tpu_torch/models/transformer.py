@@ -16,7 +16,14 @@ logits, loss and gradients:
 Parameter names follow the flax tree with torch's layout (Dense.kernel
 [in, out] becomes `weight` [out, in]; MLP "in" becomes `in_`).
 
-Decode and generate, MoE, ring/ulysses attention, head="hidden" with its
+attention="ring" with a mesh (`plan.make_mesh(..., sp=n)`) is sequence
+parallelism: each rank of an sp group holds one chunk of the sequence
+(`trainer.MeshTrainer.shard_batch`), rotary or learned positions start at
+its chunk's absolute offset, and attention is `parallel.ring_attention`
+over the sp group.  Its loss is `lm_loss_shard`: this rank's share of the
+global mean.
+
+Decode and generate, MoE, ulysses attention, head="hidden" with its
 chunked loss, dropout and remat_policy="dots" wait for later slices and
 raise NotImplementedError when configured.
 """
@@ -32,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..compat import kernel_mode, resolve_device
 from ..ops.flash import flash_attention
-from ..parallel.ring_attention import full_attention
+from ..parallel.ring_attention import full_attention, ring_attention
+from ..plan.mesh import Mesh
 
 
 # The flagship GPT: config 9 of the JAX package's benchmarks
@@ -51,7 +59,7 @@ class TransformerConfig:
     d_ff: int = 2048
     max_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # "auto" = flash on a card, full on the CPU; "flash" | "full"
+    # "auto" = flash on a card, full on the CPU; "flash" | "full" | "ring"
     attention: str = "auto"
     causal: bool = True
     # grouped-query attention: number of K/V heads (0 = n_heads)
@@ -76,6 +84,9 @@ class TransformerConfig:
     remat_policy: str = "none"
     head: str = "dense"
     n_experts: int = 0
+    # the rank mesh attention="ring" splits the sequence over (its sp_axis)
+    mesh: Optional[Mesh] = None
+    sp_axis: str = "sp"
     decode: bool = False
 
     def __post_init__(self):
@@ -88,6 +99,8 @@ class TransformerConfig:
         if self.window:
             if self.window < 0 or not self.causal:
                 raise ValueError("window must be positive and needs causal attention")
+            if self.attention not in ("auto", "flash", "full"):
+                raise ValueError("sliding window is supported on the flash/full paths")
         for name, value, allowed in (
             ("attention", self.attention, ("auto", "flash", "full", "ring", "ulysses")),
             ("ffn", self.ffn, ("gelu", "swiglu")),
@@ -98,8 +111,10 @@ class TransformerConfig:
         ):
             if value not in allowed:
                 raise ValueError(f"{name}={value!r}, expected one of {allowed}")
+        if self.attention == "ulysses":
+            raise NotImplementedError(
+                "attention='ulysses' is not ported yet (see ROADMAP.md A.6)")
         later = [
-            (self.attention in ("ring", "ulysses"), f"attention={self.attention!r}"),
             (self.decode, "decode"),
             (self.n_experts > 0, "MoE (n_experts)"),
             (self.head == "hidden", 'head="hidden"'),
@@ -113,6 +128,19 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def sequence_parallel(self) -> bool:
+        """Ring attention over the mesh's sp axis: each rank holds one chunk
+        of the sequence.  (attention="ring" without a mesh that has the
+        axis is full attention, as in the JAX package.)"""
+        return (self.attention == "ring" and self.mesh is not None
+                and self.sp_axis in self.mesh.axis_names)
+
+    def position_offset(self, chunk: int) -> int:
+        """Absolute position of this rank's first row for a chunk of
+        `chunk` positions (0 without sequence parallelism)."""
+        return self.mesh.coord(self.sp_axis) * chunk if self.sequence_parallel else 0
 
 
 def _attention_kind(cfg: TransformerConfig, device) -> str:
@@ -190,10 +218,12 @@ class Attention(nn.Module):
         k = self.k(x).view(B, L, Hkv, D)
         v = self.v(x).view(B, L, Hkv, D)
         if cfg.rope:
-            pos = torch.arange(L, device=x.device)
+            pos = cfg.position_offset(L) + torch.arange(L, device=x.device)
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
-        if _attention_kind(cfg, x.device) == "flash":
+        if cfg.sequence_parallel:
+            o = ring_attention(q, k, v, group=cfg.mesh.group(cfg.sp_axis), causal=cfg.causal)
+        elif _attention_kind(cfg, x.device) == "flash":
             o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window or None,
                                 block_q=cfg.flash_block_q or 128,
                                 block_k=cfg.flash_block_k or 128,
@@ -297,7 +327,8 @@ class TransformerLM(nn.Module):
         L = tokens.shape[1]
         x = self.embed(tokens, cfg.dtype)
         if not cfg.rope:
-            x = x + self.pos_embed[None, :L].to(cfg.dtype)
+            off = cfg.position_offset(L)
+            x = x + self.pos_embed[None, off:off + L].to(cfg.dtype)
         for block in self.blocks():
             x = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
         x = self.ln_f(x)
@@ -322,3 +353,14 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> 
     if z_loss:
         loss = loss + z_loss * (log_z ** 2).mean()
     return loss
+
+
+def lm_loss_shard(logits: torch.Tensor, targets: torch.Tensor, count: int) -> torch.Tensor:
+    """This rank's share of `lm_loss` over a batch split across ranks:
+    the sum of its next-token losses over `count`, the targets of the
+    whole batch (B * (L - 1)).  `targets` [B_shard, L_chunk] holds each
+    position's next token, -1 where the sequence ends.  The shares of all
+    ranks sum to `lm_loss` of the whole batch, and their gradients to its
+    gradient."""
+    ll, _ = _token_ll(logits, targets.clamp_min(0))
+    return -torch.where(targets >= 0, ll, 0.0).sum() / count

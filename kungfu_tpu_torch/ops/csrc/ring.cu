@@ -1,12 +1,14 @@
 // Ring reduce-scatter and all-gather for Hopper (sm_90a), plain and with a
-// fused int8/fp8 codec, the CUDA IPC calls behind their peer workspace, and
-// the error-feedback residual of compressed S-SGD on the same codec.
+// fused int8/fp8 codec, the one-hop ring shift of ring attention, the CUDA
+// IPC calls behind their peer workspace, and the error-feedback residual of
+// compressed S-SGD on the same codec.
 //
 // Replace the TPU kernels kungfu_tpu/ops/ring_kernels.py `make_rs_kernel`
 // (launched by pallas_collectives._rs_call), `make_ag_kernel` (by
 // _ag_call), `make_fused_rs_kernel` and `make_fused_ag_kernel` (both by
-// pallas_collectives.fused_ring_all_reduce).  The schedule is theirs, hop
-// for hop:
+// pallas_collectives.fused_ring_all_reduce), and `make_shift_kernel` (by
+// fused_matmul.ring_shift, the K/V rotation of ring attention).  The
+// schedule is theirs, hop for hop:
 //
 //   reduce-scatter  at hop s rank d stores the partial of chunk (d-s-1) mod n
 //                   into its right neighbour's receive slot s; for s > 0 that
@@ -19,6 +21,9 @@
 //   all-gather      at hop s rank d forwards chunk (d-s) mod n, its own first,
 //                   into the right neighbour's landing slot s, and copies
 //                   every chunk it receives into its output.
+//   shift           rank d stores its payload into the slot of rank
+//                   (d + shift) mod n and copies what rank (d - shift) mod n
+//                   stored into its own slot to its output (`ppermute`).
 //
 // Remote copies: where the Pallas kernel starts a DMA to device `right`, a
 // block here stores the payload through a pointer into the right
@@ -81,6 +86,17 @@
 // 3.35 TB/s.  This first version moves 16 bytes per thread per access (8
 // bytes of codes) and keeps four accesses in flight in the plain kernels;
 // it does not overlap one hop's stores with the next hop's wait.
+//
+// The shift moves its payload as bytes (16-byte vectors, then a scalar
+// tail), so any dtype and any size goes through it: the Pallas kernel's
+// fallback to `ppermute` (past the VMEM budget, other dtypes) has no
+// counterpart.  One call carries K and V of a ring-attention hop back to
+// back in the shift's slot, so a hop is one launch, and the two tensors
+// cannot be exchanged by two ranks issuing them in different orders.  It is
+// bound by bytes: between cards the payload crosses NVLink once (450 GB/s
+// each way), on one card every rank reads and writes it twice (its slot in
+// between).  Its first version stores into the peer and copies out in two
+// passes; the copy-out could land in place of the slot in a later one.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -98,9 +114,9 @@ constexpr int kUnroll = 4;
 constexpr int kSeg = 256;  // values a warp quantizes at a time: 32 lanes x 8
 enum DType { kFloat32 = 0, kBFloat16 = 2 };
 enum Scheme { kInt8 = 0, kFp8 = 1 };
-// The four kinds of call, each with its own flags, acknowledgement counter
+// The five kinds of call, each with its own flags, acknowledgement counter
 // and slots, so calls of different kinds can interleave in any order.
-enum Kind { kRs = 0, kAg = 1, kFusedRs = 2, kFusedAg = 3, kKinds = 4 };
+enum Kind { kRs = 0, kAg = 1, kFusedRs = 2, kFusedAg = 3, kShift = 4, kKinds = 5 };
 // error kinds recorded in err[0]: 1 + 2 * kind for a data wait, 2 + 2 *
 // kind for an acknowledgement wait
 __host__ __device__ constexpr int err_data(int kind) { return 1 + 2 * kind; }
@@ -110,14 +126,16 @@ __host__ __device__ constexpr int err_ack(int kind) { return 2 + 2 * kind; }
 //   u64 flags[kKinds][n-1][max_blocks], u64 ack[kKinds] (blocks that read
 //   their slots, all calls of that kind), u64 claim (header padded to 4096
 //   bytes), then n-1 slots of `cap` bytes for the reduce-scatter and for the
-//   all-gather, then n-1 slots of `fcap` bytes for each fused kernel.  A
-//   fused slot holds `chunk` bytes of codes, then chunk / block f32 scales.
+//   all-gather, then n-1 slots of `fcap` bytes for each fused kernel, then
+//   one slot of `scap` bytes for the shift.  A fused slot holds `chunk`
+//   bytes of codes, then chunk / block f32 scales.
 struct Workspace {
   char* own;
-  char* right;
+  char* right;  // the peer a kernel stores into: rank + 1, or rank + shift
   int n, rank, max_blocks;
   long long cap;   // bytes per slot of the plain kernels
   long long fcap;  // bytes per slot of the fused kernels
+  long long scap;  // bytes of the shift's slot
 };
 
 __host__ __device__ inline long long header_bytes(int n, int max_blocks) {
@@ -142,9 +160,10 @@ __device__ inline Layout layout(const Workspace& ws, char* base, int kind) {
   l.claim = w + (long long)kKinds * (n - 1) * mb + kKinds;
   char* slots = base + header_bytes(n, mb);
   const long long plain = (long long)(n - 1) * ws.cap, fused = (long long)(n - 1) * ws.fcap;
-  const long long offset[kKinds] = {0, plain, 2 * plain, 2 * plain + fused};
+  const long long offset[kKinds] = {0, plain, 2 * plain, 2 * plain + fused,
+                                    2 * plain + 2 * fused};
   l.slots = slots + offset[kind];
-  l.slot_bytes = kind < kFusedRs ? ws.cap : ws.fcap;
+  l.slot_bytes = kind < kFusedRs ? ws.cap : kind < kShift ? ws.fcap : ws.scap;
   return l;
 }
 
@@ -616,6 +635,69 @@ __global__ void __launch_bounds__(kThreads)
   block_ack(own.ack);
 }
 
+// ------------------------------------------------------------- shift ----
+// One payload of a shift: `bytes` bytes from src to dst, at `offset` bytes
+// (a multiple of 16) into the slot.
+struct Part {
+  const char* src;
+  char* dst;
+  long long bytes, offset;
+};
+
+// Block b's share of `bytes` bytes from `from` to `to` (both 16-byte
+// aligned): its range of 16-byte vectors, and for the last block the tail
+// of bytes % 16 single bytes.  `kFromSlot`: `from` is this rank's slot,
+// stored by a peer, read through L2.
+template <bool kFromSlot>
+__device__ __forceinline__ void copy_share(const char* from, char* to, long long bytes) {
+  const long long nvec = bytes / 16;
+  long long v0, v1;
+  block_range(nvec, &v0, &v1);
+  const uint4* src = reinterpret_cast<const uint4*>(from);
+  uint4* dst = reinterpret_cast<uint4*>(to);
+  for (long long v = v0 + threadIdx.x; v < v1; v += kUnroll * kThreads) {
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      long long w = v + u * kThreads;
+      if (w < v1) r[u] = kFromSlot ? __ldcg(src + w) : src[w];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      long long w = v + u * kThreads;
+      if (w < v1) dst[w] = r[u];
+    }
+  }
+  const long long tail = bytes - nvec * 16;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    const long long i = nvec * 16 + threadIdx.x;
+    const unsigned char* f = reinterpret_cast<const unsigned char*>(from);
+    to[i] = (char)(kFromSlot ? __ldcg(f + i) : f[i]);
+  }
+}
+
+// The shift of up to two payloads (K and V of one hop) as one call: every
+// block stores its share of both into the peer's slot (c.ws.right is rank
+// + shift), raises its flag there, waits for the flag of the same block in
+// its own slot (stored by rank - shift) and copies its share out.  `shift`
+// is only recorded with an error, to name the two peers.
+__global__ void __launch_bounds__(kThreads)
+    ring_shift_kernel(Call c, Part p0, Part p1, int shift) {
+  const int b = blockIdx.x;
+  const Layout own = layout(c.ws, c.ws.own, kShift), peer = layout(c.ws, c.ws.right, kShift);
+  // the peer has read what the earlier shifts stored into its slot
+  if (!block_wait(c, peer.ack, c.ack_want, own.claim, err_ack(kShift), shift)) return;
+  char* send = slot(peer, 0);
+  copy_share<false>(p0.src, send + p0.offset, p0.bytes);
+  copy_share<false>(p1.src, send + p1.offset, p1.bytes);
+  block_signal(peer.flags + b, c.seq);
+  if (!block_wait(c, own.flags + b, c.seq, own.claim, err_data(kShift), shift)) return;
+  const char* recv = slot(own, 0);
+  copy_share<true>(recv + p0.offset, p0.dst, p0.bytes);
+  copy_share<true>(recv + p1.offset, p1.dst, p1.bytes);
+  block_ack(own.ack);  // slot read: rank - shift of a later call may refill it
+}
+
 // ------------------------------------------------ error feedback ----
 // The error-feedback residual of one gradient, in place: x holds the
 // corrected gradient c (`size` f32 values) and becomes c - code * scale,
@@ -645,7 +727,7 @@ __global__ void __launch_bounds__(kThreads)
 struct Args {
   void *own, *right, *err;
   int n, rank, max_blocks, blocks;
-  long long cap, fcap, chunk;
+  long long cap, fcap, scap, chunk;
   u64 seq, ack_want, timeout_ns;
 };
 
@@ -669,6 +751,7 @@ Call make_call(const Args& a) {
   c.ws.max_blocks = a.max_blocks;
   c.ws.cap = a.cap;
   c.ws.fcap = a.fcap;
+  c.ws.scap = a.scap;
   c.seq = a.seq;
   c.ack_want = a.ack_want;
   c.timeout_ns = a.timeout_ns;
@@ -726,10 +809,10 @@ using kft_ring::Codec;
 extern "C" int kft_ring_rs(void* x, long long x_stride, long long x_row, long long x_size,
                            void* out, long long out_len, int dtype, void* own, void* right,
                            int n, int rank, int max_blocks, long long cap, long long fcap,
-                           long long chunk, int blocks, unsigned long long seq,
+                           long long scap, long long chunk, int blocks, unsigned long long seq,
                            unsigned long long ack_want, unsigned long long timeout_ns, void* err,
                            void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, chunk, seq, ack_want,
+  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
          timeout_ns};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kft_ring::kFloat32)
@@ -744,10 +827,11 @@ extern "C" int kft_ring_rs(void* x, long long x_stride, long long x_row, long lo
 extern "C" int kft_ring_ag(void* x, long long x_len, void* out, long long out_stride,
                            long long out_row, long long out_size, int dtype, void* own,
                            void* right, int n, int rank, int max_blocks, long long cap,
-                           long long fcap, long long chunk, int blocks, unsigned long long seq,
+                           long long fcap, long long scap, long long chunk, int blocks,
+                           unsigned long long seq,
                            unsigned long long ack_want, unsigned long long timeout_ns, void* err,
                            void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, chunk, seq, ack_want,
+  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
          timeout_ns};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kft_ring::kFloat32)
@@ -764,10 +848,11 @@ extern "C" int kft_ring_ag(void* x, long long x_len, void* out, long long out_st
 // scale per `block` values; `recip` = 1 / codemax rounded to f32.
 extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, int block,
                             float recip, void* own, void* right, int n, int rank,
-                            int max_blocks, long long cap, long long fcap, long long chunk,
-                            int blocks, unsigned long long seq, unsigned long long ack_want,
+                            int max_blocks, long long cap, long long fcap, long long scap,
+                            long long chunk, int blocks, unsigned long long seq,
+                            unsigned long long ack_want,
                             unsigned long long timeout_ns, void* err, void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, chunk, seq, ack_want,
+  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
          timeout_ns};
   Codec q{scheme, block, recip};
   if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
@@ -783,10 +868,11 @@ extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, in
 // out[c * chunk + j] for flat indices below out_size.
 extern "C" int kft_ring_fag(void* x, void* out, long long out_size, int scheme, int block,
                             float recip, void* own, void* right, int n, int rank,
-                            int max_blocks, long long cap, long long fcap, long long chunk,
-                            int blocks, unsigned long long seq, unsigned long long ack_want,
+                            int max_blocks, long long cap, long long fcap, long long scap,
+                            long long chunk, int blocks, unsigned long long seq,
+                            unsigned long long ack_want,
                             unsigned long long timeout_ns, void* err, void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, chunk, seq, ack_want,
+  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
          timeout_ns};
   Codec q{scheme, block, recip};
   if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
@@ -794,6 +880,34 @@ extern "C" int kft_ring_fag(void* x, void* out, long long out_size, int scheme, 
                                    static_cast<cudaStream_t>(stream)>>>(
       kft_ring::make_call(a), q, static_cast<const float*>(x), static_cast<float*>(out),
       out_size, chunk);
+  return (int)cudaGetLastError();
+}
+
+// Ring shift of up to two payloads (bytes1 may be 0): rank `rank` stores
+// src0 and src1 into the slot of the peer mapped at `peer` (rank + shift),
+// and copies what rank - shift stored into its own slot to dst0 and dst1.
+// The slot holds payload 0, then payload 1 from the next multiple of 16
+// bytes; `chunk` is that total, at most `scap`.  Every pointer is 16-byte
+// aligned.
+extern "C" int kft_ring_shift(void* src0, void* dst0, long long bytes0, void* src1, void* dst1,
+                              long long bytes1, int shift, void* own, void* peer, int n,
+                              int rank, int max_blocks, long long cap, long long fcap,
+                              long long scap, long long chunk, int blocks,
+                              unsigned long long seq, unsigned long long ack_want,
+                              unsigned long long timeout_ns, void* err, void* stream) {
+  Args a{own, peer, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
+         timeout_ns};
+  const long long off1 = (bytes0 + 15) / 16 * 16;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(src0) | reinterpret_cast<uintptr_t>(dst0) |
+                         reinterpret_cast<uintptr_t>(src1) | reinterpret_cast<uintptr_t>(dst1);
+  if (!kft_ring::args_ok(a) || bytes0 < 0 || bytes1 < 0 || (ptrs & 15) ||
+      chunk != off1 + bytes1 || chunk > scap)
+    return (int)cudaErrorInvalidValue;
+  const kft_ring::Part p0{static_cast<const char*>(src0), static_cast<char*>(dst0), bytes0, 0};
+  const kft_ring::Part p1{static_cast<const char*>(src1), static_cast<char*>(dst1), bytes1, off1};
+  kft_ring::ring_shift_kernel<<<blocks, kft_ring::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(kft_ring::make_call(a), p0,
+                                                                     p1, shift);
   return (int)cudaGetLastError();
 }
 

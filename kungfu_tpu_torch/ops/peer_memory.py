@@ -1,5 +1,5 @@
 """Peer workspace of the ring kernels: where one rank's kernel stores into
-its right neighbour's memory.
+a peer's memory (its right neighbour's, or rank + shift's for the shift).
 
 The Pallas ring kernels address a peer by device id and let the TPU's DMA
 engines move the bytes (`make_async_remote_copy`); nothing of theirs needs
@@ -19,19 +19,24 @@ One `Workspace` per process group, symmetric across its ranks:
   frs slots  n-1 slots of the fused-codec reduce-scatter (B7): codes, then
              one f32 scale per quantization block
   fag slots  n-1 slots of the fused-codec all-gather (B8), the same layout
+  shift slot one slot of the ring shift (B11): the payloads of one call
+             (K, then V from the next 16 bytes)
 
-The four kinds ("rs", "ag", "frs", "fag") have their own flags, counters
-and slots, so calls of any kinds and sizes interleave safely: a kernel
-waits only on the flags and acknowledgements of its own kind.
+The five kinds ("rs", "ag", "frs", "fag", "shift") have their own flags,
+counters and slots, so calls of any kinds and sizes interleave safely: a
+kernel waits only on the flags and acknowledgements of its own kind.
 
 It is allocated with `cudaMalloc` (an IPC handle names a whole
-allocation, not a slice of torch's caching allocator), its plain and fused
-slots each sized for the largest call of theirs so far and grown on
-demand, which every rank does at the
-same call because every rank makes the same calls.  The handles are
-exchanged over the process group when the workspace is made or grown,
-never per call.  `close_all` (from `distributed.shutdown_distributed`)
-frees it once no rank can still touch it.
+allocation, not a slice of torch's caching allocator), its plain, fused
+and shift slots each sized for the largest call of theirs so far and grown
+on demand, which every rank does at the same call because every rank makes
+the same calls.  The handles are exchanged over the process group when the
+workspace is made or grown, never per call; a peer's workspace is mapped
+(`cudaIpcOpenMemHandle`) from its handle the first time a kernel stores
+into it: the right neighbour for the rings, rank + shift for a shift (the
+backward of ring attention's shift +1 stores into rank - 1).  `close_all`
+(from `distributed.shutdown_distributed`) unmaps every peer and frees the
+workspace once no rank can still touch it.
 
 The kernels' error record lives in mapped host memory: a wait that
 expires writes (kind, hop, block, seq) there, and `Workspace.check`
@@ -41,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -52,11 +57,13 @@ log = get_logger("kungfu.peer_memory")
 
 IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 SLOT_ALIGN = 4096
-KINDS = ("rs", "ag", "frs", "fag")  # csrc/ring.cu `Kind`, in order
-_KIND_NAMES = ("reduce-scatter", "all-gather", "fused reduce-scatter", "fused all-gather")
+KINDS = ("rs", "ag", "frs", "fag", "shift")  # csrc/ring.cu `Kind`, in order
+_KIND_NAMES = ("reduce-scatter", "all-gather", "fused reduce-scatter", "fused all-gather",
+               "shift")
 # csrc/ring.cu records 1 + 2 * kind for a data wait, 2 + 2 * kind for an ack
 _ERR_KINDS = {1 + 2 * i + a: f"{name} {'acknowledgement' if a else 'data'}"
               for i, name in enumerate(_KIND_NAMES) for a in (0, 1)}
+_SHIFT_ERRS = (1 + 2 * KINDS.index("shift"), 2 + 2 * KINDS.index("shift"))
 
 
 def _timeout_ns() -> int:
@@ -95,8 +102,10 @@ class Workspace:
         self.header = _build.function("kft_ring_header_bytes")(self.n, self.max_blocks)
         self.cap = 0  # bytes per slot of the plain kernels
         self.fcap = 0  # bytes per slot of the fused kernels
+        self.scap = 0  # bytes of the shift's slot
         self.own: Optional[int] = None
-        self.right: Optional[int] = None
+        self._handles: List[bytes] = []  # every rank's IPC handle
+        self._peers: Dict[int, int] = {}  # rank -> its workspace, mapped here
         self._fresh_counts()
         err = ctypes.c_void_p()
         _call("kft_host_alloc", 32, ctypes.byref(err))
@@ -105,34 +114,45 @@ class Workspace:
 
     @property
     def nbytes(self) -> int:
-        return self.header + 2 * (self.n - 1) * (self.cap + self.fcap)
+        return self.header + 2 * (self.n - 1) * (self.cap + self.fcap) + self.scap
 
-    def reserve(self, slot_bytes: int = 0, fused_slot_bytes: int = 0) -> None:
+    def reserve(self, slot_bytes: int = 0, fused_slot_bytes: int = 0,
+                shift_slot_bytes: int = 0) -> None:
         """Grow every rank's workspace to plain slots of at least
-        `slot_bytes` and fused slots of at least `fused_slot_bytes`.
-        Collective: every rank of the group must call it with the same
-        sizes, as the ring wrappers do."""
-        if slot_bytes <= self.cap and fused_slot_bytes <= self.fcap:
+        `slot_bytes`, fused slots of at least `fused_slot_bytes` and a shift
+        slot of at least `shift_slot_bytes`.  Collective: every rank of the
+        group must call it with the same sizes, as the ring wrappers do."""
+        if (slot_bytes <= self.cap and fused_slot_bytes <= self.fcap
+                and shift_slot_bytes <= self.scap):
             return
-        cap = max(self.cap, -(-slot_bytes // SLOT_ALIGN) * SLOT_ALIGN)
-        fcap = max(self.fcap, -(-fused_slot_bytes // SLOT_ALIGN) * SLOT_ALIGN)
+        caps = [max(old, -(-want // SLOT_ALIGN) * SLOT_ALIGN) for old, want in (
+            (self.cap, slot_bytes), (self.fcap, fused_slot_bytes), (self.scap, shift_slot_bytes))]
         self._release()
-        self.cap, self.fcap = cap, fcap
-        dev = self.device.index
+        self.cap, self.fcap, self.scap = caps
         own = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
-        _call("kft_ws_alloc", dev, self.nbytes, ctypes.byref(own), handle)
+        _call("kft_ws_alloc", self.device.index, self.nbytes, ctypes.byref(own), handle)
         self.own = own.value
         handles = [None] * self.n
         dist.all_gather_object(handles, handle.raw, group=self.group)
-        right = ctypes.c_void_p()
-        _call("kft_ws_open", dev, ctypes.create_string_buffer(
-            handles[(self.rank + 1) % self.n], IPC_HANDLE_BYTES), ctypes.byref(right))
-        self.right = right.value
+        self._handles = handles
         self._fresh_counts()  # the fresh flags and counters are zero
-        log.info("rank %d/%d: ring workspace %.1f MiB on %s (slots of %.1f MiB, fused %.1f MiB)",
-                 self.rank, self.n, self.nbytes / 2**20, self.device, self.cap / 2**20,
-                 self.fcap / 2**20)
+        log.info("rank %d/%d: ring workspace %.1f MiB on %s (slots of %.1f MiB, fused %.1f MiB, "
+                 "shift %.1f MiB)", self.rank, self.n, self.nbytes / 2**20, self.device,
+                 self.cap / 2**20, self.fcap / 2**20, self.scap / 2**20)
+
+    def peer(self, offset: int) -> int:
+        """The workspace of rank + offset, mapped into this process on first use."""
+        r = (self.rank + offset) % self.n
+        if r == self.rank:
+            raise ValueError("a rank does not store into its own workspace")
+        ptr = self._peers.get(r)
+        if ptr is None:
+            mapped = ctypes.c_void_p()
+            _call("kft_ws_open", self.device.index, ctypes.create_string_buffer(
+                self._handles[r], IPC_HANDLE_BYTES), ctypes.byref(mapped))
+            ptr = self._peers[r] = mapped.value
+        return ptr
 
     def _fresh_counts(self) -> None:
         self.seq = dict.fromkeys(KINDS, 0)
@@ -147,19 +167,21 @@ class Workspace:
         return self.seq[kind], done
 
     def _release(self) -> None:
-        """Unmap the neighbour's workspace and free ours, once no kernel of
-        any rank can still touch either (a device sync, then a barrier
-        before each step)."""
+        """Unmap the peers' workspaces and free ours, once no kernel of any
+        rank can still touch them (a device sync, then a barrier before
+        each step)."""
         if self.own is None:
             return
         dev = self.device.index
         torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group)
-        _call("kft_ws_close", dev, self.right)
+        for ptr in self._peers.values():
+            _call("kft_ws_close", dev, ptr)
         dist.barrier(group=self.group)
         _call("kft_ws_free", dev, self.own)
-        self.own = self.right = None
-        self.cap = self.fcap = 0
+        self.own = None
+        self._handles, self._peers = [], {}
+        self.cap = self.fcap = self.scap = 0
 
     def close(self) -> None:
         self._release()
@@ -172,11 +194,16 @@ class Workspace:
         kind = int(self.err[0]) if self.err_ptr is not None else 0
         if kind:
             hop, block, seq = (int(v) for v in self.err[1:4])
-            raise RingError(
-                f"rank {self.rank}/{self.n}: ring kernel gave up after "
-                f"{_timeout_ns() / 1e9:g} s waiting for the {_ERR_KINDS.get(kind, kind)} "
-                f"of hop {hop}, block {block}, call {seq} (left neighbour rank "
-                f"{self.left}, right neighbour rank {(self.rank + 1) % self.n})")
+            what = f"{_ERR_KINDS.get(kind, kind)} of "
+            if kind in _SHIFT_ERRS:  # the shift records its shift as the hop
+                what += (f"shift {hop}, block {block}, call {seq} (source rank "
+                         f"{(self.rank - hop) % self.n}, destination rank "
+                         f"{(self.rank + hop) % self.n})")
+            else:
+                what += (f"hop {hop}, block {block}, call {seq} (left neighbour rank "
+                         f"{self.left}, right neighbour rank {(self.rank + 1) % self.n})")
+            raise RingError(f"rank {self.rank}/{self.n}: ring kernel gave up after "
+                            f"{_timeout_ns() / 1e9:g} s waiting for the {what}")
 
     def check(self) -> None:
         """Wait for the kernels queued so far, then raise their error, if any."""

@@ -105,16 +105,17 @@ def _blocks(chunk: int, itemsize: int, max_blocks: int) -> int:
 
 
 def _launch(kernel: Kernel, fn_name: str, ws: peer_memory.Workspace, kind: str,
-            device: torch.device, chunk: int, blocks: int, head) -> None:
-    """One launch of a ring kernel on the workspace (already reserved);
-    `head` holds the kernel's own arguments (operands, views, codec)."""
+            device: torch.device, chunk: int, blocks: int, head, peer: int = 1) -> None:
+    """One launch of a ring kernel on the workspace (already reserved),
+    storing into the workspace of rank + `peer`; `head` holds the kernel's
+    own arguments (operands, views, codec)."""
     from . import _build
 
     fn = _build.function(fn_name)
     seq, ack_want = ws.next_call(kind, blocks)
     with torch.cuda.device(device):
-        err = fn(*head, ws.own, ws.right, ws.n, ws.rank, ws.max_blocks, ws.cap, ws.fcap,
-                 chunk, blocks, seq, ack_want, peer_memory._timeout_ns(), ws.err_ptr,
+        err = fn(*head, ws.own, ws.peer(peer), ws.n, ws.rank, ws.max_blocks, ws.cap, ws.fcap,
+                 ws.scap, chunk, blocks, seq, ack_want, peer_memory._timeout_ns(), ws.err_ptr,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: kernel launch failed with CUDA error {err}")

@@ -59,20 +59,29 @@ def _world(group) -> int:
     return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
-def _mean_reducer(group, impl: str) -> Callable[[torch.Tensor], None]:
-    """In-place gradient mean over the group, by the named implementation."""
+def _mean_reducer(group, impl: str, op: str = "mean") -> Callable[[torch.Tensor], None]:
+    """In-place gradient mean (op "mean") or sum (op "sum") over the
+    group, by the named implementation."""
+    if op not in ("mean", "sum"):
+        raise ValueError(f"op must be 'mean' or 'sum', got {op!r}")
+    average = op == "mean"
     if impl == "pmean":
         def reduce(flat: torch.Tensor) -> None:
             world = _world(group)
             if world > 1:
                 dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-                flat.div_(world)
+                if average:
+                    flat.div_(world)
 
         return reduce
+
+    def times(x: torch.Tensor) -> torch.Tensor:  # the lax rings' sum times 1/n
+        return x.mul_(1.0 / _world(group)) if average else x
+
     rings = {
-        "pallas_ring": lambda g: ring_collectives.ring_all_reduce(g, group, op="mean"),
-        "ring": lambda g: C.ring_all_reduce(g, group).mul_(1.0 / _world(group)),
-        "rs_ag": lambda g: C.rs_ag_all_reduce(g, group).mul_(1.0 / _world(group)),
+        "pallas_ring": lambda g: ring_collectives.ring_all_reduce(g, group, op=op),
+        "ring": lambda g: times(C.ring_all_reduce(g, group)),
+        "rs_ag": lambda g: times(C.rs_ag_all_reduce(g, group)),
     }
     if impl in rings:
         mean = rings[impl]
@@ -175,8 +184,7 @@ def _compressed_all_reduce_gradients(grads: List[torch.Tensor], group, impl: str
             n = grads[i].numel()
             grads[i].copy_(out[off:off + n].view_as(grads[i]))  # in the gradient's dtype
             off += n
-    if impl == "pallas_ring":
-        peer_memory.check_all()
+    peer_memory.check_all()  # a ring or shift kernel that gave up on a peer raises here
     if use_ef:
         Comp.error_feedback.residual_update_(corrected, cfg, state.generator)
     return state
@@ -193,10 +201,12 @@ def init_compressed_state(grads: Iterable[torch.Tensor], seed: int = 0) -> Compr
 def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
                          impl: str = "pmean", bucket_bytes: BucketBytes = None,
                          compression: Comp.AxisCompression = None, seed: int = 0,
-                         state: Optional[CompressedGradState] = None
+                         state: Optional[CompressedGradState] = None, op: str = "mean"
                          ) -> Optional[CompressedGradState]:
     """Average every parameter's `.grad` over the group, in place: the core
-    of S-SGD.  Parameters without a gradient are skipped.
+    of S-SGD.  Parameters without a gradient are skipped.  op="sum" sums
+    them instead (`trainer.MeshTrainer`, where each rank's loss is already
+    its share of the global mean); compression takes the mean only.
 
     With `compression`, the reduction moves that wire format and keeps
     state from step to step: pass the state the previous call returned
@@ -205,11 +215,13 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
     Comp.validate_axis_keys(compression, (DP_AXIS,), context="all_reduce_gradients")
     grads = [p.grad for p in params if p.grad is not None]
     if compression is not None:
+        if op != "mean":
+            raise NotImplementedError("compressed gradient reduction takes op='mean' only")
         if state is None:
             state = init_compressed_state(grads, seed)
         return _compressed_all_reduce_gradients(grads, group, impl, compression,
                                                 bucket_bytes, state)
-    reduce = _mean_reducer(group, impl)
+    reduce = _mean_reducer(group, impl, op)
     if _world(group) == 1:
         return None
     bb = _resolve_bucket_bytes(bucket_bytes)
@@ -218,8 +230,7 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
     else:
         for g in grads:
             reduce(g)
-    if impl == "pallas_ring":
-        peer_memory.check_all()  # a ring kernel that gave up on a peer raises here
+    peer_memory.check_all()  # a ring or shift kernel that gave up on a peer raises here
     return None
 
 

@@ -1,3 +1,3 @@
-from .ring_attention import full_attention
+from .ring_attention import full_attention, ring_attention
 
-__all__ = ["full_attention"]
+__all__ = ["full_attention", "ring_attention"]

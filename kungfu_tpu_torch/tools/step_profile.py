@@ -3,16 +3,24 @@
     python -m kungfu_tpu_torch.tools.step_profile [--batch 8] [--steps 2]
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
         --impl pallas_ring --bucket-mib 256 [--compression int8] [--n-kv-heads 8]
+    python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
+        --sp 4 --seq-len 8192 --batch 2 --impl pallas_ring --bucket-mib 256
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
 attention; `--n-kv-heads 8` its GQA variant) with DataParallelTrainer +
 synchronous_sgd(adamw(3e-4), impl, bucket_bytes, compression), as
 chip_smoke.py's main, ranks and gqa phases do (all build it with
-flagship_step), warms up for two steps, then profiles `--steps`
-steps with torch.profiler.  Started by the launcher, each rank trains on
+flagship_step), warms up for two steps, times `--steps` steps, then
+profiles `--steps` more with torch.profiler.  Started by the launcher, each rank trains on
 its share of the batch of `--batch` and profiles its own process: where
-ranks share a card, the others' kernels fill its idle time.
-Prints the step time on the host clock, the device time of every kernel
+ranks share a card, the others' kernels fill its idle time.  With `--sp
+N` the ranks form a mesh of dp = world / N x sp = N and train the
+flagship at `--seq-len` positions sequence-parallel (ring attention,
+MeshTrainer, the gradients summed with `--impl`), as chip_smoke.py's
+phase sp does (flagship_sp_step): each rank holds its rows and its
+chunk of every sequence.
+Prints the step time on the host clock (with and without the profiler),
+the peak memory, the device time of every kernel
 summed by category (the port's flash kernels, matrix products, the
 optimizer, everything else), the device's idle share (1 - the union of
 kernel intervals / the step's wall time), and the kernels that take the
@@ -34,13 +42,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import distributed
-from ..models.transformer import FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss
+from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
+                                  lm_loss_shard)
 from ..optimizers import adamw, synchronous_sgd
+from ..plan import make_mesh
 from ..train import DataParallelTrainer
+from ..trainer import MeshTrainer
 
 CATEGORIES = (  # first match wins
     ("flash kernels (port)", re.compile(r"flash_(fwd|bwd)")),
-    ("ring kernels (port)", re.compile(r"ring_(fused_)?(rs|ag)_kernel")),
+    ("ring kernels (port)", re.compile(r"ring_(fused_)?(rs|ag)_kernel|ring_shift_kernel")),
     ("matrix products", re.compile(r"gemm|sm90_|cutlass|xmma|nvjet|cublas", re.I)),
     ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
 )
@@ -65,13 +76,20 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def flagship_model(seed: int, device="cuda", n_kv_heads: int = 0):
+def flagship_model(seed: int, device="cuda", n_kv_heads: int = 0, **overrides):
     """(cfg, model): the bf16 flash-attention flagship GPT (GQA with
-    `n_kv_heads` kv heads, MHA when 0) with random weights from `seed`."""
-    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", n_kv_heads=n_kv_heads,
-                            **FLAGSHIP_GPT)
+    `n_kv_heads` kv heads, MHA when 0; `overrides` replace config fields)
+    with random weights from `seed`."""
+    cfg = TransformerConfig(**{**FLAGSHIP_GPT, "dtype": torch.bfloat16, "attention": "flash",
+                               "n_kv_heads": n_kv_heads, **overrides})
     return cfg, TransformerLM(cfg, device=device,
                               generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def flagship_tokens(cfg: TransformerConfig, batch: int, seed: int, device="cuda"):
+    """The random [batch, max_len] token batch of the flagship paths, from `seed + 1`."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (batch, cfg.max_len), generator=gen, device=device)
 
 
 def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
@@ -79,17 +97,31 @@ def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
     """The flagship GPT training step that chip_smoke.py drives and main()
     profiles: `flagship_model`, DataParallelTrainer +
     synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes,
-    compression), and one random [batch, seq] token batch from `seed + 1`.
-    Returns (cfg, trainer, state, tokens)."""
+    compression), and `flagship_tokens`.  Returns (cfg, trainer, state,
+    tokens)."""
     cfg, model = flagship_model(seed, device, n_kv_heads)
     trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
                                   synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl=impl,
                                                   bucket_bytes=bucket_bytes,
                                                   compression=compression), device=device)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    tokens = trainer.shard_batch(torch.randint(0, cfg.vocab_size, (batch, cfg.max_len),
-                                               generator=gen, device=device))
+    tokens = trainer.shard_batch(flagship_tokens(cfg, batch, seed, device))
     return cfg, trainer, trainer.init(model), tokens
+
+
+def flagship_sp_step(batch: int, seq_len: int, sp: int, seed: int, device="cuda",
+                     impl: str = "pallas_ring", bucket_bytes=None):
+    """The flagship's sequence-parallel step: the world's ranks as a mesh
+    of dp = world / sp x sp, the flagship with `max_len=seq_len` and
+    attention="ring" over the mesh, MeshTrainer(lm_loss_shard,
+    adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes), and this rank's
+    shard of `flagship_tokens`.  Returns (cfg, trainer, state, shard)."""
+    mesh = make_mesh(dp=-1, sp=sp)
+    cfg, model = flagship_model(seed, device, attention="ring", mesh=mesh, max_len=seq_len)
+    trainer = MeshTrainer(lambda m, b: lm_loss_shard(m(b.tokens), b.targets, b.count),
+                          adamw(3e-4, b1=0.9, b2=0.95), mesh, impl=impl,
+                          bucket_bytes=bucket_bytes, device=device)
+    shard = trainer.shard_batch(flagship_tokens(cfg, batch, seed, device))
+    return cfg, trainer, trainer.init(model), shard
 
 
 def main() -> int:
@@ -103,21 +135,38 @@ def main() -> int:
                     help="synchronous_sgd's gradient wire format (int8, fp8, bf16; none if unset)")
     ap.add_argument("--n-kv-heads", type=int, default=0,
                     help="kv heads of the flagship (8: its GQA variant; 0: MHA)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="ranks of a sequence-parallel group (ring attention, MeshTrainer)")
+    ap.add_argument("--seq-len", type=int, default=2048, help="positions of a sequence (--sp)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
         return 2
     world = distributed.init_distributed(device="cuda")
     rank = dist.get_rank() if world > 1 else 0
-    cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
-                                                bucket_bytes=(args.bucket_mib << 20) or None,
-                                                compression=args.compression,
-                                                n_kv_heads=args.n_kv_heads)
-    per = args.batch // world
-    tokens = tokens[rank * per:(rank + 1) * per]
+    bucket_bytes = (args.bucket_mib << 20) or None
+    if args.sp > 1:
+        cfg, trainer, state, tokens = flagship_sp_step(args.batch, args.seq_len, args.sp,
+                                                       args.seed, impl=args.impl,
+                                                       bucket_bytes=bucket_bytes)
+        shard = f"batch {tuple(tokens.tokens.shape)}, sp={args.sp}"
+    else:
+        cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
+                                                    bucket_bytes=bucket_bytes,
+                                                    compression=args.compression,
+                                                    n_kv_heads=args.n_kv_heads)
+        per = args.batch // world
+        tokens = tokens[rank * per:(rank + 1) * per]
+        shard = f"batch {per}"
     for _ in range(2):
         state, m = trainer.train_step(state, tokens)
     m["loss"].item()
+    t0 = time.perf_counter()  # the same steps without the profiler first
+    for _ in range(args.steps):
+        state, m = trainer.train_step(state, tokens)
+    m["loss"].item()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -139,10 +188,12 @@ def main() -> int:
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     steps = args.steps
     step_ms = wall_us / steps / 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[profile] {torch.cuda.get_device_name(0)}, flagship GPT batch {args.batch} x "
-          f"{cfg.max_len}, {cfg.kv_heads} kv heads (rank {rank} of {world}, batch {per}, "
+          f"{cfg.max_len}, {cfg.kv_heads} kv heads (rank {rank} of {world}, {shard}, "
           f"impl={args.impl}, compression={args.compression}): step "
-          f"{step_ms:.1f} ms on the host clock, this process's device busy "
+          f"{step_ms:.1f} ms on the host clock ({plain_step_ms:.1f} ms without the profiler), "
+          f"peak memory {peak_gib:.2f} GiB, this process's device busy "
           f"{busy_us / steps / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: {us / steps / 1e3:.1f} ms/step "
@@ -151,7 +202,9 @@ def main() -> int:
     for name, us in top:
         print(f"[profile]   {us / steps / 1e3:8.2f} ms/step  {name[:110]}")
     print(json.dumps({
-        "rank": rank, "world": world, "step_ms": step_ms, "device_busy_ms": busy_us / steps / 1e3,
+        "rank": rank, "world": world, "step_ms": step_ms, "step_ms_unprofiled": plain_step_ms,
+        "peak_gib": peak_gib,
+        "device_busy_ms": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,
         "categories_ms": {k: v / steps / 1e3 for k, v in by_cat.items()},
         "top_kernels_ms": {k[:110]: v / steps / 1e3 for k, v in top},

@@ -146,7 +146,7 @@ def test_bf16_forward_close_to_flax(kft):
 
 def test_later_slices_raise():
     for kw in (dict(decode=True), dict(n_experts=4), dict(head="hidden"),
-               dict(attention="ring"), dict(dropout=0.1), dict(remat_policy="dots")):
+               dict(attention="ulysses"), dict(dropout=0.1), dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             tt.TransformerConfig(**kw)
     with pytest.raises(ValueError):
