@@ -46,8 +46,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              running tools/ring_check: the ring reduce-scatter (B5) and
              all-gather (B6) kernels and their all-reduce against the
              stacked plain versions, bit for bit, in f32 at the flagship's
-             gradient size, in bf16 at 64M values and in a ragged f32 case
-             of 1,000,003 values, with planted faults rejected; then the
+             gradient size, in bf16 at 64M values, in a ragged f32 case
+             of 1,000,003 values and at every payload of phase fsdp (each
+             flagship parameter padded to a multiple of 4: chunks of 256 to
+             8,192,000 values a rank, below one 1024-value tile up to the
+             embedding's), with planted faults rejected; then the
              fused-codec kernels B7 (reduce-scatter) and B8 (all-gather)
              through fused_ring_all_reduce, int8 and fp8, at the GQA
              flagship's gradient size and at 1,000,003 values: bit-equal to
@@ -66,7 +69,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              checksum of every parameter's bits, gathered over the group),
              each flash kernel launched once per layer per step and each
              ring kernel once per bucket per step on every rank
- 9. gqa      this slice's main path: the GQA flagship on 4 ranks x batch 2,
+ 9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
              error feedback, --rank-steps steps: loss finite and falling, the
@@ -87,7 +90,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 11. sp-ref   the flagship at 8192 positions (max_len 8192) on the 2
              sequences of phase sp, in one process with flash attention
              over the whole sequence, forward only: the first-step loss
-12. sp       this slice's main path: the 8192-position flagship on 4 ranks
+12. sp       slice 4's main path: the 8192-position flagship on 4 ranks
              as a mesh of dp=1 x sp=4 (each rank 2048 positions of both
              sequences), attention="ring" (K/V rotating through B11, each
              hop's block on B1-B3), MeshTrainer with adamw(3e-4, b1=0.9,
@@ -99,11 +102,38 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              rank r (the causal ring skips the blocks of later ranks), B5
              and B6 once per bucket; the slowest rank's step time, tokens/s
              and peak memory per rank
-13. report   one JSON line of kernels B1-B8, B11 and the residual kernel
+13. fused    4 ranks through the launcher, each running tools/fused_check:
+             the all-gather-matmul (B9) and matmul-reduce-scatter (B10)
+             kernels against their stacked plain versions at the flagship
+             FSDP step's MLP shapes in bf16 (B9: x [4096, 1024] @ W_in
+             [1024, 4096] from shards of [256, 4096]; B10: activations^T
+             [1024, 4096] @ dy [4096, 4096], each rank its [256, 4096] rows)
+             and in f32 at 24 x (4 x 40) x 72 and 24 x 40 x 72: integer-valued
+             operands bit for bit, random ones within the normwise bf16 / f32
+             limit; planted faults (a shard consumed twice, a partial
+             dropped) rejected; their times (wall time of all ranks' calls on
+             a shared card, the event median on cards of their own), the
+             plain versions', the unfused NCCL arm where every rank has a
+             card, and the bound
+14. fsdp     this slice's main path: the flagship on 4 ranks as
+             make_mesh(fsdp=4), FSDPTrainer (every parameter chunked 4 ways,
+             gathered through the ring all-gather B6 each step, its gradient
+             reduce-scattered through B5), batch 2 a rank of phase main's 8
+             sequences, adamw(3e-4, b1=0.9, b2=0.95), 3 steps (FSDP_STEPS):
+             loss finite and falling,
+             the first within 1e-2 of phase main's and every step's within
+             1e-2 of phase ranks' (the same S-SGD arithmetic), memory after
+             init at most 0.3 of a replica's parameters and Adam state and
+             after step 1 (AdamW's moments made) at most 0.3 of those and
+             its gradients, B6
+             and B5 launched once per parameter (195) a step, B1-B3 once per
+             layer, no other kernel; the slowest rank's step time, tokens/s,
+             peak memory per rank
+15. report   one JSON line of kernels B1-B11 and the residual kernel
              (launches from rank 0 of the path that runs each: phase ranks
-             for B1-B3, B5, B6, phase sp for B11, phase gqa for the
-             others), then the last line {"ok": true, "device":
-             {"platform": "gpu", ...}}
+             for B1-B3, B5, B6, phase sp for B11, phase fused for B9 and
+             B10, phase gqa for the others), then the last line {"ok":
+             true, "device": {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
 exits non-zero.  f32 products on the card run in full f32: TF32 is switched
@@ -151,11 +181,24 @@ TOL_RANKS_LOSS = 1e-2
 # one-process flash kernel folds them in one pass, the loss a sum of four
 # shares, and the bf16 products take other shapes.
 TOL_SP_LOSS = 1e-2
+# Phase fsdp against phases main (first step) and ranks (every step): the
+# same weights, sequences and AdamW; the gradients reduce-scattered per
+# parameter instead of all-reduced per bucket, so only the order of f32
+# sums and the shapes of bf16 products differ.
+TOL_FSDP_LOSS = 1e-2
+# Phase fsdp's memory against a replica's: after init against its f32
+# parameters and two Adam moments (sharded 4 ways a rank holds 1/12 of
+# those, its parameter chunks), after step 1 against its parameters,
+# gradients and moments (sharded: 1/4, the chunks of all four; moments
+# that were not sharded would make it 5/8).
+FSDP_MEMORY_SHARE = 0.3
+FSDP_STEPS = 3  # phase fsdp: each step makes 390 ring calls (a card switch each on one card)
 N_RANKS = 4
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
 RANKS_LINE = "RANKS_RESULT "
 SP_LINE = "SP_RESULT "
+FSDP_LINE = "FSDP_RESULT "
 
 
 class SmokeFailure(Exception):
@@ -587,6 +630,9 @@ def phase_main(steps: int, batch: int, seed: int):
     world = distributed.init_distributed(device="cuda")
     cfg, trainer, state, tokens = flagship_step(batch, seed)
     n_params = sum(p.numel() for p in state.params.parameters())
+    # every parameter zero-padded to a multiple of N_RANKS: the payloads of
+    # phase fsdp's ring calls, one chunk of size / N_RANKS a rank
+    fsdp_sizes = sorted({-(-p.numel() // N_RANKS) * N_RANKS for p in state.params.parameters()})
     print(f"[main] flagship GPT {n_params / 1e6:.1f}M params, world {world}, batch {batch} x "
           f"{cfg.max_len}, {cfg.n_layers} layers, attention={cfg.attention}")
     torch.cuda.synchronize()
@@ -611,18 +657,19 @@ def phase_main(steps: int, batch: int, seed: int):
     print(f"[main] steady step {step_s * 1e3:.1f} ms (median of steps 2-{steps}), "
           f"{batch * cfg.max_len / step_s:.0f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {json.dumps(launches)}")
-    return losses, n_params
+    return losses, n_params, fsdp_sizes
 
 
-def phase_ring(n_params: int, gqa_params: int, seed: int):
+def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, seed: int):
     """B5 and B6, then B7 and B8, on N_RANKS ranks against their stacked
-    plain versions."""
+    plain versions; B5 and B6 also at every payload of phase fsdp."""
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
     # the fused cases first: the plain slots of the 367.6M-value case stay
     # allocated for the rest of the phase, and four ranks share the card
     cases = (f"int8:{gqa_params},fp8:{gqa_params},int8:1000003,fp8:1000003,"
-             f"f32:{n_params},bf16:{64 << 20},f32:1000003")
+             f"f32:{n_params},bf16:{64 << 20},f32:1000003,"
+             + ",".join(f"f32:{size}" for size in fsdp_sizes))
     _, res = spawn_ranks(["ring", "--cases", cases, "--iters", "5", "--seed", str(seed),
                           "--faults"], "RING_CHECK ", 600)
     for r, rr in sorted(res.items()):
@@ -703,7 +750,7 @@ def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, ref_loss1: f
           f"steady step {step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} "
           f"tokens/s, peak memory per rank {peaks} GiB; rank 0 launches "
           f"{json.dumps(r0['launches'])}")
-    return r0["launches"]
+    return r0["launches"], r0["losses"]
 
 
 def phase_shift(seed: int):
@@ -778,6 +825,72 @@ def phase_sp(steps: int, seed: int, bucket_mib: int, ref_loss: float):
           f"tokens/s, peak memory per rank {peaks} GiB; launches per rank "
           + "; ".join(f"{r}: {json.dumps(res[r]['launches'])}" for r in sorted(res)))
     return r0["launches"]
+
+
+def phase_fused(seed: int):
+    """B9 and B10 on N_RANKS ranks against their stacked plain versions;
+    their times, the plain versions', the library arm's and the bounds."""
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+
+    _, res = spawn_ranks(["fused", "--faults", "--iters", "5", "--seed", str(seed)],
+                         "FUSED_CHECK ", 600)
+    for r, rr in sorted(res.items()):
+        bad = [k for k, v in rr["ok"].items() if not v]
+        check(rr["ok_all"], f"fused rank {r}: failed {bad}, max abs err "
+              f"{json.dumps(rr['max_abs_err'])}")
+    r0 = res[0]
+    print(f"[fused] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
+          f"all-gather-matmul and matmul-reduce-scatter at {json.dumps(r0['shapes'])} equal the "
+          f"stacked plain versions (integer operands bit for bit; random ones, worst 64-row "
+          f"block {max(max(rr['worst_block_rel_err'].values()) for rr in res.values()):.3g}); "
+          f"planted faults rejected; launches on rank 0 {json.dumps(r0['launches'])}")
+    out = tuple({} for _ in range(5))
+    for kind, kern in (("b9", FM.AG_MATMUL), ("b10", FM.MATMUL_RS)):
+        t0 = r0["timing"][kind]
+        ms = max(rr["timing"][kind]["ms"] for rr in res.values())
+        lib = (max(rr["timing"][kind]["library_ms"] for rr in res.values())
+               if t0["library_ms"] is not None else None)
+        err = max(v for rr in res.values() for k, v in rr["max_abs_err"].items()
+                  if k.startswith(kind + " "))
+        print(f"[fused] {kern.name} ({kind.upper()}) at {t0['shapes']} bf16: kernel {ms:.3f} ms "
+              f"(slowest rank; {t0['how']}), plain {t0['plain_ms']:.3f} ms (all ranks in one "
+              f"process), bound {t0['bound_ms']:.4f} ms ({t0['bound_by']}), library "
+              f"{f'{lib:.3f} ms (NCCL unfused arm)' if lib is not None else 'null: ' + t0['library_note']}")
+        for d, v in zip(out, (err, ms, t0["plain_ms"], lib, (t0["bound_ms"], t0["bound_by"]))):
+            d[kern.name] = v
+    return out, r0["launches"]
+
+
+def phase_fsdp(steps: int, batch: int, seed: int, main_loss1: float, ranks_losses):
+    """The flagship's FSDP step on N_RANKS ranks (fsdp=4) through B6/B5."""
+    out, res = spawn_ranks(["fsdp", "--steps", str(steps), "--batch", str(batch), "--seed",
+                            str(seed)], FSDP_LINE, 900)
+    for line in out.splitlines():
+        if "[fsdp]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        check(rr["ok"], f"fsdp: rank {r} failed its checks: {json.dumps(rr['checks'])}; "
+              f"launches {json.dumps(rr['launches'])}, expected "
+              f"{json.dumps(rr['expected_launches'])}")
+    r0 = res[0]
+    losses = r0["losses"]
+    check(abs(losses[0] - main_loss1) <= TOL_FSDP_LOSS,
+          f"fsdp: first-step loss {losses[0]} vs phase main's {main_loss1}")
+    worst = max(abs(a - b) for a, b in zip(losses, ranks_losses))
+    check(worst <= TOL_FSDP_LOSS, f"fsdp: losses {losses} vs phase ranks' {ranks_losses}")
+    step_s = max(rr["step_s"] for rr in res.values())
+    peaks = " ".join(f"{res[r]['peak_gib']:.2f}" for r in sorted(res))
+    held = " ".join(f"{res[r]['init_gib']:.2f}" for r in sorted(res))
+    held1 = " ".join(f"{res[r]['step1_gib']:.2f}" for r in sorted(res))
+    print(f"[fsdp] {N_RANKS} ranks as fsdp=4 ({r0['backend']}), {batch} x 2048 tokens a step: "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}, first step {losses[0]:.4f} vs phase "
+          f"main's {main_loss1:.4f}, every step within {worst:.4f} of phase ranks'; launches "
+          f"exact on every rank; memory after init {held} GiB a rank (limit "
+          f"{r0['limit_gib']:.2f}: {FSDP_MEMORY_SHARE} of a replica's parameters and Adam "
+          f"state), after step 1 {held1} (limit {r0['step1_limit_gib']:.2f}: with its "
+          f"gradients); steady step {step_s * 1e3:.1f} ms (slowest rank), "
+          f"{batch * 2048 / step_s:.0f} tokens/s, peak memory per rank {peaks} GiB; rank 0 "
+          f"launches {json.dumps(r0['launches'])}")
 
 
 def rank_train(argv) -> int:
@@ -947,6 +1060,83 @@ def rank_sp(argv) -> int:
     return 0 if result["ok"] else 1
 
 
+def rank_fused(argv) -> int:
+    """One rank of phase fused (run by the launcher)."""
+    from kungfu_tpu_torch.tools import fused_check
+
+    tf32_off()
+    rc = fused_check.main(argv)
+    if not jax_free():
+        print("chip_smoke: JAX or the JAX package was imported", file=sys.stderr)
+        return 1
+    return rc
+
+
+def rank_fsdp(argv) -> int:
+    """One rank of phase fsdp (run by the launcher)."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.tools.step_profile import flagship_fsdp_step
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=FSDP_STEPS)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    tf32_off()
+    world = distributed.init_distributed(device="cuda")
+    rank = dist.get_rank()
+    cfg, trainer, state, batch = flagship_fsdp_step(args.batch, world, args.seed)
+    torch.cuda.synchronize()
+    init_bytes = torch.cuda.memory_allocated()  # the chunks, this rank's rows of the batch
+    n_params = sum(math.prod(s) for s in trainer._shapes.values())
+    n_leaves = len(trainer._shapes)
+    limit = FSDP_MEMORY_SHARE * n_params * 4 * 3  # f32 parameters and two Adam moments
+    limit1 = FSDP_MEMORY_SHARE * n_params * 4 * 4  # and the gradients
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS + FM.KERNELS
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        if step == 0:
+            step1_bytes = torch.cuda.memory_allocated()  # with AdamW's moments
+        print(f"[fsdp] rank {rank} step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms", flush=True)
+    launches = {k.name: k.launches for k in kernels}
+    want = {k.name: 0 for k in kernels}
+    want.update({k.name: cfg.n_layers * args.steps
+                 for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
+    want.update({RC.RING_AG.name: n_leaves * args.steps, RC.RING_RS.name: n_leaves * args.steps})
+    checks = {
+        "loss finite": all(math.isfinite(x) for x in losses),
+        "loss falls": losses[-1] < losses[0],
+        "launches": launches == want,
+        "memory after init": init_bytes <= limit,
+        "memory after step 1": step1_bytes <= limit1,
+        "no JAX": jax_free(),
+    }
+    result = {"rank": rank, "backend": dist.get_backend(), "losses": losses,
+              "step_s": statistics.median(times[1:]) if args.steps > 1 else times[0],
+              "init_gib": init_bytes / 2**30, "step1_gib": step1_bytes / 2**30,
+              "limit_gib": limit / 2**30, "step1_limit_gib": limit1 / 2**30,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "leaves": n_leaves,
+              "launches": launches, "expected_launches": want, "checks": checks,
+              "ok": all(checks.values())}
+    print(FSDP_LINE + json.dumps(result), flush=True)
+    distributed.shutdown_distributed()
+    return 0 if result["ok"] else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -957,7 +1147,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--rank-phase"]:  # one rank of a phase started by the launcher
         phase, rest = sys.argv[2], sys.argv[3:]
-        workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp}
+        workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
+                   "fused": rank_fused, "fsdp": rank_fsdp}
         return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -978,21 +1169,27 @@ def main() -> int:
         phase_build()
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
         phase_model_check(args.seed)
-        main_losses, n_params = phase_main(args.steps, args.batch, args.seed)
+        main_losses, n_params, fsdp_sizes = phase_main(args.steps, args.batch, args.seed)
         torch.cuda.empty_cache()  # the ranks need the card's memory
         gqa_loss, gqa_params, gqa_shapes = phase_gqa_reference(args.batch, args.seed)
         results.append(phase_ef(gqa_shapes, args.seed))
-        results.append(phase_ring(n_params, gqa_params, args.seed))
-        ranks_launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
-                                     main_losses[0])
-        gqa_launches = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
-                                   gqa_loss, compression="int8")
+        results.append(phase_ring(n_params, gqa_params, fsdp_sizes, args.seed))
+        ranks_launches, ranks_losses = phase_ranks(args.rank_steps, args.batch, args.seed,
+                                                   args.bucket_mib, main_losses[0])
+        gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
+                                      gqa_loss, compression="int8")
         results.append(phase_shift(args.seed))
         sp_loss = phase_sp_reference(args.seed)
         sp_launches = phase_sp(SP_STEPS, args.seed, args.bucket_mib, sp_loss)
+        fused, fused_launches = phase_fused(args.seed)
+        results.append(fused)
+        phase_fsdp(FSDP_STEPS, args.batch, args.seed, main_losses[0],
+                   ranks_losses[:FSDP_STEPS])
         # each kernel's launches from the path that runs it
         launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
         launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
+        for kern in (FM.AG_MATMUL, FM.MATMUL_RS):
+            launches[kern.name] = fused_launches[kern.name]
         check(all(launches.values()), f"a kernel of the main paths never launched: {launches}")
         check(jax_free(), "JAX or the JAX package was imported")
     except SmokeFailure as e:

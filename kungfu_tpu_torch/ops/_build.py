@@ -35,7 +35,9 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 _PP = ctypes.POINTER(ctypes.c_void_p)
-_RING = [_P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _U, _U, _U, _P, _P]  # own ... stream
+# own, right, n, rank, max_blocks, slots, slot_bytes, chunk, blocks, seq, ack_want,
+# timeout_ns, err, stream (csrc/ring_common.cuh KFT_RING_PARAMS)
+_RING = [_P, _P, _I, _I, _I, _L, _L, _L, _I, _U, _U, _U, _P, _P]
 # C signature of every exported function: (argtypes, source stem); each
 # returns a CUDA error code unless RESTYPES says otherwise
 SIGNATURES = {
@@ -53,6 +55,8 @@ SIGNATURES = {
     "kft_ring_fag": ([_P, _P, _L, _I, _I, _F] + _RING, "ring"),
     "kft_ring_shift": ([_P, _P, _L, _P, _P, _L, _I] + _RING, "ring"),
     "kft_ef_residual": ([_P, _L, _I, _I, _F, _P], "ring"),
+    "kft_ag_matmul": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
+    "kft_matmul_rs": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
     "kft_ring_header_bytes": ([_I, _I], "ring"),
     "kft_ws_alloc": ([_I, _L, _PP, _P], "ring"),
     "kft_ws_open": ([_I, _P, _PP], "ring"),

@@ -46,6 +46,18 @@ from ..compression.quant import (QTensor, add_dequantized, dequantize, from_wire
 TILE = 1024  # chunk padding unit of the Pallas ring (8 x 128 lanes)
 
 
+def host_staged(fn, out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """The torch.distributed collective `fn(out, x, group=group)`, through
+    host memory for a card's tensors on gloo (ranks that share a card,
+    where NCCL refuses the group)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host = out.cpu()
+        fn(host, x.cpu(), group=group)
+        out.copy_(host)
+    else:
+        fn(out, x, group=group)
+
+
 def _chunk_elems(total: int, n: int, multiple: int = TILE) -> int:
     """Per-chunk element count: ceil(total/n) padded up to `multiple`
     (pallas_collectives._chunk_elems)."""

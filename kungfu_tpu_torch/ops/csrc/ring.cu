@@ -33,7 +33,9 @@
 // the call's sequence number.  Block b waits only on block b of its left
 // neighbour (the same element range), so no grid-wide barrier is needed.
 // Order: data stores, __threadfence_system(), a release store of the flag;
-// the reader polls with an acquire load and reads the slot through L2.
+// the reader polls with an acquire load and reads the slot through L2.  The
+// workspace layout, flags, waits and acknowledgements are in
+// ring_common.cuh, which fused_matmul.cu (B9, B10) shares.
 //
 // Slot reuse across calls: each slot carries one hop of one call, as in the
 // Pallas kernel.  Every block that has read its share of its slots adds one
@@ -104,9 +106,9 @@
 #include <stdint.h>
 #include <string.h>
 
-namespace kft_ring {
+#include "ring_common.cuh"
 
-typedef unsigned long long u64;
+namespace kft_ring {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -114,134 +116,6 @@ constexpr int kUnroll = 4;
 constexpr int kSeg = 256;  // values a warp quantizes at a time: 32 lanes x 8
 enum DType { kFloat32 = 0, kBFloat16 = 2 };
 enum Scheme { kInt8 = 0, kFp8 = 1 };
-// The five kinds of call, each with its own flags, acknowledgement counter
-// and slots, so calls of different kinds can interleave in any order.
-enum Kind { kRs = 0, kAg = 1, kFusedRs = 2, kFusedAg = 3, kShift = 4, kKinds = 5 };
-// error kinds recorded in err[0]: 1 + 2 * kind for a data wait, 2 + 2 *
-// kind for an acknowledgement wait
-__host__ __device__ constexpr int err_data(int kind) { return 1 + 2 * kind; }
-__host__ __device__ constexpr int err_ack(int kind) { return 2 + 2 * kind; }
-
-// Workspace layout, the same on every rank (ops/peer_memory.py builds it):
-//   u64 flags[kKinds][n-1][max_blocks], u64 ack[kKinds] (blocks that read
-//   their slots, all calls of that kind), u64 claim (header padded to 4096
-//   bytes), then n-1 slots of `cap` bytes for the reduce-scatter and for the
-//   all-gather, then n-1 slots of `fcap` bytes for each fused kernel, then
-//   one slot of `scap` bytes for the shift.  A fused slot holds `chunk`
-//   bytes of codes, then chunk / block f32 scales.
-struct Workspace {
-  char* own;
-  char* right;  // the peer a kernel stores into: rank + 1, or rank + shift
-  int n, rank, max_blocks;
-  long long cap;   // bytes per slot of the plain kernels
-  long long fcap;  // bytes per slot of the fused kernels
-  long long scap;  // bytes of the shift's slot
-};
-
-__host__ __device__ inline long long header_bytes(int n, int max_blocks) {
-  long long words = (long long)kKinds * (n - 1) * max_blocks + kKinds + 1;
-  return (words * 8 + 4095) / 4096 * 4096;
-}
-
-struct Layout {
-  u64* flags;  // of this kind: flags[hop * max_blocks + block]
-  u64* ack;    // of this kind
-  u64* claim;
-  char* slots;     // slot s at slots + s * slot_bytes
-  long long slot_bytes;
-};
-
-__device__ inline Layout layout(const Workspace& ws, char* base, int kind) {
-  const int n = ws.n, mb = ws.max_blocks;
-  u64* w = reinterpret_cast<u64*>(base);
-  Layout l;
-  l.flags = w + (long long)kind * (n - 1) * mb;
-  l.ack = w + (long long)kKinds * (n - 1) * mb + kind;
-  l.claim = w + (long long)kKinds * (n - 1) * mb + kKinds;
-  char* slots = base + header_bytes(n, mb);
-  const long long plain = (long long)(n - 1) * ws.cap, fused = (long long)(n - 1) * ws.fcap;
-  const long long offset[kKinds] = {0, plain, 2 * plain, 2 * plain + fused,
-                                    2 * plain + 2 * fused};
-  l.slots = slots + offset[kind];
-  l.slot_bytes = kind < kFusedRs ? ws.cap : kind < kShift ? ws.fcap : ws.scap;
-  return l;
-}
-
-__device__ __forceinline__ u64 ld_acquire(const u64* p) {
-  u64 v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(u64* p, u64 v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ u64 globaltimer() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-struct Call {
-  Workspace ws;
-  u64 seq;
-  u64 ack_want;  // blocks of the earlier calls of this kind
-  u64 timeout_ns;
-  volatile u64* err;  // host-mapped: kind, hop, block, seq
-};
-
-// Thread 0 polls `*p >= want`; the whole block returns whether it arrived.
-// On expiry the first failing block on this rank records where it waited.
-__device__ bool block_wait(const Call& c, const u64* p, u64 want, u64* claim, int kind,
-                           int hop) {
-  __shared__ int ok;
-  if (threadIdx.x == 0) {
-    // a claimed error (an earlier call, or another block) ends the kernel
-    int good = *reinterpret_cast<volatile u64*>(claim) == 0;
-    u64 deadline = globaltimer() + c.timeout_ns;
-    while (good && ld_acquire(p) < want) {
-      if (*reinterpret_cast<volatile u64*>(claim) != 0) {  // another block gave up
-        good = 0;
-        break;
-      }
-      if (globaltimer() > deadline) {
-        good = 0;
-        if (atomicCAS(claim, 0ULL, 1ULL) == 0ULL) {
-          c.err[1] = (u64)hop;
-          c.err[2] = (u64)blockIdx.x;
-          c.err[3] = c.seq;
-          __threadfence_system();
-          c.err[0] = (u64)kind;
-          __threadfence_system();
-        }
-        break;
-      }
-      __nanosleep(128);
-    }
-    ok = good;
-  }
-  __syncthreads();
-  return ok != 0;
-}
-
-// All threads' stores, then one release of the flag by thread 0.
-__device__ __forceinline__ void block_signal(u64* flag, u64 seq) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    st_release(flag, seq);
-  }
-}
-
-// All threads' reads of this block's slots are done: count the block.
-__device__ __forceinline__ void block_ack(u64* ack) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    atomicAdd_system(ack, 1ULL);
-  }
-}
 
 template <typename T>
 struct Ops;
@@ -308,17 +182,6 @@ struct View {
       if (j + k < row && i + k < size) base[i + k] = e[k];
   }
 };
-
-__device__ __forceinline__ char* slot(const Layout& l, int s) {
-  return l.slots + (long long)s * l.slot_bytes;
-}
-
-// Block b's share of the chunk, in 16-byte vectors: [v0, v1).
-__device__ __forceinline__ void block_range(long long nvec, long long* v0, long long* v1) {
-  long long per = (nvec + gridDim.x - 1) / gridDim.x;
-  *v0 = min(nvec, (long long)blockIdx.x * per);
-  *v1 = min(nvec, *v0 + per);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -724,13 +587,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------ launch ----
 
-struct Args {
-  void *own, *right, *err;
-  int n, rank, max_blocks, blocks;
-  long long cap, fcap, scap, chunk;
-  u64 seq, ack_want, timeout_ns;
-};
-
 template <typename T>
 View<T> make_view(void* p, long long stride, long long row, long long size) {
   View<T> v;
@@ -742,36 +598,15 @@ View<T> make_view(void* p, long long stride, long long row, long long size) {
   return v;
 }
 
-Call make_call(const Args& a) {
-  Call c;
-  c.ws.own = static_cast<char*>(a.own);
-  c.ws.right = static_cast<char*>(a.right);
-  c.ws.n = a.n;
-  c.ws.rank = a.rank;
-  c.ws.max_blocks = a.max_blocks;
-  c.ws.cap = a.cap;
-  c.ws.fcap = a.fcap;
-  c.ws.scap = a.scap;
-  c.seq = a.seq;
-  c.ack_want = a.ack_want;
-  c.timeout_ns = a.timeout_ns;
-  c.err = static_cast<volatile u64*>(a.err);
-  return c;
-}
-
-bool args_ok(const Args& a) {
-  return a.n >= 2 && a.rank >= 0 && a.rank < a.n && a.blocks >= 1 && a.blocks <= a.max_blocks;
-}
-
 bool plain_ok(const Args& a, int elem) {
-  return args_ok(a) && a.chunk % (16 / elem) == 0 && a.chunk * elem <= a.cap;
+  return args_ok(a) && a.chunk % (16 / elem) == 0 && a.chunk * elem <= a.slot_bytes;
 }
 
 // A fused chunk holds whole 256-value segments; its codes and scales fit a slot.
 bool fused_ok(const Args& a, const Codec& q) {
   return args_ok(a) && (q.scheme == kInt8 || q.scheme == kFp8) && q.block >= 8 &&
          q.block <= kSeg && kSeg % q.block == 0 && a.chunk % 1024 == 0 &&
-         a.chunk + a.chunk / q.block * 4 <= a.fcap;
+         a.chunk + a.chunk / q.block * 4 <= a.slot_bytes;
 }
 
 template <typename T>
@@ -807,13 +642,8 @@ using kft_ring::Codec;
 // flat index < x_size, zero elsewhere); out[j] = the ring sum of chunk
 // `rank` for j < out_len.
 extern "C" int kft_ring_rs(void* x, long long x_stride, long long x_row, long long x_size,
-                           void* out, long long out_len, int dtype, void* own, void* right,
-                           int n, int rank, int max_blocks, long long cap, long long fcap,
-                           long long scap, long long chunk, int blocks, unsigned long long seq,
-                           unsigned long long ack_want, unsigned long long timeout_ns, void* err,
-                           void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
-         timeout_ns};
+                           void* out, long long out_len, int dtype, KFT_RING_PARAMS) {
+  Args a = KFT_RING_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kft_ring::kFloat32)
     return kft_ring::launch_rs<float>(a, x, x_stride, x_row, x_size, out, out_len, s);
@@ -825,14 +655,9 @@ extern "C" int kft_ring_rs(void* x, long long x_stride, long long x_row, long lo
 // All-gather: x[j] for j < x_len is this rank's chunk; chunk c lands at
 // out[c * out_stride + j] for j < out_row and a flat index < out_size.
 extern "C" int kft_ring_ag(void* x, long long x_len, void* out, long long out_stride,
-                           long long out_row, long long out_size, int dtype, void* own,
-                           void* right, int n, int rank, int max_blocks, long long cap,
-                           long long fcap, long long scap, long long chunk, int blocks,
-                           unsigned long long seq,
-                           unsigned long long ack_want, unsigned long long timeout_ns, void* err,
-                           void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
-         timeout_ns};
+                           long long out_row, long long out_size, int dtype,
+                           KFT_RING_PARAMS) {
+  Args a = KFT_RING_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kft_ring::kFloat32)
     return kft_ring::launch_ag<float>(a, x, x_len, out, out_stride, out_row, out_size, s);
@@ -847,13 +672,8 @@ extern "C" int kft_ring_ag(void* x, long long x_len, void* out, long long out_st
 // rank's chunk reduced through int8 (scheme 0) or fp8 (1) codes with one
 // scale per `block` values; `recip` = 1 / codemax rounded to f32.
 extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, int block,
-                            float recip, void* own, void* right, int n, int rank,
-                            int max_blocks, long long cap, long long fcap, long long scap,
-                            long long chunk, int blocks, unsigned long long seq,
-                            unsigned long long ack_want,
-                            unsigned long long timeout_ns, void* err, void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
-         timeout_ns};
+                            float recip, KFT_RING_PARAMS) {
+  Args a = KFT_RING_ARGS;
   Codec q{scheme, block, recip};
   if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
   kft_ring::ring_fused_rs_kernel<<<blocks, kft_ring::kThreads, 0,
@@ -867,13 +687,8 @@ extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, in
 // chunk; every rank's chunk c, quantized once by its owner, is decoded into
 // out[c * chunk + j] for flat indices below out_size.
 extern "C" int kft_ring_fag(void* x, void* out, long long out_size, int scheme, int block,
-                            float recip, void* own, void* right, int n, int rank,
-                            int max_blocks, long long cap, long long fcap, long long scap,
-                            long long chunk, int blocks, unsigned long long seq,
-                            unsigned long long ack_want,
-                            unsigned long long timeout_ns, void* err, void* stream) {
-  Args a{own, right, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
-         timeout_ns};
+                            float recip, KFT_RING_PARAMS) {
+  Args a = KFT_RING_ARGS;
   Codec q{scheme, block, recip};
   if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
   kft_ring::ring_fused_ag_kernel<<<blocks, kft_ring::kThreads, 0,
@@ -884,24 +699,19 @@ extern "C" int kft_ring_fag(void* x, void* out, long long out_size, int scheme, 
 }
 
 // Ring shift of up to two payloads (bytes1 may be 0): rank `rank` stores
-// src0 and src1 into the slot of the peer mapped at `peer` (rank + shift),
+// src0 and src1 into the slot of the peer mapped at `right` (rank + shift),
 // and copies what rank - shift stored into its own slot to dst0 and dst1.
 // The slot holds payload 0, then payload 1 from the next multiple of 16
-// bytes; `chunk` is that total, at most `scap`.  Every pointer is 16-byte
+// bytes; `chunk` is that total, at most `slot_bytes`.  Every pointer is 16-byte
 // aligned.
 extern "C" int kft_ring_shift(void* src0, void* dst0, long long bytes0, void* src1, void* dst1,
-                              long long bytes1, int shift, void* own, void* peer, int n,
-                              int rank, int max_blocks, long long cap, long long fcap,
-                              long long scap, long long chunk, int blocks,
-                              unsigned long long seq, unsigned long long ack_want,
-                              unsigned long long timeout_ns, void* err, void* stream) {
-  Args a{own, peer, err, n, rank, max_blocks, blocks, cap, fcap, scap, chunk, seq, ack_want,
-         timeout_ns};
+                              long long bytes1, int shift, KFT_RING_PARAMS) {
+  Args a = KFT_RING_ARGS;
   const long long off1 = (bytes0 + 15) / 16 * 16;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(src0) | reinterpret_cast<uintptr_t>(dst0) |
                          reinterpret_cast<uintptr_t>(src1) | reinterpret_cast<uintptr_t>(dst1);
   if (!kft_ring::args_ok(a) || bytes0 < 0 || bytes1 < 0 || (ptrs & 15) ||
-      chunk != off1 + bytes1 || chunk > scap)
+      chunk != off1 + bytes1 || chunk > slot_bytes)
     return (int)cudaErrorInvalidValue;
   const kft_ring::Part p0{static_cast<const char*>(src0), static_cast<char*>(dst0), bytes0, 0};
   const kft_ring::Part p1{static_cast<const char*>(src1), static_cast<char*>(dst1), bytes1, off1};

@@ -1,9 +1,35 @@
-"""The one-hop ring shift on a hand-written CUDA kernel (counterpart of
-kungfu_tpu/ops/fused_matmul.py `ring_shift`, whose kernel is
-kungfu_tpu/ops/ring_kernels.py `make_shift_kernel`).
+"""Fused computation-collective ops on hand-written CUDA kernels
+(counterpart of kungfu_tpu/ops/fused_matmul.py, whose kernels are
+kungfu_tpu/ops/ring_kernels.py).
 
-  ring_shift       csrc/ring.cu `ring_shift_kernel` replaces `make_shift_kernel` (B11)
-  ring_shift_pair  the same kernel, two payloads in one launch
+  all_gather_matmul      csrc/fused_matmul.cu replaces `make_ag_matmul_kernel` (B9)
+  matmul_reduce_scatter  csrc/fused_matmul.cu replaces `make_matmul_rs_kernel` (B10)
+  dma_all_gather         the tiled all-gather on B6 (ring_collectives.ring_all_gather);
+                         its VJP is dma_reduce_scatter
+  dma_reduce_scatter     the tiled reduce-scatter on B5 (ring_reduce_scatter); its VJP
+                         is dma_all_gather
+  ring_shift             csrc/ring.cu `ring_shift_kernel` replaces `make_shift_kernel` (B11)
+  ring_shift_pair        the same kernel, two payloads in one launch
+
+Every function runs over a process group where the JAX one runs over a
+mesh axis, with the JAX layouts:
+
+  all_gather_matmul(x, w_shard)      x [M, K], w_shard [K/n, N]: x @
+                                     concat_rows(every rank's shard), the
+                                     product in f32, returned in x's dtype
+  matmul_reduce_scatter(x, w)        x [M, K] (n divides M), w [K, N]: rank
+                                     d's rows [d M/n, (d+1) M/n) of the sum
+                                     over the ranks of x @ w, the partials
+                                     in f32, returned in x's dtype
+  dma_all_gather(x)                  (d0, ...) -> (n d0, ...), rank-major
+  dma_reduce_scatter(x)              (n d0, ...) -> this rank's d0 rows, summed
+
+The matmul-reduce-scatter adds the partials in the TPU kernel's order:
+chunk c's sum is P_c(c) + (P_c(c-1) + (... + P_c(c+1))) with P_c(r) the
+f32 product of rank r, as the ring reduce-scatter B5 adds its chunks.  The
+all-gather-matmul sums the shards' products from the own shard down the
+ring, c = (d - s) mod n at hop s.  Neither has a gradient: the JAX ones
+have none on their kernel path either.
 
 `ring_shift(x, group, shift)` is `lax.ppermute(x, axis, [(i, (i + shift)
 % n)])` over a process group: rank d returns what rank (d - shift) mod n
@@ -15,18 +41,26 @@ two tensors as one call and one autograd node, and its backward shifts
 the same order, forward and backward; a pair cannot be issued as k then v
 on one rank and v then k on another.
 
-A CUDA tensor goes to the kernel, which stores into rank + shift's
-workspace (`peer_memory`, the "shift" kind) and reads its own; a CPU
-tensor goes to the rank-local plain version, `dist.batch_isend_irecv` in
-the group.  `_plain_ring_shift` is the stacked plain version (every rank's
-payload in one process, `torch.roll`) that the card checks hold the kernel
-against, bit for bit.  The payload moves as bytes, so every dtype and size
-takes the kernel: the JAX package's fallback to `ppermute` (past its VMEM
-budget, for other dtypes) has no counterpart.  n == 1, or a shift that is
-a multiple of n, returns the input unchanged and launches nothing.
+A CUDA tensor goes to the kernel, which stores into a peer's workspace
+(`peer_memory`: the kinds "agmm", "mmrs" and "shift"); a CPU tensor goes
+to the rank-local plain version over the group (the shards gathered, or
+the partials reduce-scattered, by the plain ring of `ops/collective.py`;
+the shift by `dist.batch_isend_irecv`).  `_plain_all_gather_matmul`,
+`_plain_matmul_reduce_scatter` and `_plain_ring_shift` are the stacked
+plain versions (every rank's operands in one process) that the card
+checks hold the kernels against.  Every size takes the kernels: the JAX
+wrappers' fallbacks (past their VMEM budget, for other dtypes, off a sole
+named axis) have no counterpart.  B9 and B10 take f32 and bf16 (x and w of
+one dtype) and raise NotImplementedError for another; the shift moves
+bytes, so every dtype goes through it.  n == 1 computes the unfused
+product (B9, B10) or returns the input (the shift, or a shift that is a
+multiple of n) and launches nothing, as the JAX wrappers do.
 
-all_gather_matmul, matmul_reduce_scatter and the dma_* pair (B9, B10) are
-not ported yet (ROADMAP B9/B10, A.6).
+    python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.fused_check
+    python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.benchmarks --bench fused
+
+check B9 and B10 on 4 ranks and run the fused benchmark (`--device cpu`
+on gloo ranks without a card).
 """
 from __future__ import annotations
 
@@ -36,16 +70,24 @@ import torch
 import torch.distributed as dist
 
 from ..compat import kernel_mode
+from . import collective as C
 from . import peer_memory
+from . import ring_collectives as RC
 from .collective import _world
 from .flash import Kernel
 from .ring_collectives import _launch
 
 SHIFT = Kernel("ring_shift", "kungfu_tpu_torch/ops/csrc/ring.cu",
                "kungfu_tpu/ops/ring_kernels.py:453")  # make_shift_kernel
-KERNELS = (SHIFT,)
+AG_MATMUL = Kernel("all_gather_matmul", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu",
+                   "kungfu_tpu/ops/ring_kernels.py:347")  # make_ag_matmul_kernel
+MATMUL_RS = Kernel("matmul_reduce_scatter", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu",
+                   "kungfu_tpu/ops/ring_kernels.py:396")  # make_matmul_rs_kernel
+KERNELS = (SHIFT, AG_MATMUL, MATMUL_RS)
 
 _THREADS, _UNROLL, _VEC = 512, 4, 16  # csrc/ring.cu kThreads, kUnroll, 16-byte vectors
+_TILE = 128  # csrc/fused_matmul.cu kBM = kBN: the output tile of a block of B9 and B10
+_MM_DTYPES = {torch.float32: 0, torch.bfloat16: 2}  # csrc/fused_matmul.cu MmDType
 
 
 def _plain_ring_shift(stacked: torch.Tensor, shift: int) -> torch.Tensor:
@@ -91,7 +133,7 @@ def _kernel_shift(xs: Sequence[torch.Tensor], group, shift: int) -> List[torch.T
     total = off1 + nbytes[1]
     ws = peer_memory.workspace(group, device)
     ws.raise_if_failed()
-    ws.reserve(shift_slot_bytes=total)
+    ws.reserve(total, "shift")
     blocks = max(1, min(ws.max_blocks, -(-total // (_VEC * _THREADS * _UNROLL))))
     ptrs = [(x.data_ptr(), o.data_ptr()) for x, o in zip(xs, outs)] + [(None, None)]
     shift %= ws.n
@@ -137,3 +179,176 @@ def ring_shift_pair(x: torch.Tensor, y: torch.Tensor, group=None, shift: int = 1
     """`ring_shift` of two tensors as one call (one launch of B11 forward,
     one backward): the same result as two calls."""
     return _apply((x, y), group, shift)
+
+
+# ------------------------------------------- all-gather-matmul (B9) ----
+
+def _check_mm(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError(f"{name}: x and w must be matrices, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in _MM_DTYPES or w.dtype != x.dtype:
+        raise NotImplementedError(
+            f"{name}: dtypes {x.dtype} x {w.dtype} have no kernel (f32 or bf16, one dtype "
+            "for both operands)")
+    if x.device != w.device:
+        raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
+
+
+def _unfused(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The product in f32, in x's dtype: what n == 1 computes."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def _hop_sum(x: torch.Tensor, shards, d: int) -> torch.Tensor:
+    """Rank d's all-gather-matmul from every rank's shard: the products of
+    the shards, in f32, summed from the own shard down the ring."""
+    n, ks = len(shards), shards[0].shape[0]
+    acc = None
+    for s in range(n):
+        c = (d - s) % n
+        part = x[:, c * ks:(c + 1) * ks].float() @ shards[c].float()
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
+
+
+def _plain_all_gather_matmul(xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Every rank's result at once: xs [n, M, K] and ws [n, K/n, N] hold
+    rank r's x and shard at row r; row d of the result is rank d's [M, N]."""
+    return torch.stack([_hop_sum(xs[d], ws, d) for d in range(xs.shape[0])])
+
+
+def _kernel_ag_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    (m, _), (ks, nn) = x.shape, w.shape
+    x, w = x.contiguous(), _aligned(w)
+    out = torch.empty(m, nn, dtype=x.dtype, device=x.device)
+    ws = peer_memory.workspace(group, x.device)
+    ws.raise_if_failed()
+    ws.reserve(ks * nn * w.element_size(), "agmm")
+    tiles = -(-m // _TILE) * -(-nn // _TILE)
+    _launch(AG_MATMUL, "kft_ag_matmul", ws, "agmm", x.device, ks * nn,
+            max(1, min(ws.max_blocks, tiles)),
+            (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, nn, ks, _MM_DTYPES[x.dtype]))
+    return out
+
+
+def all_gather_matmul(x: torch.Tensor, w_shard: torch.Tensor, group=None) -> torch.Tensor:
+    """x [M, K] @ concat_rows(every rank's w_shard [K/n, N]), in x's dtype
+    (B9 on a card); the shards are never gathered into one tensor."""
+    _check_mm("all_gather_matmul", x, w_shard)
+    n = _world(group)
+    if x.shape[1] != n * w_shard.shape[0]:
+        raise ValueError(f"all_gather_matmul: x contraction dim {x.shape[1]} != n*shard rows "
+                         f"{n}*{w_shard.shape[0]}")
+    x, w_shard = x.detach(), w_shard.detach()
+    if n == 1:
+        return _unfused(x, w_shard)
+    if kernel_mode(x.device) == "plain":
+        shards = C.ring_all_gather_chunks(w_shard.contiguous(), group)
+        return _hop_sum(x, shards, dist.get_rank(group))
+    return _kernel_ag_matmul(x, w_shard, group)
+
+
+# ---------------------------------------- matmul-reduce-scatter (B10) ----
+
+def _chunk_products(x: torch.Tensor, w: torch.Tensor, n: int):
+    """The f32 products of x's n row chunks with w: one rank's partials."""
+    mc = x.shape[0] // n
+    return [x[c * mc:(c + 1) * mc].float() @ w.float() for c in range(n)]
+
+
+def _plain_matmul_reduce_scatter(xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Every rank's result at once: xs [n, M, K] and ws [n, K, N] hold rank
+    r's operands at row r; row d of the result is rank d's [M/n, N], its
+    partials summed in the ring's order."""
+    n = xs.shape[0]
+    parts = [_chunk_products(xs[r], ws[r], n) for r in range(n)]
+    return torch.stack([C._ring_sum([p[d] for p in parts], d).to(xs.dtype) for d in range(n)])
+
+
+def _kernel_matmul_rs(x: torch.Tensor, w: torch.Tensor, group, n: int) -> torch.Tensor:
+    (m, k), nn = x.shape, w.shape[1]
+    mc = m // n
+    x, w = x.contiguous(), w.contiguous()
+    out = torch.empty(mc, nn, dtype=x.dtype, device=x.device)
+    ws = peer_memory.workspace(group, x.device)
+    ws.raise_if_failed()
+    ws.reserve(mc * nn * 4, "mmrs")
+    tiles = -(-mc // _TILE) * -(-nn // _TILE)
+    _launch(MATMUL_RS, "kft_matmul_rs", ws, "mmrs", x.device, mc * nn,
+            max(1, min(ws.max_blocks, tiles)),
+            (x.data_ptr(), w.data_ptr(), out.data_ptr(), mc, nn, k, _MM_DTYPES[x.dtype]))
+    return out
+
+
+def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank d's rows [d M/n, (d+1) M/n) of the sum over the ranks of x [M,
+    K] @ w [K, N], in x's dtype (B10 on a card; the partials travel in
+    f32)."""
+    _check_mm("matmul_reduce_scatter", x, w)
+    n = _world(group)
+    if x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul_reduce_scatter: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "do not multiply")
+    if x.shape[0] % n:
+        raise ValueError(f"matmul_reduce_scatter: rows {x.shape[0]} not divisible by n={n}")
+    x, w = x.detach(), w.detach()
+    if n == 1:
+        return _unfused(x, w)
+    if kernel_mode(x.device) == "plain":
+        return C.ring_reduce_scatter_chunks(_chunk_products(x, w, n), group).to(x.dtype)
+    return _kernel_matmul_rs(x, w, group, n)
+
+
+# ------------------------------------------- the DMA gather/scatter pair ----
+
+def _ag_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    n = _world(group)
+    return RC.ring_all_gather(x, group).reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def _rs_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    n = _world(group)
+    if x.ndim < 1 or x.shape[0] % n:
+        raise ValueError(f"dma_reduce_scatter: leading dim of {tuple(x.shape)} not divisible "
+                         f"by n={n}")
+    return RC.ring_reduce_scatter(x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])), group)
+
+
+class _DmaAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _ag_tiled(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rs_tiled(g.contiguous(), ctx.group), None
+
+
+class _DmaReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rs_tiled(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ag_tiled(g.contiguous(), ctx.group), None
+
+
+def dma_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`lax.all_gather(x, axis, tiled=True)` on the ring all-gather B6:
+    (d0, ...) -> (n d0, ...).  Its gradient is `dma_reduce_scatter` (on B5),
+    so an FSDP step whose unshard runs here reduce-scatters its gradients
+    on the ring kernels too."""
+    if x.ndim < 1:
+        raise ValueError("dma_all_gather: x needs a leading dimension")
+    return _DmaAllGather.apply(x, group)
+
+
+def dma_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)` on the
+    ring reduce-scatter B5: (n d0, ...) -> this rank's summed d0 rows; its
+    gradient is `dma_all_gather`."""
+    return _DmaReduceScatter.apply(x, group)

@@ -13,7 +13,7 @@ One `Workspace` per process group, symmetric across its ranks:
 
   header     flag words, one per (hop, block) for each kind of call, an
              acknowledgement counter per kind and the error claim
-             (csrc/ring.cu, `header_bytes`)
+             (csrc/ring_common.cuh, `header_bytes`)
   rs slots   n-1 receive slots of the reduce-scatter (B5), one per hop
   ag slots   n-1 landing slots of the all-gather (B6), one per hop
   frs slots  n-1 slots of the fused-codec reduce-scatter (B7): codes, then
@@ -21,14 +21,24 @@ One `Workspace` per process group, symmetric across its ranks:
   fag slots  n-1 slots of the fused-codec all-gather (B8), the same layout
   shift slot one slot of the ring shift (B11): the payloads of one call
              (K, then V from the next 16 bytes)
+  agmm slots n slots of the all-gather-matmul (B9): slot c holds weight
+             shard c, in the operand type
+  mmrs slots n-1 receive slots of the matmul-reduce-scatter (B10): hop s's
+             f32 partial of one row chunk
 
-The five kinds ("rs", "ag", "frs", "fag", "shift") have their own flags,
-counters and slots, so calls of any kinds and sizes interleave safely: a
-kernel waits only on the flags and acknowledgements of its own kind.
+The seven kinds ("rs", "ag", "frs", "fag", "shift", "agmm", "mmrs") have
+their own flags, counters and slots, so calls of any kinds and sizes
+interleave safely: a kernel waits only on the flags and acknowledgements
+of its own kind.  Only this module knows where each kind's slots lie
+(`_slot_count`, `Workspace.slots`): a launch passes its kernel the offset
+of its kind's first slot and the size of one, so a new kind is one more
+entry here and in the `Kind` enum, not a wider kernel signature.  (The TPU kernel of B10 also keeps two staging slots, the
+sources of its DMAs in VMEM; B10 here stores each partial from shared
+memory straight into the neighbour's slot and needs none.)
 
 It is allocated with `cudaMalloc` (an IPC handle names a whole
-allocation, not a slice of torch's caching allocator), its plain, fused
-and shift slots each sized for the largest call of theirs so far and grown
+allocation, not a slice of torch's caching allocator), the slots of each
+group of kinds sized for the largest call of theirs so far and grown
 on demand, which every rank does at the same call because every rank makes
 the same calls.  The handles are exchanged over the process group when the
 workspace is made or grown, never per call; a peer's workspace is mapped
@@ -57,13 +67,19 @@ log = get_logger("kungfu.peer_memory")
 
 IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 SLOT_ALIGN = 4096
-KINDS = ("rs", "ag", "frs", "fag", "shift")  # csrc/ring.cu `Kind`, in order
+KINDS = ("rs", "ag", "frs", "fag", "shift", "agmm", "mmrs")  # csrc/ring_common.cuh `Kind`
 _KIND_NAMES = ("reduce-scatter", "all-gather", "fused reduce-scatter", "fused all-gather",
-               "shift")
-# csrc/ring.cu records 1 + 2 * kind for a data wait, 2 + 2 * kind for an ack
+               "shift", "all-gather-matmul", "matmul-reduce-scatter")
+# csrc/ring_common.cuh records 1 + 2 * kind for a data wait, 2 + 2 * kind for an ack
 _ERR_KINDS = {1 + 2 * i + a: f"{name} {'acknowledgement' if a else 'data'}"
               for i, name in enumerate(_KIND_NAMES) for a in (0, 1)}
 _SHIFT_ERRS = (1 + 2 * KINDS.index("shift"), 2 + 2 * KINDS.index("shift"))
+
+
+def _slot_count(kind: str, n: int) -> int:
+    """Slots of a kind on n ranks: one per hop (n - 1); the shift's one;
+    the all-gather-matmul's one per weight shard (n)."""
+    return {"shift": 1, "agmm": n}.get(kind, n - 1)
 
 
 def _timeout_ns() -> int:
@@ -100,9 +116,7 @@ class Workspace:
         from . import _build
 
         self.header = _build.function("kft_ring_header_bytes")(self.n, self.max_blocks)
-        self.cap = 0  # bytes per slot of the plain kernels
-        self.fcap = 0  # bytes per slot of the fused kernels
-        self.scap = 0  # bytes of the shift's slot
+        self.slot_bytes = dict.fromkeys(KINDS, 0)  # bytes of one slot of each kind
         self.own: Optional[int] = None
         self._handles: List[bytes] = []  # every rank's IPC handle
         self._peers: Dict[int, int] = {}  # rank -> its workspace, mapped here
@@ -114,21 +128,28 @@ class Workspace:
 
     @property
     def nbytes(self) -> int:
-        return self.header + 2 * (self.n - 1) * (self.cap + self.fcap) + self.scap
+        return self.header + sum(_slot_count(k, self.n) * b for k, b in self.slot_bytes.items())
 
-    def reserve(self, slot_bytes: int = 0, fused_slot_bytes: int = 0,
-                shift_slot_bytes: int = 0) -> None:
-        """Grow every rank's workspace to plain slots of at least
-        `slot_bytes`, fused slots of at least `fused_slot_bytes` and a shift
-        slot of at least `shift_slot_bytes`.  Collective: every rank of the
-        group must call it with the same sizes, as the ring wrappers do."""
-        if (slot_bytes <= self.cap and fused_slot_bytes <= self.fcap
-                and shift_slot_bytes <= self.scap):
+    def slots(self, kind: str):
+        """(byte offset from the workspace's base of `kind`'s first slot,
+        bytes of one of its slots): the kinds' slots follow the header in
+        KINDS order."""
+        offset = self.header
+        for k in KINDS[:KINDS.index(kind)]:
+            offset += _slot_count(k, self.n) * self.slot_bytes[k]
+        return offset, self.slot_bytes[kind]
+
+    def reserve(self, nbytes: int, *kinds: str) -> None:
+        """Grow every rank's slots of each of `kinds` to at least `nbytes`.
+        Collective: every rank of the group must call it with the same
+        sizes, as the ring wrappers do."""
+        if all(nbytes <= self.slot_bytes[k] for k in kinds):
             return
-        caps = [max(old, -(-want // SLOT_ALIGN) * SLOT_ALIGN) for old, want in (
-            (self.cap, slot_bytes), (self.fcap, fused_slot_bytes), (self.scap, shift_slot_bytes))]
+        sizes = dict(self.slot_bytes)
+        for k in kinds:
+            sizes[k] = max(sizes[k], -(-nbytes // SLOT_ALIGN) * SLOT_ALIGN)
         self._release()
-        self.cap, self.fcap, self.scap = caps
+        self.slot_bytes = sizes
         own = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
         _call("kft_ws_alloc", self.device.index, self.nbytes, ctypes.byref(own), handle)
@@ -137,9 +158,9 @@ class Workspace:
         dist.all_gather_object(handles, handle.raw, group=self.group)
         self._handles = handles
         self._fresh_counts()  # the fresh flags and counters are zero
-        log.info("rank %d/%d: ring workspace %.1f MiB on %s (slots of %.1f MiB, fused %.1f MiB, "
-                 "shift %.1f MiB)", self.rank, self.n, self.nbytes / 2**20, self.device,
-                 self.cap / 2**20, self.fcap / 2**20, self.scap / 2**20)
+        log.info("rank %d/%d: ring workspace %.1f MiB on %s (MiB a slot: %s)", self.rank,
+                 self.n, self.nbytes / 2**20, self.device,
+                 ", ".join(f"{k} {b / 2**20:.1f}" for k, b in self.slot_bytes.items()))
 
     def peer(self, offset: int) -> int:
         """The workspace of rank + offset, mapped into this process on first use."""
@@ -181,7 +202,7 @@ class Workspace:
         _call("kft_ws_free", dev, self.own)
         self.own = None
         self._handles, self._peers = [], {}
-        self.cap = self.fcap = self.scap = 0
+        self.slot_bytes = dict.fromkeys(KINDS, 0)
 
     def close(self) -> None:
         self._release()

@@ -114,8 +114,8 @@ def _launch(kernel: Kernel, fn_name: str, ws: peer_memory.Workspace, kind: str,
     fn = _build.function(fn_name)
     seq, ack_want = ws.next_call(kind, blocks)
     with torch.cuda.device(device):
-        err = fn(*head, ws.own, ws.peer(peer), ws.n, ws.rank, ws.max_blocks, ws.cap, ws.fcap,
-                 ws.scap, chunk, blocks, seq, ack_want, peer_memory._timeout_ns(), ws.err_ptr,
+        err = fn(*head, ws.own, ws.peer(peer), ws.n, ws.rank, ws.max_blocks, *ws.slots(kind),
+                 chunk, blocks, seq, ack_want, peer_memory._timeout_ns(), ws.err_ptr,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: kernel launch failed with CUDA error {err}")
@@ -127,7 +127,7 @@ def _plain_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor, chun
     """B5 or B6: reserve plain slots for `chunk` elements of x's dtype, launch."""
     ws = peer_memory.workspace(group, x.device)
     ws.raise_if_failed()
-    ws.reserve(slot_bytes=chunk * x.element_size())
+    ws.reserve(chunk * x.element_size(), "rs", "ag")
     _launch(kernel, fn_name, ws, kind, x.device, chunk,
             _blocks(chunk, x.element_size(), ws.max_blocks), (*head, _DTYPE_CODES[x.dtype]))
 
@@ -222,7 +222,7 @@ def _fused_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor,
             "blocks of 8 to 256 values that divide 256)")
     ws = peer_memory.workspace(group, x.device)
     ws.raise_if_failed()
-    ws.reserve(fused_slot_bytes=chunk + chunk // cfg.block * 4)
+    ws.reserve(chunk + chunk // cfg.block * 4, "frs", "fag")
     blocks = max(1, min(ws.max_blocks, -(-(chunk // _SEG) // _SEGS_PER_BLOCK)))
     codec = (_SCHEMES[cfg.scheme], cfg.block, float(CODE_RECIP[cfg.scheme]))
     _launch(kernel, fn_name, ws, kind, x.device, chunk, blocks, (*head, *codec))

@@ -6,14 +6,15 @@ insert the collectives of each axis.  Here every rank is one process, so
 the mesh says where this rank sits and which ranks it talks to on each
 axis:
 
-  shape   the axis sizes, in AXIS_ORDER (dp outer, sp inner: an sp group
-          is consecutive ranks)
+  shape   the axis sizes, in AXIS_ORDER (dp outer, then fsdp, sp inner:
+          an sp group is consecutive ranks)
   coords  this rank's index on each axis
   groups  one torch.distributed group per axis, holding the ranks that
           differ from this one only on that axis (`distributed.sub_group`)
 
-Only the data axis (dp) and the sequence axis (sp) are ported; a mesh that
-names fsdp, pp, ep or tp raises NotImplementedError (ROADMAP.md A.6).
+The data axes (dp, and fsdp: `fsdp.FSDPTrainer` shards the model over
+it) and the sequence axis (sp) are ported; a mesh that names pp, ep or tp
+raises NotImplementedError (ROADMAP.md A.6).
 Without a process group the world is this process, and every group is
 None (a world of one).
 """
@@ -28,7 +29,7 @@ import torch.distributed as dist
 # Canonical axis order, outermost first, as in the JAX package.
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "ep", "tp")
 DATA_AXES = ("dp", "fsdp")  # gradient reduction axes
-PORTED_AXES = ("dp", "sp")
+PORTED_AXES = ("dp", "fsdp", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +63,7 @@ class MeshSpec:
 
 
 class Mesh:
-    """This rank's place in a dp x sp layout of the world's ranks."""
+    """This rank's place in a dp x fsdp x sp layout of the world's ranks."""
 
     def __init__(self, shape: Dict[str, int], rank: int, groups: Dict[str, Any]):
         self.shape = dict(shape)
@@ -105,6 +106,7 @@ def axis_partition(shape: Dict[str, int], axis: str):
 def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int) -> Mesh:
     """The mesh over every rank of the process group (this process alone
     without one).  `make_mesh(dp=-1)` is pure data parallelism;
+    `make_mesh(fsdp=4)` one model sharded over four ranks;
     `make_mesh(dp=1, sp=4)` one sequence over four ranks.  Collective:
     every rank makes the same mesh, in the same order."""
     from ..distributed import sub_group
@@ -114,7 +116,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int) -> Mesh:
     later = [a for a, _ in spec.axes if a not in PORTED_AXES]
     if later:
         raise NotImplementedError(
-            f"mesh axes {later} are not ported yet (dp and sp are; see ROADMAP.md A.6)")
+            f"mesh axes {later} are not ported yet (dp, fsdp and sp are; see ROADMAP.md A.6)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape = spec.resolve(world)
     if world == 1:

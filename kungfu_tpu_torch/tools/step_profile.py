@@ -5,6 +5,8 @@
         --impl pallas_ring --bucket-mib 256 [--compression int8] [--n-kv-heads 8]
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
         --sp 4 --seq-len 8192 --batch 2 --impl pallas_ring --bucket-mib 256
+    python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
+        --fsdp 4 --batch 8
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
 attention; `--n-kv-heads 8` its GQA variant) with DataParallelTrainer +
@@ -18,7 +20,11 @@ N` the ranks form a mesh of dp = world / N x sp = N and train the
 flagship at `--seq-len` positions sequence-parallel (ring attention,
 MeshTrainer, the gradients summed with `--impl`), as chip_smoke.py's
 phase sp does (flagship_sp_step): each rank holds its rows and its
-chunk of every sequence.
+chunk of every sequence.  With `--fsdp N` the ranks form a mesh of dp =
+world / N x fsdp = N and train the flagship with FSDPTrainer (every
+parameter chunked N ways, gathered through the ring all-gather B6 and its
+gradient reduce-scattered through B5), as chip_smoke.py's phase fsdp does
+(flagship_fsdp_step): each rank holds its rows of the batch of `--batch`.
 Prints the step time on the host clock (with and without the profiler),
 the peak memory, the device time of every kernel
 summed by category (the port's flash kernels, matrix products, the
@@ -44,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 from .. import distributed
 from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
                                   lm_loss_shard)
+from ..fsdp import FSDPTrainer
 from ..optimizers import adamw, synchronous_sgd
 from ..plan import make_mesh
 from ..train import DataParallelTrainer
@@ -124,6 +131,19 @@ def flagship_sp_step(batch: int, seq_len: int, sp: int, seed: int, device="cuda"
     return cfg, trainer, trainer.init(model), shard
 
 
+def flagship_fsdp_step(batch: int, fsdp: int, seed: int, device="cuda"):
+    """The flagship's FSDP step: the world's ranks as a mesh of dp = world
+    / fsdp x fsdp, `flagship_model` chunked by FSDPTrainer(lm_loss,
+    adamw(3e-4, b1=0.9, b2=0.95)), and this rank's rows of the `batch`
+    sequences of `flagship_tokens`.  Returns (cfg, trainer, state, rows)."""
+    cfg, model = flagship_model(seed, device)
+    trainer = FSDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4, b1=0.9, b2=0.95),
+                          make_mesh(dp=-1, fsdp=fsdp), device=device)
+    state = trainer.init(model)
+    rows = trainer.shard_batch(flagship_tokens(cfg, batch, seed, device))
+    return cfg, trainer, state, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -138,6 +158,8 @@ def main() -> int:
     ap.add_argument("--sp", type=int, default=1,
                     help="ranks of a sequence-parallel group (ring attention, MeshTrainer)")
     ap.add_argument("--seq-len", type=int, default=2048, help="positions of a sequence (--sp)")
+    ap.add_argument("--fsdp", type=int, default=0,
+                    help="ranks of an fsdp group (FSDPTrainer; 0: data parallel)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
@@ -145,7 +167,10 @@ def main() -> int:
     world = distributed.init_distributed(device="cuda")
     rank = dist.get_rank() if world > 1 else 0
     bucket_bytes = (args.bucket_mib << 20) or None
-    if args.sp > 1:
+    if args.fsdp:
+        cfg, trainer, state, tokens = flagship_fsdp_step(args.batch, args.fsdp, args.seed)
+        shard = f"batch {tokens.shape[0]}, fsdp={args.fsdp}"
+    elif args.sp > 1:
         cfg, trainer, state, tokens = flagship_sp_step(args.batch, args.seq_len, args.sp,
                                                        args.seed, impl=args.impl,
                                                        bucket_bytes=bucket_bytes)

@@ -27,8 +27,9 @@ applies the same update with its plain torch.optim optimizer (`tx`,
 params -> optimizer), so the replicas stay identical.  The reported loss
 is the sum of the shares over the ranks.
 
-The JAX trainer's other axes (fsdp, tp, ep, pp), its rules table and its
-per-step loss rng are not ported (ROADMAP.md A.6).
+The JAX trainer's other axes (tp, ep, pp), its rules table and its
+per-step loss rng are not ported (ROADMAP.md A.6); a mesh with an fsdp
+axis trains with `fsdp.FSDPTrainer`.
 """
 from __future__ import annotations
 
@@ -89,6 +90,9 @@ class MeshTrainer(DataParallelTrainer):
         self.mesh = mesh
         self.impl = impl
         self.bucket_bytes = bucket_bytes
+        if self.mesh.shape.get("fsdp", 1) > 1:
+            raise ValueError("MeshTrainer replicates the model: a mesh with an fsdp axis "
+                             "trains with fsdp.FSDPTrainer")
         if self.mesh.size != self.world:
             raise ValueError(f"mesh {self.mesh.shape} does not cover the {self.world} ranks")
 

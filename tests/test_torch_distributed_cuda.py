@@ -13,6 +13,13 @@ which is the same in either order, and halving is exact, so the two means
 are the same numbers.  The ranks share the one card there is (a gloo
 group) or have a card each (NCCL).
 
+FSDPTrainer on 4 ranks (make_mesh(fsdp=4): every parameter chunked 4
+ways, gathered through the ring all-gather B6 and its gradient
+reduce-scattered through B5; the ranks share the card or have one each)
+against one process training on the whole batch: parameters to 1e-5
+absolute after three AdamW steps, f32, for the same reason as the NCCL
+case (the reduce-scatter sums four shards' gradients in the ring's order).
+
 Marked `cuda`; skips without a card, and the NCCL case without two (the
 check runs in a fixture).
 """
@@ -77,6 +84,42 @@ WORKER = textwrap.dedent("""
 """)
 
 
+FSDP_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.fsdp import FSDPTrainer
+    from kungfu_tpu_torch.models import transformer as tt
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import adamw
+    from kungfu_tpu_torch.plan import make_mesh
+
+    common, lr, steps, per_rank, world, impl = eval(sys.argv[2])
+    assert distributed.init_distributed(device="cuda") == world
+    cfg = tt.TransformerConfig(**common)
+    model = tt.TransformerLM(cfg, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    trainer = FSDPTrainer(lambda m, b: tt.lm_loss(m(b), b), adamw(lr), make_mesh(fsdp=world),
+                          device="cuda")
+    state = trainer.init(model)  # every rank: the same weights, its quarter kept
+    leaves = len(trainer._shapes)
+    assert all(p.numel() == 0 for p in model.parameters())
+    tokens = torch.from_numpy(np.load(sys.argv[1] + ".tokens.npy")).long()
+    batch = trainer.shard_batch(tokens)
+    for _ in range(steps):
+        state, m = trainer.train_step(state, batch)
+    assert RC.RING_AG.launches == RC.RING_RS.launches == steps * leaves
+    assert all(k.launches == steps * cfg.n_layers
+               for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV))
+    out = {k: v.cpu().numpy() for k, v in trainer.eval_params(state).items()}
+    rank = torch.distributed.get_rank()
+    np.savez(sys.argv[1] + f".{rank}.npz", loss=m["loss"].item(), **out)
+    distributed.shutdown_distributed()
+""")
+
+
 @pytest.fixture(scope="module")
 def cards():
     if not torch.cuda.is_available():
@@ -94,7 +137,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _train_ranks(world, impl, tmp_path):
+def _train_ranks(world, impl, tmp_path, worker=WORKER):
     """Every rank's final parameters and loss, checked to be the same on
     every rank; and the tokens of the whole batch."""
     tokens = np.random.default_rng(0).integers(
@@ -105,7 +148,7 @@ def _train_ranks(world, impl, tmp_path):
     peers = ",".join(f"127.0.0.1:{port + r}" for r in range(world))
     args = repr((COMMON, LR, STEPS, PER_RANK, world, impl))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(tmp_path / "run"), args],
+        [sys.executable, "-c", worker, str(tmp_path / "run"), args],
         env=dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,
                  PYTHONPATH=REPO),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -119,10 +162,8 @@ def _train_ranks(world, impl, tmp_path):
     return results[0], tokens
 
 
-def test_nccl_ssgd_matches_one_process(cards, tmp_path):
-    if cards < 2:
-        pytest.skip("needs two CUDA cards")
-    result, tokens = _train_ranks(min(cards, 4), "pmean", tmp_path)
+def _one_process(result, tokens):
+    """Hold `result` against one process training on the whole batch."""
     cfg = tt.TransformerConfig(**COMMON)
     model = tt.TransformerLM(cfg, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(0))
@@ -134,6 +175,16 @@ def test_nccl_ssgd_matches_one_process(cards, tmp_path):
     for key, want in trainer.eval_params(state).items():
         np.testing.assert_allclose(result[key], want.cpu().numpy(), atol=1e-5, err_msg=key)
     assert abs(float(result["loss"]) - m["loss"].item()) < 1e-5
+
+
+def test_nccl_ssgd_matches_one_process(cards, tmp_path):
+    if cards < 2:
+        pytest.skip("needs two CUDA cards")
+    _one_process(*_train_ranks(min(cards, 4), "pmean", tmp_path))
+
+
+def test_fsdp_on_four_ranks_matches_one_process(cards, tmp_path):
+    _one_process(*_train_ranks(4, None, tmp_path, FSDP_WORKER))
 
 
 def test_pallas_ring_ssgd_matches_pmean(cards, tmp_path):

@@ -173,9 +173,10 @@ def test_config_refusals():
         tt.TransformerConfig(attention="ring", window=8)
     with pytest.raises(NotImplementedError, match="A.6"):
         tt.TransformerConfig(attention="ulysses")
-    for axis in ("fsdp", "pp", "ep", "tp"):
+    for axis in ("pp", "ep", "tp"):
         with pytest.raises(NotImplementedError, match="A.6"):
             pm.make_mesh(**{axis: 1})
+    assert pm.make_mesh(fsdp=1).shape == {"fsdp": 1}  # ported: fsdp.FSDPTrainer
     with pytest.raises(ValueError, match="unknown axes"):
         pm.make_mesh(xp=1)
 
