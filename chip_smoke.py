@@ -13,7 +13,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  3. kernels  each flash kernel against its plain PyTorch version at the
              flagship attention shape (B=8, H=16, L=2048, D=64, bf16,
              causal), plus the ragged L=2000, window=256 and non-causal
-             cases, and the backward (B2, B3) with a non-zero lse
+             cases, head dims 16 and 128 at B=2 (the GQA shape too),
+             and the backward (B2, B3) with a non-zero lse
              cotangent, causal and not, against the plain blocked
              backward (ring attention's full hops and merges); times of
              kernel, plain version and the library call
@@ -308,12 +309,15 @@ def phase_kernels(seed: int):
     from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
 
     B, H, D, dtype = 8, 16, 64, torch.bfloat16
-    scale = D ** -0.5
     errs = {k.name: 0.0 for k in flash.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for L, window, causal in ((2048, 0, True), (2000, 0, True), (2048, 256, True),
-                              (2048, 0, False)):
-        q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)
+    # (L, window, causal, batch, head dim): the flagship's, then head dims 16
+    # and 128 (ROADMAP C.1) at batch 2
+    for L, window, causal, nb, d in ((2048, 0, True, B, D), (2000, 0, True, B, D),
+                                     (2048, 256, True, B, D), (2048, 0, False, B, D),
+                                     (2048, 0, True, 2, 16), (2000, 256, True, 2, 128)):
+        scale = d ** -0.5
+        q, k, v, do = (torch.randn(nb, L, H, d, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
         o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
         o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
@@ -323,7 +327,7 @@ def phase_kernels(seed: int):
         dq_ref, dk_ref, dv_ref = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale,
                                                        causal, 128, window)
         torch.cuda.synchronize()
-        case = f"L={L} window={window}" + ("" if causal else " non-causal")
+        case = f"B={nb} L={L} D={d} window={window}" + ("" if causal else " non-causal")
         limit = REL_LIMIT[dtype]
         rel = {}
         for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
@@ -347,7 +351,7 @@ def phase_kernels(seed: int):
     # the backward with a non-zero lse cotangent, folded into delta (ring
     # attention differentiates its merges through lse): the kernels against
     # the plain blocked backward, both through the autograd dispatcher
-    L = 2048
+    L, scale = 2048, D ** -0.5
     for causal in (True, False):
         q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
@@ -408,9 +412,12 @@ def phase_kernels(seed: int):
     }
     bounds = {n: _bound(f, b, dtype) for n, (f, b) in work.items()}
     for n in ms:
+        lib = (f"; library scaled_dot_product_attention forward {lib_fwd:.3f} ms"
+               if n == "flash_fwd" else f"; library SDPA backward (dq, dk, dv) {lib_bwd:.3f} ms")
         print(f"[kernels] {n}: {ms[n]:.3f} ms, plain {plain[n]:.3f} ms, bound "
               f"{bounds[n][0]:.4f} ms ({bounds[n][1]}: {work[n][0] / 1e9:.1f} GFLOP, "
-              f"{work[n][1] / 1e6:.1f} MB), {work[n][0] / ms[n] / 1e9:.1f} TFLOP/s achieved")
+              f"{work[n][1] / 1e6:.1f} MB), {work[n][0] / ms[n] / 1e9:.1f} TFLOP/s achieved "
+              f"({100 * bounds[n][0] / ms[n]:.1f}% of the bound){lib}")
     print(f"[kernels] library scaled_dot_product_attention: forward {lib_fwd:.3f} ms, "
           f"backward (dq, dk, dv in one call) {lib_bwd:.3f} ms; plain backward computes dq, "
           f"dk and dv in one pass ({plain_bwd:.3f} ms)")
@@ -438,19 +445,21 @@ def phase_kernels_gqa(seed: int):
     from kungfu_tpu_torch.utils.compare import LSE_ATOL, REL_LIMIT, rel_errs
 
     B, H, HKV, D, dtype = 8, 16, 8, 64, torch.bfloat16
-    scale = D ** -0.5
     limit = REL_LIMIT[dtype]
     err = 0.0
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
 
-    def inputs(L):
+    def inputs(L, nb=B, d=D):
         def rnd(h):
-            return torch.randn(B, L, h, D, generator=gen, device="cuda").to(dtype)
+            return torch.randn(nb, L, h, d, generator=gen, device="cuda").to(dtype)
 
         return rnd(H), rnd(HKV), rnd(HKV), rnd(H)
 
-    for L, window in ((2048, 0), (2000, 0), (2048, 256)):
-        q, k, v, do = inputs(L)
+    # the GQA flagship's shapes, then head dims 16 and 128 (ROADMAP C.1) at batch 2
+    for L, window, nb, d in ((2048, 0, B, D), (2000, 0, B, D), (2048, 256, B, D),
+                             (2048, 0, 2, 16), (2000, 256, 2, 128)):
+        scale = d ** -0.5
+        q, k, v, do = inputs(L, nb, d)
         o, lse = flash.flash_fwd(q, k, v, scale, True, window)
         o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, True, window)
         delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -458,7 +467,7 @@ def phase_kernels_gqa(seed: int):
         dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True, window)
         refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True, 128, window)
         torch.cuda.synchronize()
-        case = f"GQA H={H} Hkv={HKV} L={L} window={window}"
+        case = f"GQA B={nb} H={H} Hkv={HKV} L={L} D={d} window={window}"
         rel = {}
         for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]),
                                 ("dv", dv, refs[2])):
@@ -472,7 +481,7 @@ def phase_kernels_gqa(seed: int):
               + ", ".join(f"{n} {w:.3g} {b:.3g}" for n, (w, b) in rel.items())
               + f" (bf16, limit {limit}); lse max abs err {e_lse:.3g}; dk/dv max abs err "
               f"{max(max_err(dk, refs[1]), max_err(dv, refs[2])):.3g}")
-        if L == 2048 and not window:
+        if L == 2048 and not window and d == D:
             dk_bad, dv_bad = _dkv_fault(q, k, v, do, lse, delta, scale, refs[1], refs[2])
             worst = max(rel_errs(dk_bad, refs[1])[1], rel_errs(dv_bad, refs[2])[1])
             check(worst > limit, f"the check passed a planted B4 fault ({worst:.3g})")
@@ -480,7 +489,7 @@ def phase_kernels_gqa(seed: int):
                   f">= L/2) rejected, worst block {worst:.3g} > {limit}")
         del o_ref, refs
 
-    L = 2048
+    L, scale = 2048, D ** -0.5
     q, k, v, do = inputs(L)
     o, lse = flash.flash_fwd(q, k, v, scale, True)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -500,7 +509,8 @@ def phase_kernels_gqa(seed: int):
     print(f"[kernels] {name} (B4) at B={B} H={H} Hkv={HKV} L={L} D={D} bf16 causal: "
           f"{ms:.3f} ms, plain backward (dq, dk, dv) {plain:.3f} ms, bound {bound[0]:.4f} ms "
           f"({bound[1]}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s achieved; library scaled_dot_product_attention"
+          f"{flops / ms / 1e9:.1f} TFLOP/s achieved ({100 * bound[0] / ms:.1f}% of the bound); "
+          f"library scaled_dot_product_attention"
           f"(enable_gqa=True) backward (dq, dk, dv in one call) {lib:.3f} ms")
     return {name: err}, {name: ms}, {name: plain}, {name: lib}, {name: bound}
 

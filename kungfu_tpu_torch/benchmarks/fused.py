@@ -13,7 +13,7 @@ Two measurements, with the JAX record's keys:
              weight), each row with `scaling.step_attribution` of both
              schedules against the control
   fsdp_step  a tiny FSDP transformer step (2 layers, d_model 64 in 4 heads,
-             full attention, f32), `FSDPTrainer(dma_collectives=True)` (the
+             flash attention on a card, full on the CPU, f32), `FSDPTrainer(dma_collectives=True)` (the
              unshard and the gradient reduce-scatter on B6/B5) against False
              (the same step on torch.distributed), and the same model's
              one-process step as the compute control
@@ -147,9 +147,9 @@ def _bench_fsdp_step(steps: int, warmup: int, device: torch.device) -> Optional[
     n = dist.get_world_size()
     if n < 2:
         return None
-    # heads of 16: full attention, since the flash kernels take heads of 64 and 128
+    # attention "auto", as the JAX row: the flash kernels on a card (heads of 16)
     cfg = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=256,
-                            max_len=32, dtype=torch.float32, attention="full")
+                            max_len=32, dtype=torch.float32)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2 * n, 32)).astype(np.int64))
 

@@ -2,13 +2,17 @@
 //
 // Layout contract with ops/flash.py: q, o, dq, do are [B, L, H, D]; k, v,
 // dk, dv are [B, L, Hkv, D]; lse and delta are [B, H, L] float32.  All are
-// contiguous, D is 64 or 128, and the element type is float, __half or
-// __nv_bfloat16.  Every kernel runs 128 threads (4 warps) per block.
+// contiguous, D is a multiple of 16 up to 128, and the element type is
+// float, __half or __nv_bfloat16.  Tiles in shared memory are DP = 64 or
+// 128 columns wide; a head dim D < DP is padded there with zero columns,
+// which are never stored.
 //
-// Products run on tensor cores through WMMA 16x16x16 tiles for the 16-bit
-// types (operands in the input type, float accumulation) and as float FMA
-// loops for float inputs.  Tiles are staged in shared memory with padded
-// rows; each warp computes whole 16x16 output tiles.
+// The pieces below serve the forward kernel and the float backward: 128
+// threads (4 warps) a block, products through WMMA 16x16x16 tiles for the
+// 16-bit types (operands in the input type, float accumulation) and as
+// float FMA loops for float inputs, tiles staged in shared memory with
+// padded rows, each warp computing whole 16x16 output tiles.  The 16-bit
+// backward runs on wgmma (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,19 +76,21 @@ __device__ __forceinline__ bool attend(int qp, int kp, int L, int causal, int wi
 }
 
 // Copy rows [r0, r0 + R) of a [nrows, D] matrix (row i at g + i * stride)
-// into shared memory with leading dimension ld, 16 bytes per thread and
-// step; rows past nrows are zero-filled, so the ragged tail needs no
-// padded copy in device memory.
-template <typename T, int R, int D>
+// into DP columns of shared memory with leading dimension ld, 16 bytes per
+// thread and step; rows past nrows and columns past D are zero-filled, so
+// neither the ragged tail nor a narrow head needs a padded copy in device
+// memory.
+template <typename T, int R, int DP>
 __device__ __forceinline__ void load_rows(T* s, int ld, const T* g, int64_t stride, int r0,
-                                          int nrows) {
+                                          int nrows, int D) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+  constexpr int kPerRow = DP / kVec;
   for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(g + (r0 + r) * stride + c);
+    if (r0 + r < nrows && c < D)
+      val = *reinterpret_cast<const uint4*>(g + (r0 + r) * stride + c);
     *reinterpret_cast<uint4*>(s + r * ld + c) = val;
   }
 }
@@ -94,15 +100,16 @@ __device__ __forceinline__ void load_vec(float* s, const float* g, int r0, int n
   for (int i = threadIdx.x; i < n; i += kThreads) s[i] = (r0 + i < nrows) ? g[r0 + i] : 0.f;
 }
 
-// Write rows [r0, r0 + R) of a float accumulator (leading dim lda) times
-// `mul` into a [nrows, D] matrix of T; rows past nrows are dropped.
-template <typename T, int R, int D>
-__device__ __forceinline__ void store_rows(T* g, int64_t stride, int r0, int nrows,
+// Write rows [r0, r0 + R) x columns [0, D) of a float accumulator
+// (leading dim lda, DP columns) times `mul` into a [nrows, D] matrix of T;
+// rows past nrows and the padded columns are dropped.
+template <typename T, int R, int DP>
+__device__ __forceinline__ void store_rows(T* g, int64_t stride, int r0, int nrows, int D,
                                            const float* acc, int lda, float mul) {
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    if (r0 + r < nrows) g[(r0 + r) * stride + c] = from_f<T>(acc[r * lda + c] * mul);
+  for (int i = threadIdx.x; i < R * DP; i += kThreads) {
+    const int r = i / DP;
+    const int c = i % DP;
+    if (r0 + r < nrows && c < D) g[(r0 + r) * stride + c] = from_f<T>(acc[r * lda + c] * mul);
   }
 }
 

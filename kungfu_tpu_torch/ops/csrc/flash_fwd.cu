@@ -14,6 +14,10 @@
 // does.  It is the simple first version: WMMA tiles staged through shared
 // memory, no asynchronous copies, no wgmma/TMA; those are later work.
 //
+// Head dims: any multiple of 16 up to 128; tiles are 64 or 128 columns
+// wide (DP), a narrower head padded with zero columns in shared memory,
+// which are not stored.
+//
 // Grid: (ceil(L / 64), B * H); one block owns 64 query rows and writes
 // them alone, so no atomics.  Warp w owns rows 16w..16w+15 end to end
 // (scores, softmax, PV), so only the K/V tile loads need the whole block.
@@ -24,19 +28,19 @@ namespace kft {
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // key rows per inner step
 
-template <typename T, int D>
+template <typename T, int DP>
 constexpr size_t fwd_smem_bytes() {
-  return (3 * 64 * Ld<D>::op + 64 * kLdProb) * sizeof(T) +
-         (64 * kLdScore + 64 * Ld<D>::acc) * sizeof(float);
+  return (3 * 64 * Ld<DP>::op + 64 * kLdProb) * sizeof(T) +
+         (64 * kLdScore + 64 * Ld<DP>::acc) * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int L,
+                     T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int L, int D,
                      float scale, int causal, int window) {
-  constexpr int LDT = Ld<D>::op;
-  constexpr int LDO = Ld<D>::acc;
+  constexpr int LDT = Ld<DP>::op;
+  constexpr int LDO = Ld<DP>::acc;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + kBQ * LDT;
@@ -58,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + ((int64_t)b * L * Hkv + hk) * D;
   const T* vb = v + ((int64_t)b * L * Hkv + hk) * D;
 
-  load_rows<T, kBQ, D>(Qs, LDT, qb, q_stride, q0, L);
+  load_rows<T, kBQ, DP>(Qs, LDT, qb, q_stride, q0, L, D);
   for (int i = threadIdx.x; i < kBQ * LDO; i += kThreads) Oacc[i] = 0.f;
 
   float m_i[16], l_i[16];
@@ -78,15 +82,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = lo; j < hi; ++j) {
     const int k0 = j * kBK;
     __syncthreads();  // the previous step is done with Ks / Vs
-    load_rows<T, kBK, D>(Ks, LDT, kb, kv_stride, k0, L);
-    load_rows<T, kBK, D>(Vs, LDT, vb, kv_stride, k0, L);
+    load_rows<T, kBK, DP>(Ks, LDT, kb, kv_stride, k0, L, D);
+    load_rows<T, kBK, DP>(Vs, LDT, vb, kv_stride, k0, L, D);
     __syncthreads();
 
     // S[rows, 64] = Q K^T for this warp's 16 rows
 #pragma unroll
     for (int tn = 0; tn < kBK / 16; ++tn) {
-      warp_mma<T, true, false, D>(S + row0 * kLdScore + tn * 16, kLdScore, Qs + row0 * LDT, LDT,
-                                  Ks + tn * 16 * LDT, LDT, false);
+      warp_mma<T, true, false, DP>(S + row0 * kLdScore + tn * 16, kLdScore, Qs + row0 * LDT,
+                                   LDT, Ks + tn * 16 * LDT, LDT, false);
     }
     __syncwarp();
 
@@ -107,13 +111,13 @@ __global__ void __launch_bounds__(kThreads)
       m_i[rr] = m_new;
       Ps[r * kLdProb + lane] = from_f<T>(p0);
       Ps[r * kLdProb + lane + 32] = from_f<T>(p1);
-      for (int c = lane; c < D; c += 32) Oacc[r * LDO + c] *= corr;
+      for (int c = lane; c < DP; c += 32) Oacc[r * LDO + c] *= corr;
     }
     __syncwarp();
 
-    // Oacc[rows, D] += P[rows, 64] V[64, D]
+    // Oacc[rows, DP] += P[rows, 64] V[64, DP]
 #pragma unroll
-    for (int tn = 0; tn < D / 16; ++tn) {
+    for (int tn = 0; tn < DP / 16; ++tn) {
       warp_mma<T, true, true, kBK>(Oacc + row0 * LDO + tn * 16, LDO, Ps + row0 * kLdProb,
                                    kLdProb, Vs + tn * 16, LDT, true);
     }
@@ -134,18 +138,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-               int Hkv, int L, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
+               int Hkv, int L, int D, float scale, int causal, int window, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<T, DP>();
+  auto kern = flash_fwd_kernel<T, DP>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), static_cast<T*>(o), lse, H,
-                                         Hkv, L, scale, causal, window);
+                                         Hkv, L, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -153,9 +157,10 @@ template <typename T>
 int dispatch_fwd(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
                  int H, int Hkv, int L, float scale, int causal, int window,
                  cudaStream_t stream) {
-  if (D == 64) return launch_fwd<T, 64>(q, k, v, o, lse, B, H, Hkv, L, scale, causal, window, stream);
-  if (D == 128) return launch_fwd<T, 128>(q, k, v, o, lse, B, H, Hkv, L, scale, causal, window, stream);
-  return (int)cudaErrorInvalidValue;
+  if (D < 16 || D > 128 || D % 16) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_fwd<T, 64>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, stream);
+  return launch_fwd<T, 128>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, stream);
 }
 
 }  // namespace kft

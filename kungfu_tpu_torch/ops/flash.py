@@ -20,6 +20,12 @@ version.  The plain versions are ports of `_fwd_reference` and
 holds the kernels against them.  Each kernel's `launches` count says how
 often the wrapper launched it.
 
+The kernels take head dims 16 to 128 in steps of 16 (`HEAD_DIMS`; a
+narrower head is padded with zero columns in shared memory); any other
+head dim raises NotImplementedError naming ROADMAP C.1, where the Pallas
+kernels take any.  bf16 and fp16 run the backward on wgmma, f32 on float
+FMA loops.
+
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.
 """
@@ -34,7 +40,7 @@ from ..compat import kernel_mode
 NEG_INF = -1e30
 _PLAIN_BLOCK_K = 128  # key block of the wrappers' plain backward on the CPU
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = tuple(range(16, 129, 16))  # what the kernels take (ROADMAP C.1)
 
 
 class Kernel:
@@ -162,12 +168,20 @@ def _plain_bwd_blhd(q, k, v, g, lse, delta, scale, causal, block_k, window):
 # q, o, dq, do: [B, L, H, D]; k, v, dk, dv: [B, L, Hkv, D]; lse, delta:
 # [B, H, L] f32.
 
+def check_head_dim(name: str, d: int) -> None:
+    """The kernels take head dims 16-128 in steps of 16 (narrower ones
+    padded with zero columns in shared memory); the rest raise."""
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name}: head dim {d}: the CUDA flash kernels take multiples of 16 "
+            f"from 16 to 128 (ROADMAP C.1)")
+
+
 def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
     q = tensors[0]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (bf16, fp16 or f32)")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} not supported {_HEAD_DIMS}")
+    check_head_dim(name, q.shape[-1])
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"{name}: B*H = {q.shape[0] * q.shape[2]} exceeds the grid")
     for t in tensors:
@@ -177,6 +191,8 @@ def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
             raise ValueError(f"{name}: mixed dtypes {t.dtype} and {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous [B, L, H, D]")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start 16-byte aligned")
     for t in f32_tensors:
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: lse/delta must be contiguous f32 on {q.device}")

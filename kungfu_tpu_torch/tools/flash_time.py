@@ -5,11 +5,16 @@
 Builds the kernels of the checkout it runs from, then times each kernel's
 wrapper at B=8, H=16, L=2048, D=64, bf16, causal: the forward, dq and the
 MHA dk/dv kernel (B3), and, where the checkout has it, the GQA dk/dv kernel
-(B4) at Hkv=8.  Each reading is the mean of `--iters` back-to-back launches
-(CUDA events); every kernel is read `--repeats` times, in turn.  Prints the
-card's name and power limit, then one JSON line.  To compare two versions
-of a kernel, run it from both checkouts in one call to the card, in the
-order old, new, new, old.  Needs a CUDA card.
+(B4) at Hkv=8.  Beside them, as yardsticks the port never calls, it times
+PyTorch's scaled_dot_product_attention on the same inputs: its forward,
+its backward (dq, dk and dv in one call) and its GQA backward
+(enable_gqa=True).  Each reading is the mean of `--iters` back-to-back
+launches (CUDA events); every kernel is read `--repeats` times, in turn.
+Prints the card's name and power limit, then one JSON line with the
+readings, each kernel's bound (the larger of its FLOPs over 989 TFLOP/s
+and its bytes over 3.35 TB/s) and its best reading's TFLOP/s.  To compare
+two versions of a kernel, run it from both checkouts in one call to the
+card, in the order old, new, new, old.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -18,6 +23,10 @@ import json
 import subprocess
 
 import torch
+import torch.nn.functional as F
+
+PEAK_FLOPS = 989e12  # bf16 dense, H100 SXM
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def time_ms(fn, iters: int) -> float:
@@ -55,21 +64,44 @@ def main(argv=None) -> int:
         delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         return q, k, v, do, lse, delta
 
+    def sdpa_bwd(q, k, v, do, gqa):
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=gqa)
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)
+
     q, k, v, do, lse, delta = inputs(H)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     fns = {
         "flash_fwd": lambda: flash.flash_fwd(q, k, v, scale, True),
         "flash_bwd_dq": lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True),
         "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True),
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        "sdpa_bwd": sdpa_bwd(q, k, v, do, False),
     }
+    g = inputs(H // 2)
     if hasattr(flash, "FLASH_BWD_DKV_GQA"):
-        g = inputs(H // 2)
         fns["flash_bwd_dkv_gqa"] = lambda: flash.flash_bwd_dkv(*g, scale, True)
+    fns["sdpa_bwd_gqa"] = sdpa_bwd(*g[:4], True)
     ms = {name: [] for name in fns}
     for _ in range(args.repeats):
         for name, fn in fns.items():
             ms[name].append(round(time_ms(fn, args.iters), 4))
+
+    pairs = B * H * L * (L + 1) // 2  # causal (query, key) pairs
+    act, row = B * L * H * D * 2, B * H * L * 4
+    work = {  # (FLOPs, bytes: each input read once, each output written once)
+        "flash_fwd": (4 * D * pairs, 4 * act + row),
+        "flash_bwd_dq": (6 * D * pairs, 5 * act + 2 * row),
+        "flash_bwd_dkv": (8 * D * pairs, 6 * act + 2 * row),
+        "flash_bwd_dkv_gqa": (8 * D * pairs, 4 * act + 2 * row),
+    }
+    bound = {n: round(max(f / PEAK_FLOPS, b / PEAK_BYTES_PER_S) * 1e3, 4)
+             for n, (f, b) in work.items() if n in ms}
+    tflops = {n: round(work[n][0] / min(ms[n]) / 1e9, 1) for n in bound}
     print(json.dumps({"card": card, "shape": {"B": B, "H": H, "L": L, "D": D, "dtype": "bf16",
-                                              "causal": True}, "ms": ms}))
+                                              "causal": True, "Hkv_gqa": H // 2},
+                      "ms": ms, "bound_ms": bound, "tflops": tflops}))
     return 0
 
 

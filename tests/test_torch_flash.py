@@ -79,6 +79,57 @@ def test_flash_with_lse_matches_pallas(kflash, l, h, hkv, causal, window):
                                    err_msg=f"d{name}")
 
 
+HEAD_DIM_CASES = [
+    # (L, H, Hkv, causal, window)
+    (200, 2, 2, True, 0),
+    (200, 2, 2, True, 64),
+    (136, 2, 2, False, 0),
+    (200, 4, 2, True, 0),
+    (200, 4, 2, True, 64),
+]
+
+
+@pytest.mark.parametrize("l,h,hkv,causal,window", HEAD_DIM_CASES)
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_head_dims_match_pallas(kflash, d, l, h, hkv, causal, window):
+    """Head dims besides 64 (fault C.1): the port's flash path and its
+    gradients against the interpreted Pallas kernels, MHA and GQA, causal,
+    windowed and not; f32, 2e-5 as above."""
+    q, k, v, g_o, g_lse = _inputs(l, h, hkv, d=d, seed=d)
+    kw = dict(causal=causal, window=window or None, block_q=64, block_k=64)
+
+    def jax_fn(q, k, v):
+        return kflash.flash_attention_with_lse(q, k, v, interpret=True,
+                                               backward="pallas", **kw)
+
+    (o_ref, lse_ref), vjp = jax.vjp(jax_fn, *map(jnp.asarray, (q, k, v)))
+    grads_ref = vjp((jnp.asarray(g_o), jnp.asarray(g_lse)))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tflash.flash_attention_with_lse(tq, tk, tv, **kw)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv),
+                                (torch.from_numpy(g_o), torch.from_numpy(g_lse)))
+
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_ref), atol=ATOL)
+    for name, got, want in zip("qkv", grads, grads_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", list(range(16, 129, 16)))
+def test_kernels_take_head_dims_16_to_128(d):
+    assert d in tflash.HEAD_DIMS
+    tflash.check_head_dim("flash_fwd", d)
+
+
+@pytest.mark.parametrize("d", [8, 40, 144])
+def test_other_head_dims_name_roadmap_c1(d):
+    assert d not in tflash.HEAD_DIMS
+    with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
+        tflash.check_head_dim("flash_fwd", d)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_pallas(kflash, causal):
     """`flash_attention` (o only; no lse cotangent) and its gradients."""

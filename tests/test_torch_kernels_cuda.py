@@ -67,6 +67,11 @@ CASES = [
     (1, 300, 2, 2, 128, False, 0),
     (2, 256, 2, 2, 64, True, 96),  # sliding window
     (1, 200, 2, 2, 128, True, 50),
+    (1, 130, 2, 2, 64, True, 0),  # a last block whose second 64 rows are all past L
+    (1, 200, 2, 2, 16, True, 0),  # narrow heads pad to 64 columns in shared memory
+    (2, 256, 2, 2, 32, True, 96),
+    (1, 333, 2, 2, 96, False, 0),  # and 96 to 128
+    (1, 300, 2, 2, 96, True, 50),
 ]
 
 
@@ -95,10 +100,14 @@ GQA_CASES = [
     (1, 200, 4, 1, 64, True, 0),  # ragged, one kv head for four query heads
     (2, 256, 4, 2, 64, True, 96),  # sliding window
     (1, 333, 4, 2, 128, False, 0),
+    (1, 200, 4, 2, 16, True, 0),
+    (2, 256, 4, 2, 32, True, 96),
+    (1, 333, 4, 1, 96, True, 0),
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "f32"])
 @pytest.mark.parametrize("b,l,h,hkv,d,causal,window", GQA_CASES)
 def test_gqa_forward_and_dq_kernels(card, dtype, b, l, h, hkv, d, causal, window):
     """B1 and B2 index-map the GQA kv heads; B4 sums each kv head's
@@ -194,9 +203,15 @@ def test_xla_backward_takes_the_plain_arm(card):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    q, k, v, _ = _inputs(card, 1, 64, 2, 2, 32, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash.flash_fwd(q, k, v, 0.1, True)
+    for d in (40, 144):
+        q, k, v, do = _inputs(card, 1, 64, 2, 2, d, torch.bfloat16)
+        lse = torch.zeros(1, 2, 64, device=card)
+        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
+            flash.flash_fwd(q, k, v, 0.1, True)
+        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
+            flash.flash_bwd_dq(q, k, v, do, lse, lse, 0.1, True)
+        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
+            flash.flash_bwd_dkv(q, k, v, do, lse, lse, 0.1, True)
     q, k, v, _ = _inputs(card, 1, 64, 2, 2, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 0.1, True)
@@ -204,6 +219,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         flash.flash_fwd(q.double(), k.double(), v.double(), 0.1, True)
     with pytest.raises(ValueError, match="on"):
         flash.flash_fwd(q, k.cpu(), v, 0.1, True)
+    unaligned = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:].view_as(q)
+    with pytest.raises(ValueError, match="aligned"):  # the kernels copy 16 bytes at a time
+        flash.flash_fwd(unaligned, k, v, 0.1, True)
 
 
 # The error-feedback residual kernel (csrc/ring.cu `ef_residual_kernel`)
