@@ -126,9 +126,9 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int tn = 0; tn < kBlock / 16; ++tn) {
-      warp_mma<T, true, false, DP>(S + row0 * kLdScore + tn * 16, kLdScore, Qs + row0 * LDT, LDT,
+      warp_mma<true, false, DP>(S + row0 * kLdScore + tn * 16, kLdScore, Qs + row0 * LDT, LDT,
                                    Ks + tn * 16 * LDT, LDT, false);
-      warp_mma<T, true, false, DP>(dP + row0 * kLdScore + tn * 16, kLdScore, dOs + row0 * LDT,
+      warp_mma<true, false, DP>(dP + row0 * kLdScore + tn * 16, kLdScore, dOs + row0 * LDT,
                                    LDT, Vs + tn * 16 * LDT, LDT, false);
     }
     __syncwarp();
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(kThreads)
     // dQacc[rows, DP] += dS[rows, 64] K[64, DP]
 #pragma unroll
     for (int tn = 0; tn < DP / 16; ++tn) {
-      warp_mma<T, true, true, kBlock>(dQacc + row0 * LDA + tn * 16, LDA, dSs + row0 * kLdProb,
+      warp_mma<true, true, kBlock>(dQacc + row0 * LDA + tn * 16, LDA, dSs + row0 * kLdProb,
                                       kLdProb, Ks + tn * 16, LDT, true);
     }
   }
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
         const int idx = is_s ? e : e - kTilesQK;
         const int tm = idx / (kBlock / 16);
         const int tn = idx % (kBlock / 16);
-        warp_mma<T, true, false, DP>((is_s ? S : dP) + tm * 16 * kLdScore + tn * 16, kLdScore,
+        warp_mma<true, false, DP>((is_s ? S : dP) + tm * 16 * kLdScore + tn * 16, kLdScore,
                                      (is_s ? Qs : dOs) + tm * 16 * LDT, LDT,
                                      (is_s ? Ks : Vs) + tn * 16 * LDT, LDT, false);
       }
@@ -256,9 +256,9 @@ __global__ void __launch_bounds__(kThreads)
       // dV[rows, DP] += P^T dO and dK[rows, DP] += dS^T Q for this warp's key rows
 #pragma unroll
       for (int tn = 0; tn < DP / 16; ++tn) {
-        warp_mma<T, false, true, BQ>(dVacc + row0 * LDA + tn * 16, LDA, Ps + row0, kLdProb,
+        warp_mma<false, true, BQ>(dVacc + row0 * LDA + tn * 16, LDA, Ps + row0, kLdProb,
                                      dOs + tn * 16, LDT, true);
-        warp_mma<T, false, true, BQ>(dKacc + row0 * LDA + tn * 16, LDA, dSs + row0, kLdProb,
+        warp_mma<false, true, BQ>(dKacc + row0 * LDA + tn * 16, LDA, dSs + row0, kLdProb,
                                      Qs + tn * 16, LDT, true);
       }
     }
@@ -280,14 +280,6 @@ constexpr int kThreads = kWgThreads;
 constexpr int kRows = 64;   // output rows of a block
 constexpr int kTile = 64;   // rows of a streamed tile
 constexpr int kStages = 3;  // shared-memory ring: two tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the special-function unit (relative error below 2^-22).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Shared memory, bytes (+1024 to align the tiles to the swizzle atom).
 template <int DP>
@@ -306,41 +298,6 @@ struct DkvSmem {
   static constexpr int kBytes = kVecs + kStages * kVec + 1024;
   static_assert(kQ % 1024 == 0 && kKV % 1024 == 0, "tiles start on swizzle atoms");
 };
-
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
-// Store the accumulator acc[DP / 64][32] (this thread's rows row_lo and
-// row_lo + 8, 64-column panels) times mul into rows < L and columns < D
-// of a [*, D] matrix with row stride `stride`.
-template <typename T, int DP>
-__device__ __forceinline__ void store_acc(T* g, int64_t stride, int row_lo, int L, int D,
-                                          const float (&acc)[DP / 64][32], float mul) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < DP / 64; ++n) {
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int row = row_lo + 8 * ((i >> 1) & 1);
-      const int col = 64 * n + 8 * (i >> 2) + 2 * t;
-      if (row < L && col < D)
-        *reinterpret_cast<uint32_t*>(g + row * stride + col) =
-            pack2<T>(acc[n][i] * mul, acc[n][i + 1] * mul);
-    }
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void fence_acc(float (&acc)[DP / 64][32]) {
-#pragma unroll
-  for (int n = 0; n < DP / 64; ++n) reg_fence(acc[n]);
-}
-
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) reg_fence(a[kk]);
-}
 
 // dq: grid (B * H, ceil(L / 64)).  A block owns query rows q0 .. q0 + 63 of
 // one (batch, head) and walks the key tiles that can see them.

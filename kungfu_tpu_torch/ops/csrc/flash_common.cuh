@@ -7,18 +7,15 @@
 // 128 columns wide; a head dim D < DP is padded there with zero columns,
 // which are never stored.
 //
-// The pieces below serve the forward kernel and the float backward: 128
-// threads (4 warps) a block, products through WMMA 16x16x16 tiles for the
-// 16-bit types (operands in the input type, float accumulation) and as
-// float FMA loops for float inputs, tiles staged in shared memory with
+// The pieces below serve the float kernels: 128 threads (4 warps) a block,
+// products as float FMA loops over tiles staged in shared memory with
 // padded rows, each warp computing whole 16x16 output tiles.  The 16-bit
-// backward runs on wgmma (flash_sm90.cuh).
+// kernels, forward and backward, run on wgmma (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -30,17 +27,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
 enum DType { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -113,55 +99,35 @@ __device__ __forceinline__ void store_rows(T* g, int64_t stride, int r0, int nro
   }
 }
 
-// One warp: C[16x16] (float, shared, ldc) = (or +=) A[16xK] * B[Kx16].
+// One warp: C[16x16] (float, shared, ldc) = (or +=) A[16xK] * B[Kx16], as
+// float FMAs (TF32 would miss the f32 limit of 1e-5 in utils/compare.py).
 //   A_ROW: A(m, k) = a[m * lda + k], else A(m, k) = a[k * lda + m]
 //   B_ROW: B(k, n) = b[k * ldb + n], else B(k, n) = b[n * ldb + k]
 // `a` points at A(0, 0) and `b` at B(0, 0) of this tile.  The caller
 // synchronises before other warps read C.
-template <typename T, bool A_ROW, bool B_ROW, int K>
-__device__ __forceinline__ void warp_mma(float* c, int ldc, const T* a, int lda, const T* b,
-                                         int ldb, bool accumulate) {
-  if constexpr (std::is_same<T, float>::value) {
-    const int lane = threadIdx.x & 31;
+template <bool A_ROW, bool B_ROW, int K>
+__device__ __forceinline__ void warp_mma(float* c, int ldc, const float* a, int lda,
+                                         const float* b, int ldb, bool accumulate) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = lane + 32 * j;
-      const int m = e >> 4;
-      const int n = e & 15;
-      float acc = accumulate ? c[m * ldc + n] : 0.f;
+  for (int j = 0; j < 8; ++j) {
+    const int e = lane + 32 * j;
+    const int m = e >> 4;
+    const int n = e & 15;
+    float acc = accumulate ? c[m * ldc + n] : 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float av = A_ROW ? a[m * lda + k] : a[k * lda + m];
-        const float bv = B_ROW ? b[k * ldb + n] : b[n * ldb + k];
-        acc = fmaf(av, bv, acc);
-      }
-      c[m * ldc + n] = acc;
+    for (int k = 0; k < K; ++k) {
+      const float av = A_ROW ? a[m * lda + k] : a[k * lda + m];
+      const float bv = B_ROW ? b[k * ldb + n] : b[n * ldb + k];
+      acc = fmaf(av, bv, acc);
     }
-  } else {
-    using namespace nvcuda;
-    using LA = typename std::conditional<A_ROW, wmma::row_major, wmma::col_major>::type;
-    using LB = typename std::conditional<B_ROW, wmma::row_major, wmma::col_major>::type;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-    if (accumulate) {
-      wmma::load_matrix_sync(fc, c, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(fc, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::load_matrix_sync(fa, A_ROW ? a + k : a + k * lda, lda);
-      wmma::load_matrix_sync(fb, B_ROW ? b + k * ldb : b + k, ldb);
-      wmma::mma_sync(fc, fa, fb, fc);
-    }
-    wmma::store_matrix_sync(c, fc, ldc, wmma::mem_row_major);
+    c[m * ldc + n] = acc;
   }
 }
 
 // Padded leading dimensions (elements).  Operand rows are padded by 8
-// elements and float rows by 4: multiples WMMA accepts, and rows that do
-// not all start in the same shared-memory bank.
+// elements and float rows by 4, so that rows do not all start in the same
+// shared-memory bank.
 template <int D>
 struct Ld {
   static constexpr int op = D + 8;   // [rows, D] operand tiles

@@ -23,8 +23,8 @@ often the wrapper launched it.
 The kernels take head dims 16 to 128 in steps of 16 (`HEAD_DIMS`; a
 narrower head is padded with zero columns in shared memory); any other
 head dim raises NotImplementedError naming ROADMAP C.1, where the Pallas
-kernels take any.  bf16 and fp16 run the backward on wgmma, f32 on float
-FMA loops.
+kernels take any.  In bf16 and fp16 all four run on wgmma (the forward
+with TMA loads); f32 runs on float FMA loops.
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.

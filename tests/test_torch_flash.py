@@ -117,6 +117,55 @@ def test_head_dims_match_pallas(kflash, d, l, h, hkv, causal, window):
                                    err_msg=f"d{name}")
 
 
+# The CUDA forward's tile edges (64-row query blocks, 64-key tiles; the
+# JAX kernel's key blocks of 64 and 128): ragged lengths on both sides of
+# one and two tiles, windows of one key up to wider than L, and a GQA group
+# of 8.  The port's plain forward, which the card holds B1 against, against
+# the JAX `_fwd_kernel` under the Pallas interpreter; f32, 2e-5 as above.
+FWD_EDGE_CASES = [
+    # (L, H, Hkv, D, causal, window)
+    (1, 2, 2, 64, True, 0),
+    (1, 2, 2, 64, False, 0),
+    (63, 2, 2, 64, True, 0),
+    (63, 2, 2, 64, False, 0),
+    (65, 2, 2, 128, True, 0),
+    (65, 2, 2, 128, False, 0),
+    (127, 2, 2, 32, True, 0),
+    (127, 2, 2, 32, False, 0),
+    (129, 2, 2, 64, True, 0),
+    (129, 2, 2, 64, False, 0),
+    (257, 2, 2, 128, True, 0),
+    (257, 2, 2, 128, False, 0),
+    (300, 2, 2, 64, True, 1),
+    (300, 2, 2, 128, True, 64),
+    (300, 2, 2, 64, True, 65),
+    (300, 2, 2, 16, True, 128),
+    (300, 2, 2, 128, True, 129),
+    (300, 2, 2, 64, True, 400),  # wider than L
+    (200, 8, 1, 64, True, 0),  # GQA, a group of 8
+    (129, 8, 1, 128, False, 0),
+    (257, 8, 1, 64, True, 65),
+]
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("l,h,hkv,d,causal,window", FWD_EDGE_CASES)
+def test_plain_forward_matches_pallas_fwd_kernel(kflash, block_k, l, h, hkv, d, causal,
+                                                 window):
+    q, k, v, _, _ = _inputs(l, h, hkv, d=d, seed=l + d + window)
+    scale = d ** -0.5
+
+    def bhld(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])
+
+    o_ref, lse_ref = kflash._flash_fwd(bhld(q), bhld(k), bhld(v), scale, causal, 64, block_k,
+                                       True, h=h, hkv=hkv, window=window)
+    o, lse = tflash._plain_fwd_blhd(*map(torch.from_numpy, (q, k, v)), scale, causal, window)
+    np.testing.assert_allclose(
+        o.numpy(), np.asarray(o_ref).reshape(1, h, l, d).transpose(0, 2, 1, 3), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref).reshape(1, h, l), atol=ATOL)
+
+
 @pytest.mark.parametrize("d", list(range(16, 129, 16)))
 def test_kernels_take_head_dims_16_to_128(d):
     assert d in tflash.HEAD_DIMS

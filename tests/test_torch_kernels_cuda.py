@@ -53,6 +53,20 @@ def _close(got, want, dtype, what):
     assert worst <= REL_LIMIT[dtype], f"{what}: worst block {worst:.3g} > {REL_LIMIT[dtype]}"
 
 
+# With one key a row (L = 1, or window 1) P is 1 wherever a row attends,
+# so dS = P (dP - delta) and with it dq and dk vanish in exact arithmetic:
+# both sides hold only the rounding of dP - delta, so a relative error
+# means nothing there.  A kernel that got P or dS wrong would leave entries
+# of the size of dP itself (order one for these random inputs).
+VANISH_ATOL = 1e-3
+
+
+def _vanishes(got, want, what):
+    err = max(got.float().abs().max().item(), want.float().abs().max().item())
+    print(f"{what}: vanishes, largest entry {err:.3g}")
+    assert err <= VANISH_ATOL, f"{what}: largest entry {err:.3g} > {VANISH_ATOL}"
+
+
 def _lse_close(got, want):
     err = (got - want).abs().max().item()
     assert err <= LSE_ATOL, f"lse: max abs err {err:.3g} > {LSE_ATOL}"
@@ -72,6 +86,27 @@ CASES = [
     (2, 256, 2, 2, 32, True, 96),
     (1, 333, 2, 2, 96, False, 0),  # and 96 to 128
     (1, 300, 2, 2, 96, True, 50),
+    # the forward's tile edges: lengths on both sides of one and two
+    # 64-row tiles, causal and not
+    (2, 1, 2, 2, 64, True, 0),
+    (2, 1, 2, 2, 64, False, 0),
+    (1, 63, 2, 2, 64, True, 0),
+    (1, 63, 2, 2, 64, False, 0),
+    (1, 65, 2, 2, 128, True, 0),
+    (1, 65, 2, 2, 128, False, 0),
+    (1, 127, 2, 2, 32, True, 0),
+    (1, 127, 2, 2, 32, False, 0),
+    (1, 129, 2, 2, 64, True, 0),
+    (1, 129, 2, 2, 64, False, 0),
+    (1, 257, 2, 2, 128, True, 0),
+    (1, 257, 2, 2, 128, False, 0),
+    # windows of one key, one and two tiles either side, and wider than L
+    (1, 300, 2, 2, 64, True, 1),
+    (1, 300, 2, 2, 128, True, 64),
+    (1, 300, 2, 2, 64, True, 65),
+    (1, 300, 2, 2, 16, True, 128),
+    (1, 300, 2, 2, 128, True, 129),
+    (1, 300, 2, 2, 64, True, 400),
 ]
 
 
@@ -90,8 +125,25 @@ def test_kernels_match_plain(card, dtype, b, l, h, hkv, d, causal, window):
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
     refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, 128, window)
     torch.cuda.synchronize()
+    vanishing = ("dq", "dk") if l == 1 or window == 1 else ()
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-        _close(got, want, dtype, name)
+        if name in vanishing:
+            _vanishes(got, want, name)
+        else:
+            _close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "f32"])
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_forward_kernel_takes_any_scale(card, dtype, scale):
+    """The forward folds a positive scale into its exp and takes another
+    path for a negative or zero one (uniform attention at 0)."""
+    q, k, v, _ = _inputs(card, 1, 200, 2, 2, 64, dtype, seed=5)
+    o, lse = flash.flash_fwd(q, k, v, scale, True, 0)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, True, 0)
+    _close(o, o_ref, dtype, "o")
+    _lse_close(lse, lse_ref)
 
 
 GQA_CASES = [
@@ -103,6 +155,9 @@ GQA_CASES = [
     (1, 200, 4, 2, 16, True, 0),
     (2, 256, 4, 2, 32, True, 96),
     (1, 333, 4, 1, 96, True, 0),
+    (1, 200, 8, 1, 64, True, 0),  # a group of 8
+    (1, 129, 8, 1, 128, False, 0),
+    (2, 257, 8, 1, 64, True, 65),
 ]
 
 
