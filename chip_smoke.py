@@ -103,7 +103,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              rank r (the causal ring skips the blocks of later ranks), B5
              and B6 once per bucket; the slowest rank's step time, tokens/s
              and peak memory per rank
-13. fused    4 ranks through the launcher, each running tools/fused_check:
+13. fused    B9's and B10's product body alone on this card (tools/fused_time:
+             `mm_product` at the per-hop and per-rank shapes below, against
+             the f32 product, timed beside torch.matmul and the bound), then
+             4 ranks through the launcher, each running tools/fused_check:
              the all-gather-matmul (B9) and matmul-reduce-scatter (B10)
              kernels against their stacked plain versions at the flagship
              FSDP step's MLP shapes in bf16 (B9: x [4096, 1024] @ W_in
@@ -838,10 +841,28 @@ def phase_sp(steps: int, seed: int, bucket_mib: int, ref_loss: float):
 
 
 def phase_fused(seed: int):
-    """B9 and B10 on N_RANKS ranks against their stacked plain versions;
-    their times, the plain versions', the library arm's and the bounds."""
+    """B9 and B10's product body alone on this card against the f32
+    product, with its times beside torch.matmul's; then B9 and B10 on
+    N_RANKS ranks against their stacked plain versions: their times, the
+    plain versions', the library arm's and the bounds."""
     from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.tools import fused_time
 
+    body = fused_time.measure(fused_time.shapes((4096, 1024, 4096), N_RANKS), 20, 2, seed,
+                              torch.device("cuda"))
+    for name, r in body.items():
+        check(r["ok"], f"fused: the product body at {name} {r['shape']}: integer operands "
+              f"exact {r['int_exact']}, worst 64-row block {r['rand_worst_block']:.3g}")
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    print("[fused] product body alone (mm_product, bf16, no peers) against the f32 product "
+          "(integer operands bit for bit, normal ones within the bf16 limit), ms (mean of 20 "
+          "calls between CUDA events, best of 2; device time from the profiler): " + "; ".join(
+              f"{name} {r['shape']}: kernel {ms(min(r['kernel_ms']))} (device "
+              f"{ms(r['kernel_device_ms'])}), torch.matmul {ms(min(r['library_ms']))} (device "
+              f"{ms(r['library_device_ms'])}), bound {ms(r['bound_ms'])} ({r['bound_by']})"
+              for name, r in body.items()))
     _, res = spawn_ranks(["fused", "--faults", "--iters", "5", "--seed", str(seed)],
                          "FUSED_CHECK ", 600)
     for r, rr in sorted(res.items()):

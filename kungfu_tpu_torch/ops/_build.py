@@ -57,6 +57,7 @@ SIGNATURES = {
     "kft_ef_residual": ([_P, _L, _I, _I, _F, _P], "ring"),
     "kft_ag_matmul": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
     "kft_matmul_rs": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
+    "kft_mm_product": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], "fused_matmul"),
     "kft_ring_header_bytes": ([_I, _I], "ring"),
     "kft_ws_alloc": ([_I, _L, _PP, _P], "ring"),
     "kft_ws_open": ([_I, _P, _PP], "ring"),
@@ -70,6 +71,7 @@ SOURCES = sorted({stem for _, stem in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[str, object] = {}  # name -> the C function, its types set
 build_seconds: Dict[str, float] = {}
 
 
@@ -140,6 +142,9 @@ def _build_missing(paths: Dict[str, str]) -> None:
 
 def function(name: str):
     """The exported C function `name`, building its library on first use."""
+    fn = _functions.get(name)
+    if fn is not None:
+        return fn
     argtypes, stem = SIGNATURES[name]
     with _lock:
         lib = _libs.get(stem)
@@ -147,7 +152,8 @@ def function(name: str):
             for s, path in build_all().items():
                 _libs[s] = ctypes.CDLL(path)
             lib = _libs[stem]
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        _functions[name] = fn
     return fn

@@ -106,36 +106,37 @@ struct Call {
   volatile u64* err;  // host-mapped: kind, hop, block, seq
 };
 
+// The calling thread polls `*p >= want` (an acquire) and returns whether it
+// arrived.  On expiry the first failing block on this rank records where
+// it waited.
+__device__ bool thread_wait(const Call& c, const u64* p, u64 want, u64* claim, int kind,
+                            int hop) {
+  // a claimed error (an earlier call, or another block) ends the kernel
+  if (*reinterpret_cast<volatile u64*>(claim) != 0) return false;
+  const u64 deadline = globaltimer() + c.timeout_ns;
+  while (ld_acquire(p) < want) {
+    if (*reinterpret_cast<volatile u64*>(claim) != 0) return false;  // another block gave up
+    if (globaltimer() > deadline) {
+      if (atomicCAS(claim, 0ULL, 1ULL) == 0ULL) {
+        c.err[1] = (u64)hop;
+        c.err[2] = (u64)blockIdx.x;
+        c.err[3] = c.seq;
+        __threadfence_system();
+        c.err[0] = (u64)kind;
+        __threadfence_system();
+      }
+      return false;
+    }
+    __nanosleep(128);
+  }
+  return true;
+}
+
 // Thread 0 polls `*p >= want`; the whole block returns whether it arrived.
-// On expiry the first failing block on this rank records where it waited.
 __device__ bool block_wait(const Call& c, const u64* p, u64 want, u64* claim, int kind,
                            int hop) {
   __shared__ int ok;
-  if (threadIdx.x == 0) {
-    // a claimed error (an earlier call, or another block) ends the kernel
-    int good = *reinterpret_cast<volatile u64*>(claim) == 0;
-    u64 deadline = globaltimer() + c.timeout_ns;
-    while (good && ld_acquire(p) < want) {
-      if (*reinterpret_cast<volatile u64*>(claim) != 0) {  // another block gave up
-        good = 0;
-        break;
-      }
-      if (globaltimer() > deadline) {
-        good = 0;
-        if (atomicCAS(claim, 0ULL, 1ULL) == 0ULL) {
-          c.err[1] = (u64)hop;
-          c.err[2] = (u64)blockIdx.x;
-          c.err[3] = c.seq;
-          __threadfence_system();
-          c.err[0] = (u64)kind;
-          __threadfence_system();
-        }
-        break;
-      }
-      __nanosleep(128);
-    }
-    ok = good;
-  }
+  if (threadIdx.x == 0) ok = thread_wait(c, p, want, claim, kind, hop);
   __syncthreads();
   return ok != 0;
 }

@@ -52,7 +52,12 @@ checks hold the kernels against.  Every size takes the kernels: the JAX
 wrappers' fallbacks (past their VMEM budget, for other dtypes, off a sole
 named axis) have no counterpart.  B9 and B10 take f32 and bf16 (x and w of
 one dtype) and raise NotImplementedError for another; the shift moves
-bytes, so every dtype goes through it.  n == 1 computes the unfused
+bytes, so every dtype goes through it.  In bf16 the kernels read their
+operands through the copy engine, which wants rows of whole 16 bytes: the
+wrappers pad a shard's rows, K and N to multiples of 8 with zeros, as the
+JAX wrappers pad to their tiles (`_pad2`), and slice the result.
+`mm_product` runs B9's or B10's product body alone, without peers, for
+measuring it on one card.  n == 1 computes the unfused
 product (B9, B10) or returns the input (the shift, or a shift that is a
 multiple of n) and launches nothing, as the JAX wrappers do.
 
@@ -64,10 +69,12 @@ on gloo ranks without a card).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..compat import kernel_mode
 from . import collective as C
@@ -84,10 +91,17 @@ AG_MATMUL = Kernel("all_gather_matmul", "kungfu_tpu_torch/ops/csrc/fused_matmul.
 MATMUL_RS = Kernel("matmul_reduce_scatter", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu",
                    "kungfu_tpu/ops/ring_kernels.py:396")  # make_matmul_rs_kernel
 KERNELS = (SHIFT, AG_MATMUL, MATMUL_RS)
+# B9's and B10's product body alone (`mm_product`): replaces no TPU kernel
+MM_PRODUCT = Kernel("mm_product", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu", "")
 
 _THREADS, _UNROLL, _VEC = 512, 4, 16  # csrc/ring.cu kThreads, kUnroll, 16-byte vectors
-_TILE = 128  # csrc/fused_matmul.cu kBM = kBN: the output tile of a block of B9 and B10
 _MM_DTYPES = {torch.float32: 0, torch.bfloat16: 2}  # csrc/fused_matmul.cu MmDType
+# A block's output tile (rows, columns): bf16 on csrc/mm_sm90.cuh's tilings
+# kAg and kRs, f32 on the FMA body's 128 x 128
+_TILES = {("b9", torch.bfloat16): (128, 256), ("b10", torch.bfloat16): (64, 128),
+          ("b9", torch.float32): (128, 128), ("b10", torch.float32): (128, 128)}
+_TILINGS = {"b9": 0, "b10": 1}  # csrc/mm_sm90.cuh kAg, kRs: kft_mm_product's `tiling`
+_ALIGN = 8  # bf16 values in 16 bytes: the copy engine's alignment of bases and rows
 
 
 def _plain_ring_shift(stacked: torch.Tensor, shift: int) -> torch.Tensor:
@@ -218,18 +232,60 @@ def _plain_all_gather_matmul(xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor
     return torch.stack([_hop_sum(xs[d], ws, d) for d in range(xs.shape[0])])
 
 
-def _kernel_ag_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+def _plan(kind: str, dtype: torch.dtype, rows: int, cols: int, max_blocks: int):
+    """(output tiles, blocks) of one launch of B9 (`rows` of x) or B10
+    (`rows` of a chunk, every hop) with `cols` columns: one block an SM at
+    most, each taking every G-th tile."""
+    bm, bn = _TILES[(kind, dtype)]
+    tiles = -(-rows // bm) * -(-cols // bn)
+    return tiles, max(1, min(max_blocks, tiles))
+
+
+def _round_up(v: int, a: int = _ALIGN) -> int:
+    return -(-v // a) * a
+
+
+def _pad_ag(x: torch.Tensor, w: torch.Tensor, n: int):
+    """B9's bf16 operands for the copy engine: a shard's rows ks and the
+    columns N padded with zeros to multiples of 8 (x's columns shard by
+    shard).  Zero rows and columns add nothing to any product."""
     (m, _), (ks, nn) = x.shape, w.shape
-    x, w = x.contiguous(), _aligned(w)
-    out = torch.empty(m, nn, dtype=x.dtype, device=x.device)
+    kp, np_ = _round_up(ks), _round_up(nn)
+    if kp != ks:
+        x = F.pad(x.reshape(m, n, ks), (0, kp - ks)).reshape(m, n * kp)
+        w = F.pad(w, (0, 0, 0, kp - ks))
+    if np_ != nn:
+        w = F.pad(w, (0, np_ - nn))
+    return _aligned(x), _aligned(w)
+
+
+def _pad_rs(x: torch.Tensor, w: torch.Tensor):
+    """B10's (and the product's) bf16 operands for the copy engine: K and N
+    padded with zeros to multiples of 8."""
+    k, nn = w.shape
+    kp, np_ = _round_up(k), _round_up(nn)
+    if kp != k:
+        x, w = F.pad(x, (0, kp - k)), F.pad(w, (0, 0, 0, kp - k))
+    if np_ != nn:
+        w = F.pad(w, (0, np_ - nn))
+    return _aligned(x), _aligned(w)
+
+
+def _kernel_ag_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    m, nn = x.shape[0], w.shape[1]
+    if x.dtype == torch.bfloat16:
+        x, w = _pad_ag(x, w, _world(group))
+    else:
+        x, w = x.contiguous(), _aligned(w)
+    ks, np_ = w.shape
+    out = torch.empty(m, np_, dtype=x.dtype, device=x.device)
     ws = peer_memory.workspace(group, x.device)
     ws.raise_if_failed()
-    ws.reserve(ks * nn * w.element_size(), "agmm")
-    tiles = -(-m // _TILE) * -(-nn // _TILE)
-    _launch(AG_MATMUL, "kft_ag_matmul", ws, "agmm", x.device, ks * nn,
-            max(1, min(ws.max_blocks, tiles)),
-            (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, nn, ks, _MM_DTYPES[x.dtype]))
-    return out
+    ws.reserve(ks * np_ * w.element_size(), "agmm")
+    _, blocks = _plan("b9", x.dtype, m, np_, ws.max_blocks)
+    _launch(AG_MATMUL, "kft_ag_matmul", ws, "agmm", x.device, ks * np_, blocks,
+            (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, np_, ks, _MM_DTYPES[x.dtype]))
+    return out if np_ == nn else out[:, :nn].contiguous()
 
 
 def all_gather_matmul(x: torch.Tensor, w_shard: torch.Tensor, group=None) -> torch.Tensor:
@@ -267,18 +323,20 @@ def _plain_matmul_reduce_scatter(xs: torch.Tensor, ws: torch.Tensor) -> torch.Te
 
 
 def _kernel_matmul_rs(x: torch.Tensor, w: torch.Tensor, group, n: int) -> torch.Tensor:
-    (m, k), nn = x.shape, w.shape[1]
-    mc = m // n
-    x, w = x.contiguous(), w.contiguous()
-    out = torch.empty(mc, nn, dtype=x.dtype, device=x.device)
+    mc, nn = x.shape[0] // n, w.shape[1]
+    if x.dtype == torch.bfloat16:
+        x, w = _pad_rs(x, w)
+    else:
+        x, w = x.contiguous(), w.contiguous()
+    k, np_ = w.shape
+    out = torch.empty(mc, np_, dtype=x.dtype, device=x.device)
     ws = peer_memory.workspace(group, x.device)
     ws.raise_if_failed()
-    ws.reserve(mc * nn * 4, "mmrs")
-    tiles = -(-mc // _TILE) * -(-nn // _TILE)
-    _launch(MATMUL_RS, "kft_matmul_rs", ws, "mmrs", x.device, mc * nn,
-            max(1, min(ws.max_blocks, tiles)),
-            (x.data_ptr(), w.data_ptr(), out.data_ptr(), mc, nn, k, _MM_DTYPES[x.dtype]))
-    return out
+    ws.reserve(mc * np_ * 4, "mmrs")
+    _, blocks = _plan("b10", x.dtype, mc, np_, ws.max_blocks)
+    _launch(MATMUL_RS, "kft_matmul_rs", ws, "mmrs", x.device, mc * np_, blocks,
+            (x.data_ptr(), w.data_ptr(), out.data_ptr(), mc, np_, k, _MM_DTYPES[x.dtype]))
+    return out if np_ == nn else out[:, :nn].contiguous()
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
@@ -298,6 +356,45 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, group=None) -> torch
     if kernel_mode(x.device) == "plain":
         return C.ring_reduce_scatter_chunks(_chunk_products(x, w, n), group).to(x.dtype)
     return _kernel_matmul_rs(x, w, group, n)
+
+
+# ------------------------------------------------- the product alone ----
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def mm_product(x: torch.Tensor, w: torch.Tensor, kind: str = "b9",
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, K] @ w [K, N] of bf16 operands on B9's (`kind` "b9") or B10's
+    ("b10") product body alone, with no peers: one hop's product, in
+    `out_dtype` (f32 or bf16).  For measuring and checking the body on one
+    card (tools/fused_time.py); nothing on a training path calls it.  A
+    CPU tensor takes the product in f32."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise NotImplementedError(f"mm_product: bf16 operands only, got {x.dtype} x {w.dtype}")
+    if out_dtype not in _MM_DTYPES:
+        raise NotImplementedError(f"mm_product: out_dtype {out_dtype} (f32 or bf16)")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"mm_product: x {tuple(x.shape)} and w {tuple(w.shape)} do not multiply")
+    if kernel_mode(x.device) == "plain":
+        return (x.float() @ w.float()).to(out_dtype)
+    from . import _build
+
+    m, nn = x.shape[0], w.shape[1]
+    x, w = _pad_rs(x, w)
+    np_ = w.shape[1]
+    out = torch.empty(m, np_, dtype=out_dtype, device=x.device)
+    _, blocks = _plan(kind, torch.bfloat16, m, np_, _sm_count(x.device.index))
+    with torch.cuda.device(x.device):
+        err = _build.function("kft_mm_product")(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, np_, w.shape[0], _TILINGS[kind],
+            _MM_DTYPES[out_dtype], blocks, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{MM_PRODUCT.name}: kernel launch failed with CUDA error {err}")
+    MM_PRODUCT.launches += 1
+    return out if np_ == nn else out[:, :nn].contiguous()
 
 
 # ------------------------------------------- the DMA gather/scatter pair ----

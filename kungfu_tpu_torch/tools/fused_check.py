@@ -3,6 +3,7 @@ against their stacked plain versions, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.fused_check \\
         [--mlp 4096,1024,4096] [--faults] [--iters 5] [--seed 0] [--device cpu]
+        [--cases b9:24x120x75,b10:24x40x75]
 
 The shapes are those of the flagship's MLP up projection in an FSDP step
 with `--mlp T,D,F` (tokens a rank, d_model, d_ff; by default 2 x 2048
@@ -15,10 +16,12 @@ tokens, 1024, 4096), in bf16:
 
 plus one f32 case of each at the JAX tests' shapes that tile nothing
 (tests/unit/test_fused_matmul.py: B9 x [24, n*40] with shards [40, 72],
-B10 x [24, 40] @ [40, 72]).  Every rank makes every rank's operands from
-the seed with numpy, so the check needs no communication, and holds its
-own result against its row of the stacked plain version (`ops.
-fused_matmul._plain_all_gather_matmul`, `_plain_matmul_reduce_scatter`):
+B10 x [24, 40] @ [40, 72]), and the bf16 cases `--cases` names (B9 x
+[M, K] with shards [K/n, N]; B10 x [M, K] @ [K, N]).  Every rank makes
+every rank's operands from the seed with numpy, so the check needs no
+communication, and holds its own result against its row of the stacked
+plain version (`ops.fused_matmul._plain_all_gather_matmul`,
+`_plain_matmul_reduce_scatter`):
 
   int   integer-valued operands (-3 .. 3): every f32 product and partial
         is exact, so the result must match bit for bit, and a shard routed
@@ -36,9 +39,14 @@ On a card each kernel is then timed on the random bf16 operands.  With a
 card per rank, the median of `--iters` calls between CUDA events; with
 ranks sharing a card, which runs them in turn, the wall time of `--iters`
 calls of all ranks between barriers taken after a device sync, per call.
+Beside it, the median host time to issue one call (`host_ms`) and, with a
+card per rank, the kernel's device time per call from torch.profiler
+(`device_ms`, its waits for the peers included; tracing can slow a kernel
+whose blocks wait on other ranks).
 Rank 0 alone times the stacked plain version (every rank's result in one
 process).  Where every rank has a card of its own (an NCCL group), every
-rank also times the unfused library arm, a yardstick the port never calls:
+rank also times the unfused library arm (and its device time), a
+yardstick the port never calls:
 `all_gather_into_tensor` of the shard then `torch.matmul` (B9), and
 `torch.matmul` then `reduce_scatter_tensor` of the f32 partial (B10).  The
 bound is the larger of two times: the operations of a rank's product
@@ -54,7 +62,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -64,6 +74,7 @@ import torch.distributed as dist
 from .. import distributed
 from ..ops import fused_matmul as FM
 from ..utils.compare import REL_LIMIT, rel_errs
+from .fused_time import device_ms
 from .ring_check import NVLINK_BYTES_PER_S, _median_ms
 from .shift_check import _span_ms
 
@@ -117,11 +128,12 @@ def _rel(got: torch.Tensor, want: torch.Tensor):
     return rel_errs(got[None, :, None, :], want[None, :, None, :])
 
 
-def check(kind: str, n: int, d: int, shapes, dtype, seed: int, device, faults: bool) -> Dict:
+def check(kind: str, n: int, d: int, shapes, dtype, seed: int, device, faults: bool,
+          tag: str = "") -> Dict:
     """Both payloads of one case on rank d: {check: passed}, max abs errors."""
     ok, err, rel = {}, {}, {}
     for integer in (True, False):
-        key = f"{kind} {str(dtype).split('.')[-1]} {'int' if integer else 'rand'}"
+        key = f"{kind} {str(dtype).split('.')[-1]} {'int' if integer else 'rand'}{tag}"
         xs, ws = operands(kind, n, shapes, dtype, seed + integer, integer, device)
         got = fused(kind, xs[d], ws[d])
         want = plain(kind, xs, ws)[d]
@@ -165,6 +177,18 @@ def library(kind: str, x: torch.Tensor, w: torch.Tensor, n: int):
     return run
 
 
+def host_ms(fn, iters: int) -> float:
+    """Median host time of one call of fn() (the issue of its work, the
+    card then synchronised before the next)."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
 def time_case(kind: str, n: int, d: int, shapes, dtype, seed: int, device, iters: int,
               own_cards: bool) -> Dict:
     xs, ws = operands(kind, n, shapes, dtype, seed, False, device)
@@ -175,11 +199,18 @@ def time_case(kind: str, n: int, d: int, shapes, dtype, seed: int, device, iters
            "how": (f"median of {iters} calls between CUDA events" if own_cards else
                    f"wall time of {iters} calls of all ranks between barriers, per call")}
     dist.barrier()
+    res["host_ms"] = host_ms(lambda: fused(kind, x, w), iters)
+    dist.barrier()
+    if own_cards:
+        res["device_ms"] = device_ms(lambda: fused(kind, x, w), iters)
+        dist.barrier()
     if d == 0:
         res["plain_ms"] = _median_ms(lambda: plain(kind, xs, ws), max(2, iters // 2))
     dist.barrier()
     if own_cards:
         res["library_ms"] = _median_ms(library(kind, x, w, n), iters)
+        dist.barrier()
+        res["library_device_ms"] = device_ms(library(kind, x, w, n), iters)
     else:
         res["library_ms"] = None
         res["library_note"] = ("NCCL refuses two ranks of one communicator on one card: no "
@@ -206,6 +237,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cases", default="",
+                    help="more bf16 cases, comma-separated kind:MxKxN (b9: K = n ks; b10: "
+                    "n divides M), checked after the others and not timed")
     args = ap.parse_args(argv)
     n = distributed.init_distributed(device=args.device)
     if n < 2:
@@ -220,8 +254,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for k in FM.KERNELS:
         k.launches = 0
     res: Dict = {"ok": {}, "max_abs_err": {}, "worst_block_rel_err": {}}
-    for i, ((kind, dtype), shapes) in enumerate(cases.items()):
-        got = check(kind, n, d, shapes, dtype, args.seed + 10 * i, device, args.faults)
+    extra = [(kind, tuple(int(v) for v in dims.split("x")))
+             for kind, dims in (c.split(":") for c in args.cases.split(",") if c)]
+    runs = [(kind, dtype, shapes, "") for (kind, dtype), shapes in cases.items()]
+    runs += [(kind, torch.bfloat16, shapes, " " + "x".join(map(str, shapes)))
+             for kind, shapes in extra]
+    for i, (kind, dtype, shapes, tag) in enumerate(runs):
+        got = check(kind, n, d, shapes, dtype, args.seed + 10 * i, device, args.faults, tag)
         for key in res:
             res[key].update(got[key])
     launches = {k.name: k.launches for k in FM.KERNELS}
@@ -232,8 +271,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          for kind in ("b9", "b10")}
     out = {"rank": d, "n": n, "device": str(device), "backend": dist.get_backend(),
            "card": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-           "shapes": {f"{kind} {str(dt).split('.')[-1]}": list(s)
-                      for (kind, dt), s in cases.items()},
+           "shapes": {f"{kind} {str(dt).split('.')[-1]}{tag}": list(s)
+                      for kind, dt, s, tag in runs},
            "launches": launches, **res, "ok_all": all(res["ok"].values())}
     print(LINE + json.dumps(out), flush=True)
     distributed.shutdown_distributed()

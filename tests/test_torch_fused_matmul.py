@@ -23,6 +23,7 @@ bit, and so do its VJPs.
 """
 from __future__ import annotations
 
+import json
 import os
 import textwrap
 
@@ -291,3 +292,180 @@ def test_workspace_slots_tile_the_workspace(n):
         assert ws.slots(k) == (end, ws.slot_bytes[k]), k
         end += counts[k] * ws.slot_bytes[k]
     assert end == ws.nbytes
+
+
+# ------------------------------------------- bf16 padding and tile plan ----
+
+# Shapes the copy engine cannot read as they are (a row of N = 75 bf16 values
+# is not whole 16 bytes; ks = 37 neither) and shapes below one tile: (rows,
+# ks or K, N) with B9's rows M = 24 or 1 and B10's chunk rows 24 / n or 1.
+UNALIGNED = ((24, 40, 75), (1, 37, 75))
+BF16_PAYLOADS = ("bf16-int", "bf16-rand")
+
+
+def _unaligned_operands(kind: str, n: int, shape, payload: str):
+    """Every rank's (x, w) at an unaligned shape, rank-major numpy f32."""
+    rows, k, nn = shape
+    rng = np.random.default_rng(7 * n + UNALIGNED.index(shape) * 3 + BF16_PAYLOADS.index(payload)
+                                + {"b9": 0, "b10": 100}[kind])
+    if kind == "b9":
+        xs, ws = (n, rows, n * k), (n, k, nn)
+    else:
+        xs, ws = (n, n * (rows if rows == 1 else rows // n), k), (n, k, nn)
+
+    def draw(s):
+        if payload.endswith("int"):
+            return rng.integers(-8, 8, size=s).astype(np.float32)
+        return rng.standard_normal(s).astype(np.float32)
+
+    return draw(xs), draw(ws)
+
+
+@pytest.fixture(scope="module")
+def unaligned_jax():
+    """{(n, kind, shape, payload): the JAX functions' stacked outputs} at the
+    unaligned shapes, in bf16, under the Pallas interpreter."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    old = os.environ.get("KFT_PALLAS")
+    os.environ["KFT_PALLAS"] = "interpret"
+    out = {}
+    try:
+        with jax_reference():
+            from kungfu_tpu.compat import shard_map
+            from kungfu_tpu.ops import fused_matmul as JFM
+
+            for n in NS:
+                mesh = Mesh(np.array(jax.devices()[:n]), ("dp",))
+                for kind, fn in (("b9", JFM.all_gather_matmul),
+                                 ("b10", JFM.matmul_reduce_scatter)):
+                    run = jax.jit(shard_map(lambda xx, ww, fn=fn: fn(xx[0], ww[0], "dp")[None],
+                                            mesh=mesh, in_specs=(P("dp"), P("dp")),
+                                            out_specs=P("dp"), check_vma=False))
+                    for shape in UNALIGNED:
+                        for payload in BF16_PAYLOADS:
+                            x, w = (jnp.asarray(a).astype(jnp.bfloat16)
+                                    for a in _unaligned_operands(kind, n, shape, payload))
+                            out[(n, kind, shape, payload)] = np.asarray(
+                                run(x, w).astype(jnp.float32))
+    finally:
+        if old is None:
+            del os.environ["KFT_PALLAS"]
+        else:
+            os.environ["KFT_PALLAS"] = old
+    return out
+
+
+def _padded_plain(kind: str, xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The stacked plain version on the operands as the bf16 wrappers pad
+    them for the kernels, sliced back: what the kernels must equal."""
+    n, nn = xs.shape[0], ws.shape[2]
+    if kind == "b9":
+        padded = [FM._pad_ag(x, w, n) for x, w in zip(xs, ws)]
+    else:
+        padded = [FM._pad_rs(x, w) for x, w in zip(xs, ws)]
+    xp = torch.stack([p[0] for p in padded])
+    wp = torch.stack([p[1] for p in padded])
+    for p in wp:  # whole 16-byte rows: what the copy engine reads
+        assert p.shape[0] % FM._ALIGN == 0 and p.shape[1] % FM._ALIGN == 0
+    return fused_check.plain(kind, xp, wp)[:, :, :nn]
+
+
+@pytest.mark.parametrize("payload", BF16_PAYLOADS)
+@pytest.mark.parametrize("shape", UNALIGNED)
+@pytest.mark.parametrize("kind", ["b9", "b10"])
+@pytest.mark.parametrize("n", NS)
+def test_padded_plain_matches_jax(unaligned_jax, n, kind, shape, payload):
+    """The bf16 wrappers pad a shard's rows, K and N to multiples of 8 with
+    zeros and slice the result: on the padded operands the stacked plain
+    version still equals the interpreted JAX kernels at the unaligned
+    shapes (integer operands bit for bit, normal ones within the bf16 limit:
+    both round f32 sums in other orders to bf16)."""
+    xs, ws = (torch.from_numpy(a).to(torch.bfloat16)
+              for a in _unaligned_operands(kind, n, shape, payload))
+    got = _padded_plain(kind, xs, ws).float()
+    want = torch.from_numpy(np.array(unaligned_jax[(n, kind, shape, payload)]))
+    assert got.shape == want.shape
+    if payload.endswith("int"):
+        assert torch.equal(got, want)
+        assert torch.equal(got, fused_check.plain(kind, xs, ws).float())  # padding adds nothing
+    else:
+        for g, w in zip(got, want):
+            assert fused_check._rel(g, w)[1] <= REL_LIMIT[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kind, dtype, rows, cols, tiles, blocks", [
+    ("b10", torch.bfloat16, 256, 4096, 128, 128),  # the FSDP MLP: a work unit an SM a hop
+    ("b10", torch.float32, 256, 4096, 64, 64),
+    ("b9", torch.bfloat16, 4096, 4096, 512, 132),  # persistent: 512 tiles over 132 blocks
+    ("b9", torch.float32, 4096, 4096, 1024, 132),
+    ("b9", torch.bfloat16, 1, 80, 1, 1),
+    ("b10", torch.bfloat16, 65, 129, 4, 4),
+    ("b10", torch.bfloat16, 512, 4096, 256, 132),  # two waves of tiles a hop
+    ("b9", torch.bfloat16, 129, 257, 4, 4),
+])
+def test_tile_plan(kind, dtype, rows, cols, tiles, blocks):
+    assert FM._plan(kind, dtype, rows, cols, 132) == (tiles, blocks)
+
+
+@pytest.mark.parametrize("shape", [(24, 40, 75), (1, 37, 75), (3, 8, 16), (5, 64, 4096)])
+def test_padding_keeps_the_operands(shape):
+    """The pad helpers put the operands at the top left (x's columns shard
+    by shard for B9), zeros elsewhere, and leave aligned shapes alone."""
+    m, k, nn = shape
+    n = 3
+    g = torch.Generator().manual_seed(m * k + nn)
+    x9 = torch.randn(m, n * k, generator=g).bfloat16()
+    w = torch.randn(k, nn, generator=g).bfloat16()
+    xp, wp = FM._pad_ag(x9, w, n)
+    kp, np_ = -(-k // 8) * 8, -(-nn // 8) * 8
+    assert xp.shape == (m, n * kp) and wp.shape == (kp, np_)
+    assert torch.equal(wp[:k, :nn], w) and not wp[k:].any() and not wp[:, nn:].any()
+    xv = xp.reshape(m, n, kp)
+    assert torch.equal(xv[:, :, :k], x9.reshape(m, n, k)) and not xv[:, :, k:].any()
+    x10 = torch.randn(m, k, generator=g).bfloat16()
+    xq, wq = FM._pad_rs(x10, w)
+    assert xq.shape == (m, kp) and torch.equal(xq[:, :k], x10) and not xq[:, k:].any()
+    assert torch.equal(wq, wp)
+    if (k % 8, nn % 8) == (0, 0):
+        assert xq.data_ptr() == x10.data_ptr() and wq.data_ptr() == w.data_ptr()
+
+
+def test_product_entry_on_the_cpu():
+    """`mm_product` on CPU tensors is the f32 product in the asked dtype,
+    launches nothing, and refuses what the body does not take."""
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn(9, 37, generator=g).bfloat16(), torch.randn(37, 75, generator=g).bfloat16()
+    for kind in ("b9", "b10"):
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(FM.mm_product(x, w, kind, dt), (x.float() @ w.float()).to(dt))
+    assert FM.MM_PRODUCT.launches == 0
+    with pytest.raises(NotImplementedError, match="bf16"):
+        FM.mm_product(x.float(), w.float())
+    with pytest.raises(NotImplementedError, match="out_dtype"):
+        FM.mm_product(x, w, "b9", torch.float16)
+    with pytest.raises(ValueError, match="do not multiply"):
+        FM.mm_product(x, w[1:])
+
+
+def test_ab_tool_ablates_a_copy_and_reads_the_runs(tmp_path):
+    """tools/fused_ab: an ablated copy differs from this checkout only in
+    KFT_MM_ABLATE, and the readings of a run are the slowest rank's."""
+    from kungfu_tpu_torch.tools import fused_ab
+
+    root = fused_ab.ablated(str(tmp_path), 2)
+    rel = os.path.join("kungfu_tpu_torch", "ops", "csrc", "mm_sm90.cuh")
+    with open(os.path.join(fused_ab.HERE, rel)) as f:
+        want = f.read().replace("#define KFT_MM_ABLATE 0\n", "#define KFT_MM_ABLATE 2\n")
+    with open(os.path.join(root, rel)) as f:
+        assert f.read() == want
+    assert not os.path.exists(os.path.join(root, "kungfu_tpu_torch", "_build"))
+    line = {"ok_all": True, "timing": {k: {"ms": ms, "library_ms": 0.5, "bound_ms": 0.03,
+                                          "bound_by": "operations"}
+                                      for k, ms in (("b9", 0.1), ("b10", 0.2))}}
+    out = "\n".join(f"[{r}] FUSED_CHECK " + json.dumps(
+        dict(line, timing={k: dict(v, ms=v["ms"] + r) for k, v in line["timing"].items()}))
+        for r in range(4))
+    got = fused_ab.readings("noise\n" + out, product=False)
+    assert got["b9"]["ms"] == 3.1 and got["b10"]["ms"] == 3.2 and got["b9"]["ok"]
+    assert got["b10"]["ms_ranks"] == [0.2, 1.2, 2.2, 3.2]
