@@ -51,7 +51,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              of 1,000,003 values and at every payload of phase fsdp (each
              flagship parameter padded to a multiple of 4: chunks of 256 to
              8,192,000 values a rank, below one 1024-value tile up to the
-             embedding's), with planted faults rejected; then the
+             embedding's), with planted faults rejected, and grouped
+             (ring_reduce_scatter_group, ring_all_gather_group) at each of
+             phase fsdp's 12 buckets, every tensor bit-equal to its stacked
+             plain version, one launch a bucket, planted faults (a tensor
+             shifted by a vector, a last value wrong, a hop left out)
+             rejected; then the
              fused-codec kernels B7 (reduce-scatter) and B8 (all-gather)
              through fused_ring_all_reduce, int8 and fp8, at the GQA
              flagship's gradient size and at 1,000,003 values: bit-equal to
@@ -121,8 +126,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              card, and the bound
 14. fsdp     this slice's main path: the flagship on 4 ranks as
              make_mesh(fsdp=4), FSDPTrainer (every parameter chunked 4 ways,
-             gathered through the ring all-gather B6 each step, its gradient
-             reduce-scattered through B5), batch 2 a rank of phase main's 8
+             gathered through the ring all-gather B6 each step and its
+             gradient reduce-scattered through B5, one grouped launch a
+             bucket of parameters), batch 2 a rank of phase main's 8
              sequences, adamw(3e-4, b1=0.9, b2=0.95), 3 steps (FSDP_STEPS):
              loss finite and falling,
              the first within 1e-2 of phase main's and every step's within
@@ -130,8 +136,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              init at most 0.3 of a replica's parameters and Adam state and
              after step 1 (AdamW's moments made) at most 0.3 of those and
              its gradients, B6
-             and B5 launched once per parameter (195) a step, B1-B3 once per
-             layer, no other kernel; the slowest rank's step time, tokens/s,
+             and B5 launched once per bucket (12 of the 195 parameters) a
+             step, B1-B3 once per layer, no other kernel; the slowest
+             rank's step time, tokens/s,
              peak memory per rank
 15. report   one JSON line of kernels B1-B11 and the residual kernel
              (launches from rank 0 of the path that runs each: phase ranks
@@ -187,8 +194,8 @@ TOL_RANKS_LOSS = 1e-2
 TOL_SP_LOSS = 1e-2
 # Phase fsdp against phases main (first step) and ranks (every step): the
 # same weights, sequences and AdamW; the gradients reduce-scattered per
-# parameter instead of all-reduced per bucket, so only the order of f32
-# sums and the shapes of bf16 products differ.
+# parameter chunk instead of all-reduced per bucket, so only the order of
+# f32 sums and the shapes of bf16 products differ.
 TOL_FSDP_LOSS = 1e-2
 # Phase fsdp's memory against a replica's: after init against its f32
 # parameters and two Adam moments (sharded 4 ways a rank holds 1/12 of
@@ -196,7 +203,7 @@ TOL_FSDP_LOSS = 1e-2
 # gradients and moments (sharded: 1/4, the chunks of all four; moments
 # that were not sharded would make it 5/8).
 FSDP_MEMORY_SHARE = 0.3
-FSDP_STEPS = 3  # phase fsdp: each step makes 390 ring calls (a card switch each on one card)
+FSDP_STEPS = 3  # phase fsdp: each step makes 24 ring calls (a card switch each on one card)
 N_RANKS = 4
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
@@ -637,6 +644,7 @@ def phase_model_check(seed: int):
 
 def phase_main(steps: int, batch: int, seed: int):
     from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.fsdp import bucket_plan
     from kungfu_tpu_torch.ops import flash
     from kungfu_tpu_torch.tools.step_profile import flagship_step
 
@@ -646,6 +654,13 @@ def phase_main(steps: int, batch: int, seed: int):
     # every parameter zero-padded to a multiple of N_RANKS: the payloads of
     # phase fsdp's ring calls, one chunk of size / N_RANKS a rank
     fsdp_sizes = sorted({-(-p.numel() // N_RANKS) * N_RANKS for p in state.params.parameters()})
+    # phase fsdp's buckets: its grouped ring calls, as ring_check --groups
+    chunks = [torch.empty(-(-p.numel() // N_RANKS), dtype=p.dtype, device="meta")
+              for p in state.params.parameters()]
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    fsdp_groups = ";".join(f"{names[chunks[a].dtype]}:" + "+".join(str(c.numel())
+                                                                   for c in chunks[a:b])
+                           for a, b in bucket_plan(chunks))
     print(f"[main] flagship GPT {n_params / 1e6:.1f}M params, world {world}, batch {batch} x "
           f"{cfg.max_len}, {cfg.n_layers} layers, attention={cfg.attention}")
     torch.cuda.synchronize()
@@ -670,12 +685,13 @@ def phase_main(steps: int, batch: int, seed: int):
     print(f"[main] steady step {step_s * 1e3:.1f} ms (median of steps 2-{steps}), "
           f"{batch * cfg.max_len / step_s:.0f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {json.dumps(launches)}")
-    return losses, n_params, fsdp_sizes
+    return losses, n_params, fsdp_sizes, fsdp_groups
 
 
-def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, seed: int):
+def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, fsdp_groups: str, seed: int):
     """B5 and B6, then B7 and B8, on N_RANKS ranks against their stacked
-    plain versions; B5 and B6 also at every payload of phase fsdp."""
+    plain versions; B5 and B6 also at every payload of phase fsdp, and
+    grouped at each of its buckets."""
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
     # the fused cases first: the plain slots of the 367.6M-value case stay
@@ -683,18 +699,35 @@ def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, seed: int):
     cases = (f"int8:{gqa_params},fp8:{gqa_params},int8:1000003,fp8:1000003,"
              f"f32:{n_params},bf16:{64 << 20},f32:1000003,"
              + ",".join(f"f32:{size}" for size in fsdp_sizes))
-    _, res = spawn_ranks(["ring", "--cases", cases, "--iters", "5", "--seed", str(seed),
-                          "--faults"], "RING_CHECK ", 600)
+    _, res = spawn_ranks(["ring", "--cases", cases, "--groups", fsdp_groups, "--iters", "5",
+                          "--seed", str(seed), "--faults"], "RING_CHECK ", 600)
     for r, rr in sorted(res.items()):
         for case in rr["cases"]:
-            check(all(case["ok"].values()), f"ring rank {r} {case['dtype']} x {case['size']}: "
+            what = (f"group of {case['segments']}" if "group" in case
+                    else f"x {case['size']}")
+            check(all(case["ok"].values()), f"ring rank {r} {case['dtype']} {what}: "
                   f"{json.dumps(case['ok'])}, max abs err {json.dumps(case['max_abs_err'])}")
     r0 = res[0]
     print(f"[ring] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
           f"reduce-scatter, all-gather and all-reduce (sum, mean) equal the stacked plain "
           f"versions bit for bit, and so do the fused int8/fp8 all-reduces (sum, mean), "
-          f"within the reference's tolerance of the exact sum; planted faults rejected")
+          f"within the reference's tolerance of the exact sum, and the grouped "
+          f"reduce-scatter and all-gather at phase fsdp's buckets, each in the launches of "
+          f"its segment plan; planted faults rejected")
+    singles = [c for c in r0["cases"] if "group" not in c]
     for i, case in enumerate(r0["cases"]):
+        if "group" not in case:
+            continue
+        slowest = {k: max(rr["cases"][i]["ms"][k] for rr in res.values()) for k in case["ms"]}
+        print(f"[ring] group {case['dtype']} of {case['segments']} tensors "
+              f"({case['chunk_bytes']} bytes a rank): kernel ms (slowest rank's median) rs "
+              f"{slowest['rs']:.3f} ag {slowest['ag']:.3f} in {case['launches']['rs']} launch(es) "
+              f"each; plain ms {json.dumps(case['plain_ms'])}; bound ms "
+              f"{json.dumps(case['bound_ms'])} ({case['bound_note']}); library ms "
+              f"{json.dumps(case['library_ms'])}")
+    for i, case in enumerate(r0["cases"]):
+        if "group" in case:
+            continue
         slowest = {k: max(rr["cases"][i]["ms"][k] for rr in res.values()) for k in case["ms"]}
         lib = case["library_ms"]
         lib = ({k: max(rr["cases"][i]["library_ms"][k] for rr in res.values()) for k in lib}
@@ -711,7 +744,7 @@ def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, seed: int):
               f"bound ms {json.dumps(case['bound_ms'])} ({case['bound_note']}); library ms "
               f"{json.dumps(lib) if lib else 'null: ' + case['library_note']}{extra}")
         case["slowest_ms"], case["library_slowest_ms"] = slowest, lib
-    by_case = {(c["dtype"], c["size"]): c for c in r0["cases"]}
+    by_case = {(c["dtype"], c["size"]): c for c in singles}
     big, fused = by_case[("f32", n_params)], by_case[("int8", gqa_params)]
     keys = {RC.RING_RS.name: (big, "rs"), RC.RING_AG.name: (big, "ag"),
             RC.FUSED_RS.name: (fused, "rs"), RC.FUSED_AG.name: (fused, "ag")}
@@ -916,7 +949,8 @@ def phase_fsdp(steps: int, batch: int, seed: int, main_loss1: float, ranks_losse
     print(f"[fsdp] {N_RANKS} ranks as fsdp=4 ({r0['backend']}), {batch} x 2048 tokens a step: "
           f"losses {' '.join(f'{x:.4f}' for x in losses)}, first step {losses[0]:.4f} vs phase "
           f"main's {main_loss1:.4f}, every step within {worst:.4f} of phase ranks'; launches "
-          f"exact on every rank; memory after init {held} GiB a rank (limit "
+          f"exact on every rank (B5 and B6 once a bucket a step: {r0['buckets']} buckets of "
+          f"{r0['leaves']} parameters); memory after init {held} GiB a rank (limit "
           f"{r0['limit_gib']:.2f}: {FSDP_MEMORY_SHARE} of a replica's parameters and Adam "
           f"state), after step 1 {held1} (limit {r0['step1_limit_gib']:.2f}: with its "
           f"gradients); steady step {step_s * 1e3:.1f} ms (slowest rank), "
@@ -1126,7 +1160,7 @@ def rank_fsdp(argv) -> int:
     torch.cuda.synchronize()
     init_bytes = torch.cuda.memory_allocated()  # the chunks, this rank's rows of the batch
     n_params = sum(math.prod(s) for s in trainer._shapes.values())
-    n_leaves = len(trainer._shapes)
+    n_leaves, n_buckets = len(trainer._shapes), len(trainer._buckets)
     limit = FSDP_MEMORY_SHARE * n_params * 4 * 3  # f32 parameters and two Adam moments
     limit1 = FSDP_MEMORY_SHARE * n_params * 4 * 4  # and the gradients
     kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS + FM.KERNELS
@@ -1147,7 +1181,9 @@ def rank_fsdp(argv) -> int:
     want = {k.name: 0 for k in kernels}
     want.update({k.name: cfg.n_layers * args.steps
                  for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
-    want.update({RC.RING_AG.name: n_leaves * args.steps, RC.RING_RS.name: n_leaves * args.steps})
+    # one grouped gather a bucket forward, one grouped reduce-scatter backward
+    want.update({RC.RING_AG.name: n_buckets * args.steps,
+                 RC.RING_RS.name: n_buckets * args.steps})
     checks = {
         "loss finite": all(math.isfinite(x) for x in losses),
         "loss falls": losses[-1] < losses[0],
@@ -1161,6 +1197,7 @@ def rank_fsdp(argv) -> int:
               "init_gib": init_bytes / 2**30, "step1_gib": step1_bytes / 2**30,
               "limit_gib": limit / 2**30, "step1_limit_gib": limit1 / 2**30,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "leaves": n_leaves,
+              "buckets": n_buckets,
               "launches": launches, "expected_launches": want, "checks": checks,
               "ok": all(checks.values())}
     print(FSDP_LINE + json.dumps(result), flush=True)
@@ -1200,11 +1237,12 @@ def main() -> int:
         phase_build()
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
         phase_model_check(args.seed)
-        main_losses, n_params, fsdp_sizes = phase_main(args.steps, args.batch, args.seed)
+        main_losses, n_params, fsdp_sizes, fsdp_groups = phase_main(args.steps, args.batch,
+                                                                    args.seed)
         torch.cuda.empty_cache()  # the ranks need the card's memory
         gqa_loss, gqa_params, gqa_shapes = phase_gqa_reference(args.batch, args.seed)
         results.append(phase_ef(gqa_shapes, args.seed))
-        results.append(phase_ring(n_params, gqa_params, fsdp_sizes, args.seed))
+        results.append(phase_ring(n_params, gqa_params, fsdp_sizes, fsdp_groups, args.seed))
         ranks_launches, ranks_losses = phase_ranks(args.rank_steps, args.batch, args.seed,
                                                    args.bucket_mib, main_losses[0])
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,

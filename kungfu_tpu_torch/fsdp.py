@@ -10,14 +10,16 @@ process and the same pieces are eager:
             optimizer's parameter (`_chunk`); the module's own full
             parameters are freed at `init`, so a rank holds 1/n of the
             model and of the optimizer state
-  compute   each step gathers every chunk (`dma_all_gather`, the ring
-            all-gather B6 on a card; `dma_collectives=False`:
-            `all_gather_into_tensor`), reshapes it to its parameter, and
-            runs the loss on the module with those tensors in place of its
-            parameters (`torch.func.functional_call`)
-  gradients the gather's backward reduce-scatters each gradient (the ring
-            reduce-scatter B5 on a card; off: `reduce_scatter_tensor`), so
-            each rank's chunk receives the sum of its chunk over the fsdp
+  compute   each step gathers every chunk (`dma_all_gather_group`, the
+            ring all-gather B6 on a card, one launch a bucket;
+            `dma_collectives=False`: `all_gather_into_tensor` a chunk),
+            reshapes it to its parameter, and runs the loss on the module
+            with those tensors in place of its parameters
+            (`torch.func.functional_call`)
+  gradients the gather's backward reduce-scatters each bucket's gradients
+            (the ring reduce-scatter B5 on a card, one launch a bucket; off:
+            `reduce_scatter_tensor` a chunk), so each rank's chunk receives
+            the sum of its chunk over the fsdp
             ranks; it is divided by n_fsdp, then averaged over `dp` if the
             mesh has a replicated data axis (hybrid sharded DP), compressed
             there by `compression`, bucketed by `bucket_bytes`
@@ -31,11 +33,17 @@ the data axes.  `remat=True` checkpoints the gathers with the loss
 the backward instead of being kept, as `jax.checkpoint` makes the JAX
 step do.
 
-Every rank must make the same ring calls in the same order: the forward
-gathers the parameters in the module's order, and the backward's
-reduce-scatters follow the autograd graph, which is the same on every
-rank.  On the card the ring workspace is grown once at `init` to the
-largest chunk, so the backward never grows it.
+Buckets (`bucket_plan`): consecutive parameters in the module's order, of
+one dtype, at most `ring_collectives.MAX_SEGMENTS` of them, their chunks
+together at most one ring slot, which `init` grows once to the largest
+chunk (a larger chunk is a bucket of its own), so the gathers and
+reduce-scatters of a bucket are one launch each and add no memory to the
+workspace; the flagship's 195 parameters make 12 buckets at fsdp=4.  A
+grouped call is bit-equal to a call per parameter.  Every rank must make
+the same ring calls in the same order: every rank plans the same buckets
+from the same shapes, the forward gathers them in the module's order, and
+the backward's reduce-scatters follow the autograd graph, which is the
+same on every rank.
 
     tx = adamw(3e-4, b1=0.9, b2=0.95)
     trainer = FSDPTrainer(lambda m, b: lm_loss(m(b), b), tx, make_mesh(fsdp=4))
@@ -51,7 +59,7 @@ no longer references.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,7 +72,8 @@ from . import compression as Comp
 from .compat import resolve_device
 from .ops import collective as C
 from .ops import peer_memory
-from .ops.fused_matmul import dma_all_gather
+from .ops import ring_collectives as RC
+from .ops.fused_matmul import dma_all_gather_group
 from .optimizers.sync import (_bucketed_reduce, _mean_reducer, _pack_buckets,
                               _resolve_bucket_bytes)
 from .plan.mesh import Mesh, make_mesh
@@ -82,6 +91,21 @@ def _chunk(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def _unchunk(c: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     return c.reshape(-1)[:math.prod(shape)].view(shape)
+
+
+def _ring_bytes(chunks: Sequence[torch.Tensor]) -> int:
+    """Bytes of the ring slot that holds the largest chunk (padded to the
+    ring's 1024-value tile): what `init` grows the fsdp group's workspace
+    to."""
+    return peer_memory.slot_size(max(-(-max(c.numel(), 1) // C.TILE) * C.TILE * c.element_size()
+                                     for c in chunks))
+
+
+def bucket_plan(chunks: Sequence[torch.Tensor]) -> List[Tuple[int, int]]:
+    """The buckets [start, stop) of a rank's chunks (in the module's
+    order): `ring_collectives.segment_plan` within one slot of
+    `_ring_bytes`, so each is one launch of B6 and one of B5."""
+    return RC.segment_plan([(c.numel(), c.dtype) for c in chunks], _ring_bytes(chunks))
 
 
 def _lib_all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -182,6 +206,7 @@ class FSDPTrainer:
             raise ValueError(f"mesh {self.mesh.shape} does not cover the {world} ranks")
         self._module: Optional[_Loss] = None
         self._shapes: Dict[str, Tuple[int, ...]] = {}
+        self._buckets: List[Tuple[int, int]] = []
         self._generator = torch.Generator(device=self.device).manual_seed(0)
 
     @property
@@ -196,25 +221,29 @@ class FSDPTrainer:
         return {name: nn.Parameter(_chunk(t.detach().to(self.device), self.n_shard)[me].clone())
                 for name, t in full.items()}
 
-    def _reserve_ring(self, chunks: Iterable[torch.Tensor]) -> None:
-        """Grow the fsdp group's ring workspace to the largest chunk now, so
-        no gather or reduce-scatter of a step grows it (collective)."""
+    def _reserve_ring(self, chunks: Sequence[torch.Tensor]) -> None:
+        """Plan the buckets and grow the fsdp group's ring workspace to the
+        largest chunk now, so no gather or reduce-scatter of a step grows
+        it (collective)."""
+        self._buckets = bucket_plan(chunks)
         if not (self.dma_collectives and self.device.type == "cuda" and self.n_shard > 1):
             return
-        biggest = max(-(-max(c.numel(), 1) // C.TILE) * C.TILE * c.element_size()
-                      for c in chunks)
-        peer_memory.workspace(self.fsdp_group, self.device).reserve(biggest, "rs", "ag")
+        peer_memory.workspace(self.fsdp_group, self.device).reserve(_ring_bytes(chunks),
+                                                                     "rs", "ag")
 
-    def _gather(self, chunk: torch.Tensor) -> torch.Tensor:
+    def _gather(self, chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every chunk gathered: a grouped ring call a bucket, or
+        torch.distributed a chunk."""
         if self.n_shard == 1:
-            return chunk
-        if self.dma_collectives:
-            return dma_all_gather(chunk, self.fsdp_group)
-        return _LibAllGather.apply(chunk, self.fsdp_group)
+            return list(chunks)
+        if not self.dma_collectives:
+            return [_LibAllGather.apply(c, self.fsdp_group) for c in chunks]
+        return [full for start, stop in self._buckets
+                for full in dma_all_gather_group(chunks[start:stop], self.fsdp_group)]
 
-    def _full_params(self, chunks: Iterable[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {f"model.{name}": _unchunk(self._gather(c), shape)
-                for (name, shape), c in zip(self._shapes.items(), chunks)}
+    def _full_params(self, chunks: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {f"model.{name}": _unchunk(full, shape)
+                for (name, shape), full in zip(self._shapes.items(), self._gather(chunks))}
 
     def _loss(self, batch, *chunks: torch.Tensor) -> torch.Tensor:
         return functional_call(self._module, self._full_params(chunks), (batch,))
@@ -233,7 +262,7 @@ class FSDPTrainer:
         with torch.no_grad():
             for p in full.values():  # the module keeps names, not memory
                 p.data = p.data.new_empty(0)
-        self._reserve_ring(chunks.values())
+        self._reserve_ring(list(chunks.values()))
         return TrainState(params=chunks, opt_state=self.tx(list(chunks.values())))
 
     def place_state(self, state_dict: Dict[str, torch.Tensor],
@@ -258,7 +287,7 @@ class FSDPTrainer:
                         if torch.is_tensor(v) and tuple(v.shape) == self._shapes[name]
                         else (v.clone() if torch.is_tensor(v) else v))
                     for k, v in opt_state_full[name].items()}
-        self._reserve_ring(chunks.values())
+        self._reserve_ring(list(chunks.values()))
         return TrainState(params=chunks, opt_state=opt, step=step)
 
     def shard_batch(self, batch: Any) -> Any:

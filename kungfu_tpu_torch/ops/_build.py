@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # own, right, n, rank, max_blocks, slots, slot_bytes, chunk, blocks, seq, ack_want,
 # timeout_ns, err, stream (csrc/ring_common.cuh KFT_RING_PARAMS)
 _RING = [_P, _P, _I, _I, _I, _L, _L, _L, _I, _U, _U, _U, _P, _P]
@@ -49,8 +50,8 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
     "kft_flash_bwd_dkv_gqa": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_bwd"),
-    "kft_ring_rs": ([_P, _L, _L, _L, _P, _L, _I] + _RING, "ring"),
-    "kft_ring_ag": ([_P, _L, _P, _L, _L, _L, _I] + _RING, "ring"),
+    "kft_ring_rs": ([_LP, _I, _I] + _RING, "ring"),
+    "kft_ring_ag": ([_LP, _I, _I] + _RING, "ring"),
     "kft_ring_frs": ([_P, _L, _P, _I, _I, _F] + _RING, "ring"),
     "kft_ring_fag": ([_P, _P, _L, _I, _I, _F] + _RING, "ring"),
     "kft_ring_shift": ([_P, _P, _L, _P, _P, _L, _I] + _RING, "ring"),

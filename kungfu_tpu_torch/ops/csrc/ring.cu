@@ -85,9 +85,32 @@
 // What bounds them: bytes.  Between cards each rank sends (n-1) chunks per
 // kernel over NVLink (450 GB/s each way), a quarter of them (plus scales)
 // for the fused kernels; on one card all ranks' reads and writes share its
-// 3.35 TB/s.  This first version moves 16 bytes per thread per access (8
-// bytes of codes) and keeps four accesses in flight in the plain kernels;
-// it does not overlap one hop's stores with the next hop's wait.
+// 3.35 TB/s.  The kernels move 16 bytes per thread per access (8 bytes of
+// codes) and keep four accesses in flight in the plain kernels.  At the
+// data-parallel step's payload (a 367.6M-value f32 bucket on 4 cards) B5
+// and B6 run at 73% of their NVLink bound, level with NCCL.  Still open:
+// a hop's stores do not overlap the next hop's wait, and a block waits on
+// its left neighbour's block of the same hop, so one slow rank holds the
+// ring.
+//
+// Segment tables (B5, B6).  Under FSDP every parameter was its own call:
+// 195 launches of each kernel a step for the flagship, at chunks of 1 KB
+// to 32.8 MB a rank, about 12.6 us of bound apiece, and each paid the
+// same fixed costs: the host's issue (autograd, the wrapper, a ctypes
+// call), the skew until the left neighbour's host issued the same call
+// (the first flag wait), and a chain of n-1 dependent hops, each a remote
+// store, a system fence and a flag round trip.  So a launch now carries a
+// table of up to kMaxSegs segments, passed by value as a kernel parameter
+// (no copy to the card, no sync): each names its input and output tensors
+// in place and its row, and is carried as whole 16-byte vectors at its
+// offset in one concatenated chunk.  The ring, its slots, flags,
+// acknowledgements and bounded waits see only that chunk: `block_range`
+// cuts it across the grid as before, and a block walks the segments that
+// meet its range (an outer loop over segments, not a search per vector).
+// A single tensor is a table of one.  Every element's sums are still
+// taken in the ring's order for its chunk, one f32 or bf16 add each, so a
+// grouped call is bit-equal to a call per tensor; FSDPTrainer makes one
+// launch per bucket of consecutive parameters that fits a slot.
 //
 // The shift moves its payload as bytes (16-byte vectors, then a scalar
 // tail), so any dtype and any size goes through it: the Pallas kernel's
@@ -114,6 +137,8 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 constexpr int kSeg = 256;  // values a warp quantizes at a time: 32 lanes x 8
+constexpr int kMaxSegs = 32;  // segments in one launch of B5/B6 (ops/ring_collectives.py)
+constexpr int kSegWords = 5;  // a segment's entry on the host: x, x_size, out, out_size, row
 enum DType { kFloat32 = 0, kBFloat16 = 2 };
 enum Scheme { kInt8 = 0, kFp8 = 1 };
 
@@ -148,19 +173,19 @@ struct Ops<__nv_bfloat16> {
   }
 };
 
-// A strided view of n chunks: element j of chunk c lives at
-// base[c * stride + j] when j < row and c * stride + j < size; elsewhere
-// it reads as zero and is not written.  `vec_ok`: stride and base allow
-// 16-byte accesses.
+// A view of n chunks of `row` values: element j of chunk c lives at
+// base[c * row + j] when j < row and c * row + j < size; elsewhere it reads
+// as zero and is not written.  `vec_ok`: row and base allow 16-byte
+// accesses.
 template <typename T>
 struct View {
   T* base;
-  long long stride, row, size;
+  long long row, size;
   int vec_ok;
 
   __device__ uint4 load(int c, long long v) const {
     constexpr int V = Ops<T>::kVec;
-    long long j = v * V, i = (long long)c * stride + j;
+    long long j = v * V, i = (long long)c * row + j;
     if (vec_ok && j + V <= row && i + V <= size)
       return *reinterpret_cast<const uint4*>(base + i);
     uint4 r = make_uint4(0, 0, 0, 0);
@@ -172,7 +197,7 @@ struct View {
 
   __device__ void store(int c, long long v, uint4 val) const {
     constexpr int V = Ops<T>::kVec;
-    long long j = v * V, i = (long long)c * stride + j;
+    long long j = v * V, i = (long long)c * row + j;
     if (vec_ok && j + V <= row && i + V <= size) {
       *reinterpret_cast<uint4*>(base + i) = val;
       return;
@@ -183,13 +208,46 @@ struct View {
   }
 };
 
+// One segment of a call: a tensor's `row` values a chunk, read through x
+// and written through out, carried as vectors [vec0, vec1) of the call's
+// concatenated chunk (every segment starts on a whole 16-byte vector).
+template <typename T>
+struct Seg {
+  View<T> x, out;
+  long long vec0, vec1;
+};
+
+// The segment table of one launch, passed by value (3 KB of the kernel's
+// 4 KB of parameters at kMaxSegs = 32).
+template <typename T>
+struct Table {
+  Seg<T> seg[kMaxSegs];
+  int count;
+};
+static_assert(sizeof(Call) + sizeof(Table<float>) <= 4096,
+              "a launch's parameters must fit 4 KB");
+
+// The ring over a table: block b owns vectors [v0, v1) of the
+// concatenated chunk (`block_range`), and at every hop walks the segments
+// that intersect them, calling f(segment, global vector w, its vector in
+// the segment) for each of its vectors, kUnroll loads in flight a thread.
+template <typename T, typename F>
+__device__ __forceinline__ void for_each_vec(const Table<T>& t, long long v0, long long v1,
+                                             F f) {
+  for (int i = 0; i < t.count; ++i) {
+    const Seg<T>& g = t.seg[i];
+    const long long lo = max(v0, g.vec0), hi = min(v1, g.vec1);
+    for (long long v = lo + threadIdx.x; v < hi; v += kUnroll * kThreads) f(g, v, hi);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ring_rs_kernel(Call c, View<T> x, View<T> out, long long nvec) {
+    ring_rs_kernel(Call c, const __grid_constant__ Table<T> t) {
   const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks, b = blockIdx.x;
   const Layout own = layout(c.ws, c.ws.own, kRs), right = layout(c.ws, c.ws.right, kRs);
   long long v0, v1;
-  block_range(nvec, &v0, &v1);
+  block_range(t.seg[t.count - 1].vec1, &v0, &v1);
   // the right neighbour has read what the earlier calls sent it
   if (!block_wait(c, right.ack, c.ack_want, own.claim, err_ack(kRs), 0)) return;
   for (int s = 0; s < n - 1; ++s) {
@@ -199,62 +257,68 @@ __global__ void __launch_bounds__(kThreads)
                              err_data(kRs), s - 1))
       return;
     uint4* send = reinterpret_cast<uint4*>(slot(right, s));
-    for (long long v = v0 + threadIdx.x; v < v1; v += kUnroll * kThreads) {
+    for_each_vec(t, v0, v1, [&](const Seg<T>& g, long long v, long long hi) {
       uint4 a[kUnroll], r[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         long long w = v + u * kThreads;
-        if (w < v1) {
-          a[u] = x.load(chunk, w);
+        if (w < hi) {
+          a[u] = g.x.load(chunk, w - g.vec0);
           if (recv) r[u] = __ldcg(recv + w);
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         long long w = v + u * kThreads;
-        if (w < v1) send[w] = recv ? Ops<T>::add(a[u], r[u]) : a[u];
+        if (w < hi) send[w] = recv ? Ops<T>::add(a[u], r[u]) : a[u];
       }
-    }
+    });
     block_signal(right.flags + (long long)s * mb + b, c.seq);
   }
   if (!block_wait(c, own.flags + (long long)(n - 2) * mb + b, c.seq, own.claim, err_data(kRs),
                   n - 2))
     return;
   const uint4* recv = reinterpret_cast<const uint4*>(slot(own, n - 2));
-  for (long long v = v0 + threadIdx.x; v < v1; v += kUnroll * kThreads) {
+  for_each_vec(t, v0, v1, [&](const Seg<T>& g, long long v, long long hi) {
     uint4 a[kUnroll], r[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       long long w = v + u * kThreads;
-      if (w < v1) {
-        a[u] = x.load(d, w);
+      if (w < hi) {
+        a[u] = g.x.load(d, w - g.vec0);
         r[u] = __ldcg(recv + w);
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       long long w = v + u * kThreads;
-      if (w < v1) out.store(0, w, Ops<T>::add(a[u], r[u]));
+      if (w < hi) g.out.store(0, w - g.vec0, Ops<T>::add(a[u], r[u]));
     }
-  }
+  });
   block_ack(own.ack);  // slots read: the left may refill them
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ring_ag_kernel(Call c, View<T> x, View<T> out, long long nvec) {
+    ring_ag_kernel(Call c, const __grid_constant__ Table<T> t) {
   const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks, b = blockIdx.x;
   const Layout own = layout(c.ws, c.ws.own, kAg), right = layout(c.ws, c.ws.right, kAg);
   long long v0, v1;
-  block_range(nvec, &v0, &v1);
+  block_range(t.seg[t.count - 1].vec1, &v0, &v1);
   if (!block_wait(c, right.ack, c.ack_want, own.claim, err_ack(kAg), 0)) return;
   // hop 0: this rank's chunk, to its own output and to the right
   uint4* send = reinterpret_cast<uint4*>(slot(right, 0));
-  for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    uint4 a = x.load(0, v);
-    out.store(d, v, a);
-    send[v] = a;
-  }
+  for_each_vec(t, v0, v1, [&](const Seg<T>& g, long long v, long long hi) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      long long w = v + u * kThreads;
+      if (w < hi) {
+        uint4 a = g.x.load(0, w - g.vec0);
+        g.out.store(d, w - g.vec0, a);
+        send[w] = a;
+      }
+    }
+  });
   block_signal(right.flags + b, c.seq);
   // hop s: chunk (d-s) mod n arrived in slot s-1; keep it, forward it
   for (int s = 1; s < n; ++s) {
@@ -264,22 +328,22 @@ __global__ void __launch_bounds__(kThreads)
       return;
     const uint4* recv = reinterpret_cast<const uint4*>(slot(own, s - 1));
     uint4* fwd = s < n - 1 ? reinterpret_cast<uint4*>(slot(right, s)) : nullptr;
-    for (long long v = v0 + threadIdx.x; v < v1; v += kUnroll * kThreads) {
+    for_each_vec(t, v0, v1, [&](const Seg<T>& g, long long v, long long hi) {
       uint4 r[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         long long w = v + u * kThreads;
-        if (w < v1) r[u] = __ldcg(recv + w);
+        if (w < hi) r[u] = __ldcg(recv + w);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         long long w = v + u * kThreads;
-        if (w < v1) {
-          out.store(chunk, w, r[u]);
+        if (w < hi) {
+          g.out.store(chunk, w - g.vec0, r[u]);
           if (fwd) fwd[w] = r[u];
         }
       }
-    }
+    });
     if (fwd) block_signal(right.flags + (long long)s * mb + b, c.seq);
   }
   block_ack(own.ack);
@@ -587,17 +651,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------ launch ----
 
-template <typename T>
-View<T> make_view(void* p, long long stride, long long row, long long size) {
-  View<T> v;
-  v.base = static_cast<T*>(p);
-  v.stride = stride;
-  v.row = row;
-  v.size = size;
-  v.vec_ok = (stride % Ops<T>::kVec == 0) && (reinterpret_cast<uintptr_t>(p) % 16 == 0);
-  return v;
-}
-
 bool plain_ok(const Args& a, int elem) {
   return args_ok(a) && a.chunk % (16 / elem) == 0 && a.chunk * elem <= a.slot_bytes;
 }
@@ -610,24 +663,51 @@ bool fused_ok(const Args& a, const Codec& q) {
 }
 
 template <typename T>
-int launch_rs(const Args& a, void* x, long long x_stride, long long x_row, long long x_size,
-              void* out, long long out_len, cudaStream_t stream) {
-  if (!plain_ok(a, sizeof(T))) return (int)cudaErrorInvalidValue;
-  long long nvec = a.chunk / Ops<T>::kVec;
-  ring_rs_kernel<T><<<a.blocks, kThreads, 0, stream>>>(
-      make_call(a), make_view<T>(x, x_stride, x_row, x_size),
-      make_view<T>(out, out_len, out_len, out_len), nvec);
+View<T> make_view(long long p, long long row, long long size) {
+  View<T> v;
+  v.base = reinterpret_cast<T*>(p);
+  v.row = row;
+  v.size = size;
+  v.vec_ok = (row % Ops<T>::kVec == 0) && (p % 16 == 0);
+  return v;
+}
+
+// The table of `count` host entries (kSegWords each), each segment's
+// vectors following the last one's; false unless its vectors make up the
+// call's chunk exactly and it fits a slot.
+template <typename T>
+bool make_table(const Args& a, const long long* desc, int count, Table<T>* t) {
+  if (count < 1 || count > kMaxSegs || !plain_ok(a, sizeof(T))) return false;
+  memset(t, 0, sizeof(*t));
+  long long vec = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* e = desc + (long long)kSegWords * i;
+    const long long row = e[4];
+    if (row < 0 || e[1] < 0 || e[3] < 0) return false;
+    Seg<T>& g = t->seg[i];
+    g.x = make_view<T>(e[0], row, e[1]);
+    g.out = make_view<T>(e[2], row, e[3]);
+    g.vec0 = vec;
+    vec += (row + Ops<T>::kVec - 1) / Ops<T>::kVec;
+    g.vec1 = vec;
+  }
+  t->count = count;
+  return vec * Ops<T>::kVec == a.chunk;
+}
+
+template <typename T>
+int launch_rs(const Args& a, const long long* desc, int count, cudaStream_t stream) {
+  Table<T> t;
+  if (!make_table(a, desc, count, &t)) return (int)cudaErrorInvalidValue;
+  ring_rs_kernel<T><<<a.blocks, kThreads, 0, stream>>>(make_call(a), t);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_ag(const Args& a, void* x, long long x_len, void* out, long long out_stride,
-              long long out_row, long long out_size, cudaStream_t stream) {
-  if (!plain_ok(a, sizeof(T))) return (int)cudaErrorInvalidValue;
-  long long nvec = a.chunk / Ops<T>::kVec;
-  ring_ag_kernel<T><<<a.blocks, kThreads, 0, stream>>>(
-      make_call(a), make_view<T>(x, x_len, x_len, x_len),
-      make_view<T>(out, out_stride, out_row, out_size), nvec);
+int launch_ag(const Args& a, const long long* desc, int count, cudaStream_t stream) {
+  Table<T> t;
+  if (!make_table(a, desc, count, &t)) return (int)cudaErrorInvalidValue;
+  ring_ag_kernel<T><<<a.blocks, kThreads, 0, stream>>>(make_call(a), t);
   return (int)cudaGetLastError();
 }
 
@@ -638,32 +718,30 @@ using kft_ring::Codec;
 
 // Every function returns a CUDA error code (0 = success).
 
-// Reduce-scatter: x holds n chunks at x[c * x_stride + j] (j < x_row, the
-// flat index < x_size, zero elsewhere); out[j] = the ring sum of chunk
-// `rank` for j < out_len.
-extern "C" int kft_ring_rs(void* x, long long x_stride, long long x_row, long long x_size,
-                           void* out, long long out_len, int dtype, KFT_RING_PARAMS) {
+// Reduce-scatter of `count` segments (at most kMaxSegs) in one launch.
+// Entry i of `segs` is kSegWords values: x, x_size, out, out_size, row.
+// x holds n chunks of `row` values, chunk c at x[c * row + j] (zero past
+// x_size); out[j] = the ring sum of chunk `rank` for j < row (and below
+// out_size).  `chunk` is the sum of the rows, each rounded up to whole
+// 16-byte vectors.
+extern "C" int kft_ring_rs(const long long* segs, int count, int dtype, KFT_RING_PARAMS) {
   Args a = KFT_RING_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kft_ring::kFloat32)
-    return kft_ring::launch_rs<float>(a, x, x_stride, x_row, x_size, out, out_len, s);
+  if (dtype == kft_ring::kFloat32) return kft_ring::launch_rs<float>(a, segs, count, s);
   if (dtype == kft_ring::kBFloat16)
-    return kft_ring::launch_rs<__nv_bfloat16>(a, x, x_stride, x_row, x_size, out, out_len, s);
+    return kft_ring::launch_rs<__nv_bfloat16>(a, segs, count, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// All-gather: x[j] for j < x_len is this rank's chunk; chunk c lands at
-// out[c * out_stride + j] for j < out_row and a flat index < out_size.
-extern "C" int kft_ring_ag(void* x, long long x_len, void* out, long long out_stride,
-                           long long out_row, long long out_size, int dtype,
-                           KFT_RING_PARAMS) {
+// All-gather of `count` segments in one launch, entries as for
+// kft_ring_rs: x[j] for j < row is this rank's chunk; chunk c lands at
+// out[c * row + j] for j < row and a flat index below out_size.
+extern "C" int kft_ring_ag(const long long* segs, int count, int dtype, KFT_RING_PARAMS) {
   Args a = KFT_RING_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kft_ring::kFloat32)
-    return kft_ring::launch_ag<float>(a, x, x_len, out, out_stride, out_row, out_size, s);
+  if (dtype == kft_ring::kFloat32) return kft_ring::launch_ag<float>(a, segs, count, s);
   if (dtype == kft_ring::kBFloat16)
-    return kft_ring::launch_ag<__nv_bfloat16>(a, x, x_len, out, out_stride, out_row, out_size,
-                                              s);
+    return kft_ring::launch_ag<__nv_bfloat16>(a, segs, count, s);
   return (int)cudaErrorInvalidValue;
 }
 

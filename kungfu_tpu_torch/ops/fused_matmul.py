@@ -4,10 +4,12 @@ kungfu_tpu/ops/ring_kernels.py).
 
   all_gather_matmul      csrc/fused_matmul.cu replaces `make_ag_matmul_kernel` (B9)
   matmul_reduce_scatter  csrc/fused_matmul.cu replaces `make_matmul_rs_kernel` (B10)
-  dma_all_gather         the tiled all-gather on B6 (ring_collectives.ring_all_gather);
-                         its VJP is dma_reduce_scatter
+  dma_all_gather         the tiled all-gather on B6 (a group of one of
+                         dma_all_gather_group); its VJP is dma_reduce_scatter
   dma_reduce_scatter     the tiled reduce-scatter on B5 (ring_reduce_scatter); its VJP
                          is dma_all_gather
+  dma_all_gather_group   dma_all_gather of a bucket of tensors in one grouped B6 call,
+                         their gradients in one grouped B5 call (FSDPTrainer)
   ring_shift             csrc/ring.cu `ring_shift_kernel` replaces `make_shift_kernel` (B11)
   ring_shift_pair        the same kernel, two payloads in one launch
 
@@ -412,17 +414,6 @@ def _rs_tiled(x: torch.Tensor, group) -> torch.Tensor:
     return RC.ring_reduce_scatter(x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])), group)
 
 
-class _DmaAllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _ag_tiled(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _rs_tiled(g.contiguous(), ctx.group), None
-
-
 class _DmaReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -434,14 +425,49 @@ class _DmaReduceScatter(torch.autograd.Function):
         return _ag_tiled(g.contiguous(), ctx.group), None
 
 
+def _split_rows(g: torch.Tensor, n: int) -> torch.Tensor:
+    """A tiled gather's cotangent (n d0, ...) as the ring's (n, d0, ...)."""
+    return g.contiguous().reshape((n, g.shape[0] // n) + tuple(g.shape[1:]))
+
+
+class _DmaAllGatherGroup(torch.autograd.Function):
+    """The tiled gather of a bucket of tensors as one node: the forward
+    gathers them in one grouped B6 call, the backward reduce-scatters every
+    output's gradient in one grouped B5 call once all of them are ready
+    (an unused output's gradient arrives as zeros: materialized)."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        n = _world(group)
+        outs = RC.ring_all_gather_group(xs, group)
+        return tuple(o.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+                     for o, x in zip(outs, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = _world(ctx.group)
+        return (None, *RC.ring_reduce_scatter_group([_split_rows(g, n) for g in gs], ctx.group))
+
+
+def dma_all_gather_group(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`dma_all_gather` of every tensor of xs (one dtype) in one grouped
+    call of B6 (`ring_all_gather_group`), and their gradients in one
+    grouped call of B5: the same values as a call each."""
+    xs = list(xs)
+    if any(x.ndim < 1 for x in xs):
+        raise ValueError("dma_all_gather: x needs a leading dimension")
+    if _world(group) == 1 or not xs:
+        return xs
+    return list(_DmaAllGatherGroup.apply(group, *xs))
+
+
 def dma_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """`lax.all_gather(x, axis, tiled=True)` on the ring all-gather B6:
     (d0, ...) -> (n d0, ...).  Its gradient is `dma_reduce_scatter` (on B5),
     so an FSDP step whose unshard runs here reduce-scatters its gradients
-    on the ring kernels too."""
-    if x.ndim < 1:
-        raise ValueError("dma_all_gather: x needs a leading dimension")
-    return _DmaAllGather.apply(x, group)
+    on the ring kernels too.  A group of one (`dma_all_gather_group`)."""
+    return dma_all_gather_group([x], group)[0]
 
 
 def dma_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:

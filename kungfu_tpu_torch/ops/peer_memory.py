@@ -82,6 +82,11 @@ def _slot_count(kind: str, n: int) -> int:
     return {"shift": 1, "agmm": n}.get(kind, n - 1)
 
 
+def slot_size(nbytes: int) -> int:
+    """Bytes of a slot grown to hold `nbytes` (`Workspace.reserve`)."""
+    return -(-nbytes // SLOT_ALIGN) * SLOT_ALIGN
+
+
 def _timeout_ns() -> int:
     """Bound on every wait inside a ring kernel (KFT_RING_TIMEOUT_S, 30 s)."""
     return int(float(os.environ.get("KFT_RING_TIMEOUT_S", "30")) * 1e9)
@@ -147,7 +152,7 @@ class Workspace:
             return
         sizes = dict(self.slot_bytes)
         for k in kinds:
-            sizes[k] = max(sizes[k], -(-nbytes // SLOT_ALIGN) * SLOT_ALIGN)
+            sizes[k] = max(sizes[k], slot_size(nbytes))
         self._release()
         self.slot_bytes = sizes
         own = ctypes.c_void_p()

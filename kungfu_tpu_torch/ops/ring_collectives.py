@@ -4,6 +4,8 @@ kernels are kungfu_tpu/ops/ring_kernels.py).
 
   ring_reduce_scatter    csrc/ring.cu  replaces `make_rs_kernel` (B5)
   ring_all_gather        csrc/ring.cu  replaces `make_ag_kernel` (B6)
+  ring_reduce_scatter_group, ring_all_gather_group
+                         B5, B6 on many tensors at once (FSDP's buckets)
   ring_all_reduce        B5 then B6
   fused_ring_all_reduce  int8/fp8 codes on the wire: csrc/ring.cu replaces
                          `make_fused_rs_kernel` (B7) then
@@ -24,10 +26,20 @@ instead of a mesh axis:
                           torch divides a CUDA tensor by a number
 
 with the same chunking (`_chunk_elems`: ceil(size/n) rounded up to 1024
-elements; a row of the reduce-scatter padded to 1024), so every element is
-summed in the Pallas kernels' order and the results are bit-equal to
-theirs.  The padding is never copied: the kernels read past the payload as
-zeros and write only the payload.
+elements), so every element is summed in the Pallas kernels' order and the
+results are bit-equal to theirs.  The padding is never copied: the kernels
+read past the payload as zeros and write only the payload.
+
+The group forms take a list of tensors of one dtype and return one result
+per tensor, each as the single call returns it.  A launch of B5 or B6
+carries a table of segments (at most MAX_SEGMENTS): each tensor is read
+and written in place, and travels at its offset, rounded up to 16 bytes,
+in one concatenated chunk.  An element's sum depends only on n and the
+rank that owns its chunk, so a group is bit-equal to a call per tensor.
+`segment_plan` cuts a group into launches that fit the workspace's slots,
+which the group first grows to its largest tensor (as a call each would);
+a single tensor is a table of one.  On the CPU the group's chunks are
+packed at the same offsets and go through the plain ring once.
 
 A CUDA tensor goes to the kernels, which store into the neighbour's
 workspace (`peer_memory`); a CPU tensor goes to the plain ring of
@@ -55,8 +67,9 @@ it (synchronous_sgd calls it once per step).
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -80,6 +93,7 @@ KERNELS = (RING_RS, RING_AG, FUSED_RS, FUSED_AG)
 TILE = C.TILE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _THREADS, _VEC_BYTES, _UNROLL = 512, 16, 4  # csrc/ring.cu kThreads, 16-byte vectors, kUnroll
+MAX_SEGMENTS = 32  # csrc/ring.cu kMaxSegs: segments in one launch of B5/B6
 _SEG, _SEGS_PER_BLOCK = 256, 64  # fused kernels: values a warp quantizes at once; 16 warps x 4
 _SCHEMES = {"int8": 0, "fp8": 1}
 _chunk_elems = C._chunk_elems
@@ -122,61 +136,145 @@ def _launch(kernel: Kernel, fn_name: str, ws: peer_memory.Workspace, kind: str,
     kernel.launches += 1
 
 
-def _plain_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor, chunk: int,
-                  group, head) -> None:
-    """B5 or B6: reserve plain slots for `chunk` elements of x's dtype, launch."""
-    ws = peer_memory.workspace(group, x.device)
+def _seg_bytes(row: int, itemsize: int) -> int:
+    """Bytes a segment of `row` values takes in a launch's concatenated
+    chunk: whole 16-byte vectors (csrc/ring.cu `make_table`)."""
+    return -(-row * itemsize // _VEC_BYTES) * _VEC_BYTES
+
+
+def segment_plan(segments: Sequence[Tuple[int, torch.dtype]], cap: int
+                 ) -> List[Tuple[int, int]]:
+    """Split consecutive segments (row values, dtype) into runs [start,
+    stop), one launch of B5 or B6 each: one dtype a run, at most
+    MAX_SEGMENTS segments, and at most `cap` bytes of concatenated chunk
+    (`_seg_bytes` each) unless the run is a single segment.  Greedy, in
+    order, so every rank that plans the same segments makes the same
+    runs."""
+    runs: List[Tuple[int, int]] = []
+    start, total = 0, 0
+    for i, (row, dtype) in enumerate(segments):
+        nbytes = _seg_bytes(row, dtype.itemsize)
+        if i > start and (dtype != segments[start][1] or i - start == MAX_SEGMENTS
+                          or total + nbytes > cap):
+            runs.append((start, i))
+            start, total = i, 0
+        total += nbytes
+    if segments:
+        runs.append((start, len(segments)))
+    return runs
+
+
+def _table_launch(kernel: Kernel, fn_name: str, kind: str, xs: Sequence[torch.Tensor],
+                  entries: Sequence[Tuple[int, int, int, int, int]], group) -> None:
+    """B5 or B6 over segments of xs' dtype, `entries` their table rows (x,
+    x_size, out, out_size, row; csrc/ring.cu `kft_ring_rs`): the plain
+    slots grown to the largest segment, as a call per tensor would grow
+    them, then one launch per run of `segment_plan` within those slots."""
+    dtype, device = xs[0].dtype, xs[0].device
+    ws = peer_memory.workspace(group, device)
     ws.raise_if_failed()
-    ws.reserve(chunk * x.element_size(), "rs", "ag")
-    _launch(kernel, fn_name, ws, kind, x.device, chunk,
-            _blocks(chunk, x.element_size(), ws.max_blocks), (*head, _DTYPE_CODES[x.dtype]))
+    itemsize = dtype.itemsize
+    ws.reserve(max([_VEC_BYTES] + [_seg_bytes(e[4], itemsize) for e in entries]), "rs", "ag")
+    for start, stop in segment_plan([(e[4], dtype) for e in entries], ws.slot_bytes[kind]):
+        part = entries[start:stop]
+        chunk = sum(_seg_bytes(e[4], itemsize) for e in part) // itemsize
+        table = (ctypes.c_longlong * (len(part) * len(part[0])))(*(v for e in part for v in e))
+        _launch(kernel, fn_name, ws, kind, device, chunk, _blocks(chunk, itemsize, ws.max_blocks),
+                (table, len(part), _DTYPE_CODES[dtype]))
 
 
-def _rs_kernel(x, row: int, stride: int, chunk: int, out_len: int, group):
-    """B5 on x holding n rows of `row` valid elements `stride` apart."""
-    out = torch.empty(out_len, dtype=x.dtype, device=x.device)
-    _plain_launch(RING_RS, "kft_ring_rs", "rs", x, chunk, group,
-                  (x.data_ptr(), stride, row, x.numel(), out.data_ptr(), out_len))
-    return out
+def _rs_kernel(xs: Sequence[torch.Tensor], rows: Sequence[int], group) -> List[torch.Tensor]:
+    """B5: xs[i] holds n chunks of rows[i] values, chunk c at xs[i][c *
+    rows[i]:] (zero past its end); returns each one's reduced chunk."""
+    outs = [torch.empty(row, dtype=x.dtype, device=x.device) for x, row in zip(xs, rows)]
+    _table_launch(RING_RS, "kft_ring_rs", "rs", xs,
+                  [(x.data_ptr(), x.numel(), o.data_ptr(), row, row)
+                   for x, o, row in zip(xs, outs, rows)], group)
+    return outs
 
 
-def _ag_kernel(mine, row: int, stride: int, size: int, chunk: int, group):
-    """B6: chunk c of the result lands at out[c * stride + j], j < row."""
-    out = torch.empty(size, dtype=mine.dtype, device=mine.device)
-    _plain_launch(RING_AG, "kft_ring_ag", "ag", mine, chunk, group,
-                  (mine.data_ptr(), mine.numel(), out.data_ptr(), stride, row, size))
-    return out
+def _ag_kernel(mines: Sequence[torch.Tensor], sizes: Sequence[int], group
+               ) -> List[torch.Tensor]:
+    """B6: mines[i] is this rank's chunk; chunk c of result i lands at
+    out[c * row + j] (row = mines[i].numel()) for flat indices below
+    sizes[i]."""
+    outs = [torch.empty(size, dtype=m.dtype, device=m.device) for m, size in zip(mines, sizes)]
+    _table_launch(RING_AG, "kft_ring_ag", "ag", mines,
+                  [(m.data_ptr(), m.numel(), o.data_ptr(), size, m.numel())
+                   for m, o, size in zip(mines, outs, sizes)], group)
+    return outs
 
 
 def ring_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """Ring reduce-scatter (B5): x is (n, ...) per rank, rank d returns
     row d summed across the ranks."""
-    n = _world(group)
-    if x.ndim < 1 or x.shape[0] != n:
-        raise ValueError(f"ring_reduce_scatter: x must be (n={n}, ...), got {tuple(x.shape)}")
-    _check("ring_reduce_scatter", x)
-    if n == 1:
-        return x[0]
-    row = int(math.prod(x.shape[1:]))
-    if kernel_mode(x.device) == "plain":
-        return C.ring_reduce_scatter_chunks(list(x.reshape(n, row)), group).view(x.shape[1:])
-    x = x.contiguous()
-    chunk = -(-max(row, 1) // TILE) * TILE
-    return _rs_kernel(x, row, row, chunk, row, group).view(x.shape[1:])
+    return ring_reduce_scatter_group([x], group)[0]
 
 
 def ring_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Ring all-gather (B6): every rank returns (n, *x.shape)."""
+    return ring_all_gather_group([x], group)[0]
+
+
+def _check_group(name: str, xs: Sequence[torch.Tensor]) -> None:
+    for x in xs:
+        _check(name, x)
+        if x.dtype != xs[0].dtype or x.device != xs[0].device:
+            raise ValueError(f"{name}: every tensor must be {xs[0].dtype} on {xs[0].device}, "
+                             f"got {x.dtype} on {x.device}")
+
+
+def _offsets(rows: Sequence[int], itemsize: int) -> List[int]:
+    """Each segment's first value in the concatenated chunk, then its end."""
+    out = [0]
+    for row in rows:
+        out.append(out[-1] + _seg_bytes(row, itemsize) // itemsize)
+    return out
+
+
+def ring_reduce_scatter_group(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`ring_reduce_scatter` of every tensor of xs (one dtype, each (n,
+    ...)) as one ring: one launch of B5 for as many as its table and slots
+    hold, the results bit-equal to a call each."""
     n = _world(group)
-    _check("ring_all_gather", x)
-    if n == 1:
-        return x[None]
-    if kernel_mode(x.device) == "plain":
-        return torch.stack(C.ring_all_gather_chunks(x.contiguous(), group))
-    x = x.contiguous()
-    elems = x.numel()
-    chunk = -(-max(elems, 1) // TILE) * TILE
-    return _ag_kernel(x, elems, elems, n * elems, chunk, group).view((n,) + x.shape)
+    for x in xs:
+        if x.ndim < 1 or x.shape[0] != n:
+            raise ValueError(f"ring_reduce_scatter: x must be (n={n}, ...), got {tuple(x.shape)}")
+    _check_group("ring_reduce_scatter", xs)
+    if n == 1 or not xs:
+        return [x[0] for x in xs]
+    rows = [int(math.prod(x.shape[1:])) for x in xs]
+    if kernel_mode(xs[0].device) == "plain":
+        # the chunks side by side at the kernel's offsets, one plain ring
+        off = _offsets(rows, xs[0].element_size())
+        packed = xs[0].new_zeros(n, off[-1])
+        for i, x in enumerate(xs):
+            packed[:, off[i]:off[i] + rows[i]] = x.reshape(n, rows[i])
+        mine = C.ring_reduce_scatter_chunks(list(packed), group)
+        return [mine[off[i]:off[i] + rows[i]].view(x.shape[1:]) for i, x in enumerate(xs)]
+    xs = [x.contiguous() for x in xs]
+    return [o.view(x.shape[1:]) for o, x in zip(_rs_kernel(xs, rows, group), xs)]
+
+
+def ring_all_gather_group(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """`ring_all_gather` of every tensor of xs (one dtype) as one ring: one
+    launch of B6 for as many as its table and slots hold."""
+    n = _world(group)
+    _check_group("ring_all_gather", xs)
+    if n == 1 or not xs:
+        return [x[None] for x in xs]
+    rows = [x.numel() for x in xs]
+    if kernel_mode(xs[0].device) == "plain":
+        off = _offsets(rows, xs[0].element_size())
+        packed = xs[0].new_zeros(off[-1])
+        for i, x in enumerate(xs):
+            packed[off[i]:off[i] + rows[i]] = x.reshape(-1)
+        full = torch.stack(C.ring_all_gather_chunks(packed, group))
+        return [full[:, off[i]:off[i] + rows[i]].reshape((n,) + x.shape)
+                for i, x in enumerate(xs)]
+    xs = [x.contiguous() for x in xs]
+    outs = _ag_kernel(xs, [n * row for row in rows], group)
+    return [o.view((n,) + x.shape) for o, x in zip(outs, xs)]
 
 
 def ring_all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
@@ -193,9 +291,8 @@ def ring_all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tenso
         mine = C.ring_reduce_scatter_chunks(chunks, group)
         out = torch.cat(C.ring_all_gather_chunks(mine, group))[:size].view(x.shape)
     else:
-        x = x.contiguous()
-        mine = _rs_kernel(x, chunk, chunk, chunk, chunk, group)
-        out = _ag_kernel(mine, chunk, chunk, size, chunk, group).view(x.shape)
+        mine = _rs_kernel([x.contiguous()], [chunk], group)[0]
+        out = _ag_kernel([mine], [size], group)[0].view(x.shape)
     return out.mul_(1.0 / n) if op == "mean" else out
 
 

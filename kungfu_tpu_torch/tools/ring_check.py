@@ -1,7 +1,8 @@
 """The ring kernels against their stacked plain versions, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.ring_check \\
-        [--cases f32:1000003,bf16:4099] [--iters 5] [--seed 0] [--faults] [--device cpu]
+        [--cases f32:1000003,bf16:4099] [--groups f32:256+262144+1000] [--grid 16,32]
+        [--iters 5] [--seed 0] [--faults] [--device cpu]
 
 Each case is `dtype:size`.  Every rank makes every rank's input from the
 seed on its own device (rank r's is `size` normal values), so the check
@@ -25,7 +26,8 @@ exact sum (the bound the JAX package's own tests put on its fused ring).
 the comparison rejects each.
 
 On a card each kernel is then timed: the median of `--iters` calls, each
-between two CUDA events, on every rank at once (for a fused case "rs" is
+between two CUDA events, on every rank at once, and the median host time
+of a call (the wrapper's work up to the launch, `host_ms`) (for a fused case "rs" is
 B7 alone on the payload, "ag" B8 alone on its result).  Rank 0 alone,
 while the others wait, times the stacked plain version (which computes
 every rank's result in one process).  Where every rank has a card of its
@@ -38,6 +40,17 @@ chunks per kernel (of values, or of codes and scales), over 450 GB/s of
 NVLink each way (only between cards), and the bytes the ranks of one card
 read and write (each input read once, each output written once) over its
 3.35 TB/s.
+
+`--groups` adds groups of tensors (`dtype:row+row+...`, each tensor
+`row` values of a rank's chunk, groups separated by `;`) through
+ring_reduce_scatter_group and ring_all_gather_group: rank r's tensor i is
+(n, row) for the reduce-scatter and its first row for the all-gather.
+Each tensor must equal its stacked plain version bit for bit, each call
+must take the launches of `segment_plan`, and with `--faults` a tensor
+shifted by a vector, a last value wrong and a hop left out must be
+rejected.  On a card each group is timed like a case; NCCL's yardstick
+runs on the group's chunks packed into one tensor; `--grid 16,32` also
+times the group with the grid capped at those block counts.
 
 Prints one line `RING_CHECK {json}` and exits non-zero when a check
 failed.  `launch` starts the ranks through the launcher and collects
@@ -52,6 +65,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -199,6 +213,19 @@ def _median_ms(fn, iters: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def _host_ms(fn, iters: int) -> float:
+    """Median host time of one call (the wrapper's issue, up to the
+    kernel's launch), the card idle between calls."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _bound_ms(n: int, sends: Dict[str, float], memory: Dict[str, float],
               own_cards: bool) -> Dict[str, float]:
     """Least time of each function in ms: max(NVLink bytes a rank sends,
@@ -323,6 +350,7 @@ def check_case(name: str, size: int, n: int, d: int, seed: int, device, iters: i
                  "ar": lambda: RC.ring_all_reduce(xs[d], op="mean")}
         dist.barrier()
         res["ms"] = {k: _median_ms(fn, iters) for k, fn in calls.items()}
+        res["host_ms"] = {k: _host_ms(fn, iters) for k, fn in calls.items()}
         dist.barrier()
         if d == 0:
             plain = {"rs": lambda: C._plain_ring_reduce_scatter(x_rs),
@@ -348,6 +376,128 @@ def check_case(name: str, size: int, n: int, d: int, seed: int, device, iters: i
     return res
 
 
+def parse_groups(spec: str) -> List[Tuple[str, List[int]]]:
+    """`dtype:row+row+...;...` -> [(dtype, rows)]: each a group of tensors
+    of `row` values a rank's chunk (f32 or bf16)."""
+    groups = []
+    for item in filter(None, spec.split(";")):
+        name, rows = item.split(":")
+        if name not in DTYPES:
+            raise ValueError(f"group {item!r}: dtype must be one of {sorted(DTYPES)}")
+        groups.append((name, [int(r) for r in rows.split("+")]))
+    return groups
+
+
+def planted_group_faults(xs: Sequence[Sequence[torch.Tensor]], good: Sequence[torch.Tensor],
+                         op: str, d: int) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The plain per-tensor results `good` of a group on rank d with one
+    fault each: the largest tensor shifted by one 16-byte vector (an
+    offset off by one), the last tensor's last value changed (a partial
+    vector dropped), and for the reduce-scatter the first tensor summed
+    without the last rank's part (a hop left out).  xs[i] is every rank's
+    input of tensor i.  A check that accepts any of them is too weak."""
+    vec = 16 // good[0].element_size()
+    big = max(range(len(good)), key=lambda i: good[i].numel())
+    shifted = list(good)
+    shifted[big] = torch.roll(good[big], vec, dims=-1)
+    tail = list(good)
+    tail[-1] = good[-1].clone()
+    tail[-1].view(-1)[-1] = good[-1].view(-1)[-1] + 1
+    faults = [("a tensor shifted by a vector", shifted), ("a last value wrong", tail)]
+    if op == "rs":
+        parts = [x[d] for x in xs[0]]
+        parts[-1] = torch.zeros_like(parts[-1])
+        dropped = list(good)
+        dropped[0] = C._ring_sum(parts, d)
+        faults.append(("a hop left out", dropped))
+    return faults
+
+
+def _grid_ms(calls, cap: int, iters: int) -> Dict[str, float]:
+    """Each call's median time with the ring kernels' grid capped at `cap`
+    blocks (every rank the same cap)."""
+    blocks = RC._blocks
+    RC._blocks = lambda chunk, itemsize, max_blocks: blocks(chunk, itemsize,
+                                                            min(cap, max_blocks))
+    try:
+        dist.barrier()
+        return {k: _median_ms(fn, iters) for k, fn in calls.items()}
+    finally:
+        RC._blocks = blocks
+
+
+def check_group(name: str, rows: Sequence[int], n: int, d: int, seed: int, device, iters: int,
+                faults: bool, own_cards: bool, grids: Sequence[int] = ()) -> Dict:
+    """One group through ring_reduce_scatter_group and
+    ring_all_gather_group: every tensor bit-equal to its stacked plain
+    version, the launches those of `segment_plan` within the slots; on a
+    card their times (also at each grid cap of `grids`), the stacked plain
+    versions', NCCL's on the packed chunks where every rank has a card,
+    and the bound."""
+    dtype = DTYPES[name]
+    xs = [[x.view(n, row) for x in make_inputs(n, n * row, dtype, seed + 7919 * i, device)]
+          for i, row in enumerate(rows)]  # xs[i][r]: rank r's (n, row) of tensor i
+    mine = [[x[0] for x in per_rank] for per_rank in xs]  # rank r's chunk of tensor i
+    want = {"rs": [C._plain_ring_reduce_scatter(x)[d] for x in xs],
+            "ag": [C._plain_ring_all_gather(x)[d] for x in mine]}
+    calls = {"rs": lambda: RC.ring_reduce_scatter_group([x[d] for x in xs]),
+             "ag": lambda: RC.ring_all_gather_group([x[d] for x in mine])}
+    kernels = {"rs": RC.RING_RS, "ag": RC.RING_AG}
+    itemsize = dtype.itemsize
+    total = sum(RC._seg_bytes(row, itemsize) for row in rows)
+    res: Dict = {"dtype": name, "group": list(rows), "segments": len(rows),
+                 "chunk_bytes": total}
+    ok, err, launches = {}, {}, {}
+    for op, call in calls.items():
+        before = kernels[op].launches
+        got = call()
+        launches[op] = kernels[op].launches - before
+        ok[op] = all(torch.equal(g, w) for g, w in zip(got, want[op]))
+        err[op] = max((g.float() - w.float()).abs().max().item() if g.numel() else 0.0
+                      for g, w in zip(got, want[op]))
+        if faults:
+            for fault, bad in planted_group_faults(xs if op == "rs" else [mine], want[op], op, d):
+                ok[f"{op} rejects {fault}"] = not all(torch.equal(g, b) for g, b in zip(got, bad))
+        del got
+    if device.type == "cuda":
+        ws = RC.peer_memory.workspace(None, device)
+        runs = len(RC.segment_plan([(row, dtype) for row in rows], ws.slot_bytes["rs"]))
+        ok["launches"] = launches == {"rs": runs, "ag": runs}
+        res["expected_launches"] = runs
+    res.update(ok=ok, max_abs_err=err, launches=launches)
+    if device.type == "cuda":
+        dist.barrier()
+        res["ms"] = {k: _median_ms(fn, iters) for k, fn in calls.items()}
+        res["host_ms"] = {k: _host_ms(fn, iters) for k, fn in calls.items()}
+        res["grid_ms"] = {str(cap): _grid_ms(calls, cap, iters) for cap in grids}
+        dist.barrier()
+        if d == 0:
+            plain = {"rs": lambda: [C._plain_ring_reduce_scatter(x) for x in xs],
+                     "ag": lambda: [C._plain_ring_all_gather(x) for x in mine]}
+            res["plain_ms"] = {k: _median_ms(fn, iters) for k, fn in plain.items()}
+        dist.barrier()
+        if own_cards:  # NCCL on the same payload: the group's chunks packed
+            width = total // itemsize
+            packed = torch.zeros(n, width, dtype=dtype, device=device)
+            rs_out = torch.empty(width, dtype=dtype, device=device)
+            ag_out = torch.empty(n * width, dtype=dtype, device=device)
+            lib = {"rs": lambda: dist.reduce_scatter_tensor(rs_out, packed),
+                   "ag": lambda: dist.all_gather_into_tensor(ag_out, packed[0])}
+            res["library_ms"] = {k: _median_ms(fn, iters) for k, fn in lib.items()}
+            res["library_note"] = "NCCL on the group's chunks packed into one tensor"
+        else:
+            res["library_ms"] = None
+            res["library_note"] = ("NCCL refuses two ranks of one communicator on one card: "
+                                   "no library time with ranks sharing a card")
+        sends = {k: (n - 1) * total for k in ("rs", "ag", "ar")}
+        memory = {k: sum((n * row + row) * itemsize for row in rows) for k in ("rs", "ag", "ar")}
+        bounds = _bound_ms(n, sends, memory, own_cards)
+        res["bound_ms"] = {k: bounds[k] for k in ("rs", "ag")}
+        res["bound_note"] = ("NVLink bytes each rank sends vs device bytes of its card"
+                             if own_cards else f"device bytes of all {n} ranks on one card")
+    return res
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", default="f32:1000003,bf16:4099")
@@ -355,6 +505,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--faults", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--groups", default="",
+                    help="groups through the grouped B5/B6: dtype:row+row+... separated by ;")
+    ap.add_argument("--grid", default="",
+                    help="also time each group with the grid capped at each of these block "
+                    "counts, comma-separated (a measurement: the wrappers take one block an SM)")
     args = ap.parse_args(argv)
     n = distributed.init_distributed(device=args.device)
     if n < 2:
@@ -373,6 +528,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                 own_cards))
         if device.type == "cuda":
             torch.cuda.empty_cache()  # the ranks of one card share its memory
+    for name, rows in parse_groups(args.groups):
+        cases.append(check_group(name, rows, n, d, args.seed, device, args.iters, args.faults,
+                                 own_cards, [int(g) for g in args.grid.split(",") if g]))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     out = {"rank": d, "n": n, "device": str(device), "backend": dist.get_backend(),
            "card": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "cases": cases, "launches": {k.name: k.launches for k in RC.KERNELS},

@@ -24,11 +24,15 @@ chunk of every sequence.  With `--fsdp N` the ranks form a mesh of dp =
 world / N x fsdp = N and train the flagship with FSDPTrainer (every
 parameter chunked N ways, gathered through the ring all-gather B6 and its
 gradient reduce-scattered through B5), as chip_smoke.py's phase fsdp does
-(flagship_fsdp_step): each rank holds its rows of the batch of `--batch`.
+(flagship_fsdp_step): each rank holds its rows of the batch of `--batch`;
+`--nccl` gathers and reduce-scatters a parameter at a time on
+torch.distributed instead (`dma_collectives=False`, the yardstick).
 Prints the step time on the host clock (with and without the profiler),
 the peak memory, the device time of every kernel
-summed by category (the port's flash kernels, matrix products, the
-optimizer, everything else), the device's idle share (1 - the union of
+summed by category (the port's flash kernels, its ring kernels, NCCL,
+matrix products, the optimizer, everything else), that of B5, B6 and
+NCCL's collectives, the ring kernels' launches a step, the device's idle
+share (1 - the union of
 kernel intervals / the step's wall time), and the kernels that take the
 most device time; the last line is the same as one JSON object.  Needs a
 CUDA card.
@@ -51,6 +55,7 @@ from .. import distributed
 from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
                                   lm_loss_shard)
 from ..fsdp import FSDPTrainer
+from ..ops import ring_collectives as RC
 from ..optimizers import adamw, synchronous_sgd
 from ..plan import make_mesh
 from ..train import DataParallelTrainer
@@ -59,9 +64,15 @@ from ..trainer import MeshTrainer
 CATEGORIES = (  # first match wins
     ("flash kernels (port)", re.compile(r"flash_(fwd|bwd)")),
     ("ring kernels (port)", re.compile(r"ring_(fused_)?(rs|ag)_kernel|ring_shift_kernel")),
+    ("NCCL", re.compile(r"nccl", re.I)),
     ("matrix products", re.compile(r"gemm|sm90_|cutlass|xmma|nvjet|cublas", re.I)),
     ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
 )
+
+
+COLLECTIVES = {"B5": re.compile(r"ring_rs_kernel"), "B6": re.compile(r"ring_ag_kernel"),
+               "NCCL reduce-scatter": re.compile(r"nccl.*ReduceScatter", re.I),
+               "NCCL all-gather": re.compile(r"nccl.*AllGather", re.I)}
 
 
 def _category(name: str) -> str:
@@ -131,14 +142,17 @@ def flagship_sp_step(batch: int, seq_len: int, sp: int, seed: int, device="cuda"
     return cfg, trainer, trainer.init(model), shard
 
 
-def flagship_fsdp_step(batch: int, fsdp: int, seed: int, device="cuda"):
+def flagship_fsdp_step(batch: int, fsdp: int, seed: int, device="cuda",
+                       dma_collectives: bool = True):
     """The flagship's FSDP step: the world's ranks as a mesh of dp = world
     / fsdp x fsdp, `flagship_model` chunked by FSDPTrainer(lm_loss,
-    adamw(3e-4, b1=0.9, b2=0.95)), and this rank's rows of the `batch`
-    sequences of `flagship_tokens`.  Returns (cfg, trainer, state, rows)."""
+    adamw(3e-4, b1=0.9, b2=0.95), dma_collectives), and this rank's rows
+    of the `batch` sequences of `flagship_tokens`.  Returns (cfg, trainer,
+    state, rows)."""
     cfg, model = flagship_model(seed, device)
     trainer = FSDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4, b1=0.9, b2=0.95),
-                          make_mesh(dp=-1, fsdp=fsdp), device=device)
+                          make_mesh(dp=-1, fsdp=fsdp), dma_collectives=dma_collectives,
+                          device=device)
     state = trainer.init(model)
     rows = trainer.shard_batch(flagship_tokens(cfg, batch, seed, device))
     return cfg, trainer, state, rows
@@ -160,6 +174,9 @@ def main() -> int:
     ap.add_argument("--seq-len", type=int, default=2048, help="positions of a sequence (--sp)")
     ap.add_argument("--fsdp", type=int, default=0,
                     help="ranks of an fsdp group (FSDPTrainer; 0: data parallel)")
+    ap.add_argument("--nccl", action="store_true",
+                    help="with --fsdp: FSDPTrainer(dma_collectives=False), a gather and a "
+                    "reduce-scatter of torch.distributed a parameter (the yardstick)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: needs a CUDA card", file=sys.stderr)
@@ -168,8 +185,11 @@ def main() -> int:
     rank = dist.get_rank() if world > 1 else 0
     bucket_bytes = (args.bucket_mib << 20) or None
     if args.fsdp:
-        cfg, trainer, state, tokens = flagship_fsdp_step(args.batch, args.fsdp, args.seed)
-        shard = f"batch {tokens.shape[0]}, fsdp={args.fsdp}"
+        cfg, trainer, state, tokens = flagship_fsdp_step(args.batch, args.fsdp, args.seed,
+                                                         dma_collectives=not args.nccl)
+        buckets = len(getattr(trainer, "_buckets", ()))  # a tree without buckets: 0
+        shard = f"batch {tokens.shape[0]}, fsdp={args.fsdp}, " + (
+            "NCCL a parameter" if args.nccl else f"{buckets or 'no'} buckets")
     elif args.sp > 1:
         cfg, trainer, state, tokens = flagship_sp_step(args.batch, args.seq_len, args.sp,
                                                        args.seed, impl=args.impl,
@@ -192,6 +212,8 @@ def main() -> int:
     m["loss"].item()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     torch.cuda.reset_peak_memory_stats()
+    for kern in RC.KERNELS:
+        kern.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -211,6 +233,10 @@ def main() -> int:
         by_cat[_category(e.name)] += us
         by_name[e.name] += us
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    launches = {k.name: k.launches / args.steps for k in RC.KERNELS}
+    # the collectives of the step by kernel: B5, B6 and NCCL's
+    collectives = {label: sum(us for name, us in by_name.items() if pattern.search(name))
+                   / args.steps / 1e3 for label, pattern in COLLECTIVES.items()}
     steps = args.steps
     step_ms = wall_us / steps / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -220,6 +246,8 @@ def main() -> int:
           f"{step_ms:.1f} ms on the host clock ({plain_step_ms:.1f} ms without the profiler), "
           f"peak memory {peak_gib:.2f} GiB, this process's device busy "
           f"{busy_us / steps / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}")
+    print(f"[profile] collectives ms/step {json.dumps(collectives)}; ring launches a step "
+          f"{json.dumps(launches)}")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: {us / steps / 1e3:.1f} ms/step "
               f"({us / sum(by_cat.values()):.1%} of device time)")
@@ -232,6 +260,7 @@ def main() -> int:
         "device_busy_ms": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,
         "categories_ms": {k: v / steps / 1e3 for k, v in by_cat.items()},
+        "collectives_ms": collectives, "ring_launches": launches,
         "top_kernels_ms": {k[:110]: v / steps / 1e3 for k, v in top},
     }))
     distributed.shutdown_distributed()

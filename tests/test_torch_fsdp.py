@@ -14,6 +14,10 @@ the port's own variants: the gather on torch.distributed
 through `place_state` after one step, bucketed dp legs, and the port's
 DataParallelTrainer on the same data, with Adam and with SGD (whose step,
 unlike Adam's, shows a gradient summed where it should be averaged).
+The trainer gathers and reduce-scatters a bucket of parameters at a time
+(`bucket_plan`); a trainer that runs the DMA pair a parameter at a time
+must train the same bits, and the flagship's 195 parameters must make the
+plan's 12 buckets (shapes only, FakeTensorMode).
 
 Tolerances, with their reasons:
   losses 2e-5 absolute, parameters 1e-5: both sides sum the same f32
@@ -30,8 +34,9 @@ Tolerances, with their reasons:
       (ROADMAP D), and where a gradient is near zero Adam turns that into
       a learning-rate-sized step of either sign (readings: 3.1e-3 at most,
       past 2e-4 on up to 3.4% of a leaf)
-  no tolerance where the arithmetic is the same: remat, train_steps and
-      the restore must equal the plain run bit for bit.
+  no tolerance where the arithmetic is the same: remat, train_steps, the
+      restore and the DMA pair a parameter must equal the plain run bit
+      for bit.
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ WORKER = textwrap.dedent("""
     from kungfu_tpu_torch import convert, distributed
     from kungfu_tpu_torch.fsdp import FSDPTrainer
     from kungfu_tpu_torch.models import transformer as tt
+    from kungfu_tpu_torch.ops.fused_matmul import dma_all_gather
     from kungfu_tpu_torch.optimizers import synchronous_sgd
     from kungfu_tpu_torch.plan import make_mesh
     from kungfu_tpu_torch.train import DataParallelTrainer
@@ -119,8 +125,12 @@ WORKER = textwrap.dedent("""
         for k, v in params.items():
             out[f"{name}/p/{k}"] = v.numpy()
 
-    def run(name, mesh, n=steps, opt=tx, **kw):
-        trainer = FSDPTrainer(loss_fn, opt, make_mesh(**mesh), device="cpu", **kw)
+    class PerLeaf(FSDPTrainer):  # the DMA pair a parameter: no buckets
+        def _gather(self, chunks):
+            return [dma_all_gather(c, self.fsdp_group) for c in chunks]
+
+    def run(name, mesh, n=steps, opt=tx, cls=FSDPTrainer, **kw):
+        trainer = cls(loss_fn, opt, make_mesh(**mesh), device="cpu", **kw)
         state = trainer.init(model())
         batch = trainer.shard_batch(tokens)
         losses = []
@@ -139,6 +149,8 @@ WORKER = textwrap.dedent("""
         "dp2-fsdp2-buckets": (dict(dp=2, fsdp=2), dict(bucket_bytes=40000)),
         "fsdp4-sgd": (dict(fsdp=4), dict(opt=sgd)),
         "dp2-fsdp2-sgd": (dict(dp=2, fsdp=2), dict(opt=sgd)),
+        "fsdp4-per-leaf": (dict(fsdp=4), dict(cls=PerLeaf)),
+        "dp2-fsdp2-per-leaf": (dict(dp=2, fsdp=2), dict(cls=PerLeaf)),
     }
     for name, (mesh, kw) in variants.items():
         trainer, state, batch = run(name, mesh, **kw)
@@ -150,6 +162,7 @@ WORKER = textwrap.dedent("""
                                         for v in state.opt_state.state[p].values()
                                         if v.ndim >= 1])
             out["held/rows"] = batch.numpy()
+            out["held/buckets"] = np.array(trainer._buckets)
 
     trainer = FSDPTrainer(loss_fn, tx, make_mesh(fsdp=4), device="cpu")
     state = trainer.init(model())
@@ -301,6 +314,59 @@ def test_same_arithmetic_is_bit_equal(runs, name):
     want = _params(res, "fsdp4")
     for k, v in _params(res, name).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["fsdp4", "dp2-fsdp2"])
+def test_grouped_step_equals_per_leaf(runs, name):
+    """The gathers and reduce-scatters a bucket of parameters at a time
+    train the bits of a DMA pair a parameter, on every rank; the 2-layer
+    model's 18 parameters make buckets of several."""
+    for res in runs[1]:
+        np.testing.assert_array_equal(res[f"{name}-per-leaf/losses"], res[f"{name}/losses"])
+        want = _params(res, name)
+        for k, v in _params(res, f"{name}-per-leaf").items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+    buckets = runs[1][0]["held/buckets"]
+    leaves = len(runs[1][0]["held/full"])
+    assert 1 < len(buckets) < leaves
+
+
+def _flagship_chunks(n: int):
+    """A rank's chunks of the flagship GPT's 195 parameters at fsdp=n, as
+    tensors without storage (FakeTensorMode: the shapes, not 1.5 GB)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        cfg = tt.TransformerConfig(**{**tt.FLAGSHIP_GPT, "dtype": torch.bfloat16,
+                                      "attention": "flash"})
+        model = tt.TransformerLM(cfg, device="cpu")
+        return [torch.empty(-(-p.numel() // n), dtype=p.dtype) for p in model.parameters()]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bucket_plan_of_the_flagship(n):
+    """Consecutive parameters in the module's order, every one in exactly
+    one bucket, no bucket past the slot of the largest chunk unless it
+    holds one parameter, at most the segment table's count; 12 buckets of
+    the 195 parameters at fsdp=4 (the embedding, ten of 13-22 parameters,
+    the head)."""
+    from kungfu_tpu_torch.fsdp import _ring_bytes, bucket_plan
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    chunks = _flagship_chunks(n)
+    assert len(chunks) == 195
+    plan = bucket_plan(chunks)
+    assert [i for start, stop in plan for i in range(start, stop)] == list(range(195))
+    cap = _ring_bytes(chunks)
+    assert cap == -(-chunks[0].numel() * 4 // 4096) * 4096  # the embedding's chunk
+    for start, stop in plan:
+        assert 1 <= stop - start <= RC.MAX_SEGMENTS
+        nbytes = sum(-(-c.numel() * 4 // 16) * 16 for c in chunks[start:stop])
+        assert nbytes <= cap or stop - start == 1
+    assert plan[0] == (0, 1) and plan[-1] == (194, 195)
+    if n == 4:
+        assert len(plan) == 12
+        assert max(stop - start for start, stop in plan) == 22
 
 
 @pytest.mark.parametrize("name,other", [("fsdp4-lib", "fsdp4"), ("dp4", "fsdp4"),
