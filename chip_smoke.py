@@ -40,8 +40,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              .residual_, csrc/ring.cu) against its plain version
              (compression.quant.residual on the card), bit for bit, int8 and
              fp8, at every gradient size of the GQA flagship and a ragged
-             1,000,003; its time at the largest gradient and over one step's
-             gradients, the plain version's, and the bound
+             1,000,003; then grouped (residual_group_) over all 195 of its
+             gradients: one launch, every gradient bit-equal to its own
+             launch and to the plain version; the time of the step's
+             grouped call, of a launch per gradient and of the largest
+             gradient alone, the plain version's, and the bound
  7. ring     4 ranks started by `python -m kungfu_tpu_torch.run`, rank r on
              card r mod count (all four on a machine with one card), each
              running tools/ring_check: the ring reduce-scatter (B5) and
@@ -82,7 +85,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              first step's loss within 1e-2 of phase gqa-ref's, the replicas
              bit-identical, B1, B2 and B4 launched once per layer per step,
              B7 and B8 once per bucket per step, the residual kernel once
-             per gradient per step, B3, B5 and B6 never
+             a step (one table of the 195 gradients), B3, B5 and B6 never
 10. shift    4 ranks through the launcher, each running tools/shift_check:
              the ring shift kernel (B11) bit-equal to its stacked plain
              version (torch.roll over the ranks' payloads) on a K/V pair of
@@ -90,9 +93,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              shift +1 and -1 and on an odd byte count at +1 and +2, then
              interleaved with B5-B8 calls of other sizes; planted faults (a
              pair shifted the wrong way, a 16-byte vector corrupted)
-             rejected; its time per call (median of 5), the plain
-             version's, NCCL's batch_isend_irecv where every rank has a card
-             of its own, and the bound
+             rejected; the pair on the side stream beside a flash forward
+             of ring attention's block shape on the current stream (both
+             bit-equal to their results alone) and at grids of 8, 16, 32
+             and 66 blocks (bit for bit); its time per call (median of 20),
+             the wrapper's issue, at each grid, beside the flash call, the
+             plain version's, NCCL's batch_isend_irecv where every rank has
+             a card of its own, and the bound
 11. sp-ref   the flagship at 8192 positions (max_len 8192) on the 2
              sequences of phase sp, in one process with flash attention
              over the whole sequence, forward only: the first-step loss
@@ -104,7 +111,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              B6, --bucket-mib buckets), 3 steps (SP_STEPS): loss finite and
              falling, the first step's loss within 1e-2 of phase sp-ref's,
              the replicas bit-identical, B11 launched 2 x 3 x 24 = 144 times
-             a step on every rank and B1, B2 and B3 24 x (r + 1) times on
+             a step on every rank, every one on the workspace's side stream
+             (each hop's rotation issued before the previous hop's flash
+             block, its backward on the same stream), and B1, B2 and B3 24 x (r + 1) times on
              rank r (the causal ring skips the blocks of later ranks), B5
              and B6 once per bucket; the slowest rank's step time, tokens/s
              and peak memory per rank
@@ -207,6 +216,7 @@ FSDP_STEPS = 3  # phase fsdp: each step makes 24 ring calls (a card switch each 
 N_RANKS = 4
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
+SHIFT_GRIDS = "8,16,32,66"  # phase shift: B11's grids checked and timed
 RANKS_LINE = "RANKS_RESULT "
 SP_LINE = "SP_RESULT "
 FSDP_LINE = "FSDP_RESULT "
@@ -586,26 +596,46 @@ def phase_ef(shapes, seed: int):
             del c, want, got
     print(f"[ef] residual kernel bit-equal to the plain version, int8 and fp8, at "
           f"{len(sizes)} sizes from {sizes[0]} to {sizes[-1]} values")
-    cfg = tc.INT8
-    n = max(sizes)
-    c = gradient(n)
-    x = c.clone()
-    ms = time_ms(lambda: EF.residual_(x, cfg), 20)
-    plain = time_ms(lambda: tc.quant.residual(c, cfg), 3, 1)
-    bound = _bound(6 * n, 8 * n, torch.float32)  # read and write 4 bytes a value
-    del c, x
-    bufs = [torch.randn(math.prod(s), generator=gen, device="cuda") for s in shapes]
+    # one step's gradients, every one of the GQA flagship's, in one grouped call
+    bufs = [gradient(math.prod(s)) for s in shapes]
     total = sum(b.numel() for b in bufs)
-    step_ms = time_ms(lambda: [EF.residual_(b, cfg) for b in bufs], 3, 1)
-    print(f"[ef] int8 at the largest gradient ({n} values): {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"bound {bound[0]:.4f} ms ({bound[1]}: {8 * n / 1e6:.1f} MB); one step's "
-          f"{len(bufs)} gradients ({total} values): {step_ms:.3f} ms in {len(bufs)} launches, "
-          f"bound {8 * total / PEAK_BYTES_PER_S * 1e3:.4f} ms; library: none computes a "
-          f"blockwise quantization residual")
-    del bufs
+    tables = len(EF.ef_plan([b.numel() for b in bufs]))
+    for scheme in ("int8", "fp8"):
+        cfg = tc.resolve(scheme)
+        grouped = [b.clone() for b in bufs]
+        before = EF.EF_RESIDUAL.launches
+        EF.residual_group_(grouped, cfg)
+        launched = EF.EF_RESIDUAL.launches - before
+        check(launched == tables, f"ef_residual group {scheme}: {launched} launches for "
+              f"{len(bufs)} gradients, expected {tables}")
+        for i, (b, g) in enumerate(zip(bufs, grouped)):
+            one = EF.residual_(b.clone(), cfg)  # a launch for this tensor alone
+            check(torch.equal(g.view(torch.int32), one.view(torch.int32)),
+                  f"ef_residual group {scheme}: gradient {i} ({b.numel()} values) not "
+                  f"bit-equal to its own launch (max abs err {max_err(g, one):.3g})")
+            err = max(err, max_err(g, tc.quant.residual(b, cfg)))
+            del one
+        del grouped
+    print(f"[ef] grouped residual of the {len(bufs)} gradients ({total} values) in "
+          f"{tables} launch(es), int8 and fp8: every gradient bit-equal to its own launch "
+          f"and to the plain version")
+    cfg = tc.INT8
+    largest = max(bufs, key=lambda b: b.numel())
+    n = largest.numel()
+    big = time_ms(lambda: EF.residual_(largest, cfg), 20)
+    step_ms = time_ms(lambda: EF.residual_group_(bufs, cfg), 10, 2)
+    per_tensor_ms = time_ms(lambda: [EF.residual_(b, cfg) for b in bufs], 3, 1)
+    plain = time_ms(lambda: [tc.quant.residual(b, cfg) for b in bufs], 2, 1)
+    bound = _bound(6 * total, 8 * total, torch.float32)  # read and write 4 bytes a value
+    print(f"[ef] int8, one step's {len(bufs)} gradients ({total} values): grouped "
+          f"{step_ms:.3f} ms in {tables} launch(es), a launch per gradient "
+          f"{per_tensor_ms:.3f} ms, plain {plain:.3f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {8 * total / 1e6:.1f} MB); the largest gradient ({n} values) alone "
+          f"{big:.3f} ms; library: none computes a blockwise quantization residual")
+    del bufs, largest
     torch.cuda.empty_cache()
     name = EF.EF_RESIDUAL.name
-    return {name: err}, {name: ms}, {name: plain}, {name: None}, {name: bound}
+    return {name: err}, {name: step_ms}, {name: plain}, {name: None}, {name: bound}
 
 
 def phase_model_check(seed: int):
@@ -804,8 +834,8 @@ def phase_shift(seed: int):
     with B5-B8; its time, the plain version's and the bound."""
     from kungfu_tpu_torch.ops import fused_matmul as FM
 
-    _, res = spawn_ranks(["shift", "--interleave", "--faults", "--iters", "20", "--seed",
-                          str(seed)], "SHIFT_CHECK ", 600)
+    _, res = spawn_ranks(["shift", "--interleave", "--faults", "--beside-flash", "--grid",
+                          SHIFT_GRIDS, "--iters", "20", "--seed", str(seed)], "SHIFT_CHECK ", 600)
     for r, rr in sorted(res.items()):
         bad = [k for k, v in rr["ok"].items() if not v]
         check(rr["ok_all"], f"shift rank {r}: failed {bad}, max abs err "
@@ -821,9 +851,21 @@ def phase_shift(seed: int):
           f"plain version bit for bit; planted faults rejected; launches on rank 0 "
           f"{json.dumps(r0['launches'])}")
     print(f"[shift] K/V pair {r0['kv']} bf16 x 2 ({t0['bytes'] / 1e6:.1f} MB) at +1: kernel "
-          f"{ms:.3f} ms (slowest rank; {r0['timing']['how']}), plain {t0['plain_ms']:.3f} ms (all ranks in one "
+          f"{ms:.3f} ms (slowest rank; {r0['timing']['how']}; grid {FM.SHIFT_GRID}), "
+          + (f"device alone {max(rr['timing']['device_ms'] for rr in res.values()):.3f} ms, "
+             if "device_ms" in t0 else "") + f"host issue "
+          f"{max(rr['timing']['host_ms'] for rr in res.values()):.3f} ms, plain "
+          f"{t0['plain_ms']:.3f} ms (all ranks in one "
           f"process), bound {t0['bound_ms']:.4f} ms ({t0['bound_note']}), library "
           f"{f'{lib:.3f} ms (NCCL batch_isend_irecv)' if lib is not None else 'null: ' + t0['library_note']}")
+    grid = {g: max(rr["grid_ms"][g] for rr in res.values()) for g in r0["grid_ms"]}
+    print(f"[shift] grid sweep, the pair bit-equal at every grid, ms (slowest rank): "
+          + ", ".join(f"{g} blocks {t:.3f}" for g, t in grid.items()))
+    side = {k: max(rr["beside_flash_ms"][k] for rr in res.values())
+            for k in ("flash", "shift", "both")}
+    print(f"[shift] beside a flash forward on the current stream (both bit-equal to their "
+          f"results alone), ms (slowest rank): flash {side['flash']:.3f}, shift "
+          f"{side['shift']:.3f}, both {side['both']:.3f} ({r0['beside_flash_ms']['how']})")
     name = FM.SHIFT.name
     return ({name: err}, {name: ms}, {name: t0["plain_ms"]}, {name: lib},
             {name: (t0["bound_ms"], "bytes")})
@@ -1013,7 +1055,9 @@ def rank_train(argv) -> int:
                   RC.FUSED_RS: bool(args.compression), RC.FUSED_AG: bool(args.compression)}
     want = {k.name: cfg.n_layers * args.steps * on for k, on in per_layer.items()}
     want.update({k.name: buckets * args.steps * on for k, on in per_bucket.items()})
-    want[EF.EF_RESIDUAL.name] = len(params) * args.steps * bool(args.compression)
+    # the residuals of a step's gradients: one grouped launch a table
+    want[EF.EF_RESIDUAL.name] = (len(EF.ef_plan([p.numel() for p in params])) * args.steps
+                                 * bool(args.compression))
     checks = {
         "loss finite": all(math.isfinite(x) for x in losses),
         "loss falls": losses[-1] < losses[0],
@@ -1086,6 +1130,7 @@ def rank_sp(argv) -> int:
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
+    FM.SHIFT.side_launches = 0
     losses, times = [], []
     for step in range(args.steps):
         t0 = time.perf_counter()
@@ -1095,6 +1140,7 @@ def rank_sp(argv) -> int:
         print(f"[sp] rank {rank} step {step + 1}: loss {losses[-1]:.4f}, "
               f"{times[-1] * 1e3:.1f} ms", flush=True)
     launches = {k.name: k.launches for k in kernels}
+    side = FM.SHIFT.side_launches
     sums = [p.detach().view(torch.int32).to(torch.int64).sum().item() for p in params]
     every = [None] * world
     dist.all_gather_object(every, sums)
@@ -1112,9 +1158,11 @@ def rank_sp(argv) -> int:
         "loss falls": losses[-1] < losses[0],
         "replicas bit-identical": all(s == every[0] for s in every),
         "launches": launches == want,
+        "every shift on the side stream": side == launches[FM.SHIFT.name],
         "no JAX": jax_free(),
     }
     result = {"rank": rank, "sp_rank": sp_rank, "backend": dist.get_backend(),
+              "side_launches": side,
               "losses": losses,
               "step_s": statistics.median(times[1:]) if args.steps > 1 else times[0],
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "buckets": buckets,

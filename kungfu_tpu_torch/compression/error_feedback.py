@@ -18,13 +18,16 @@ bucket of them.
 compressed S-SGD step (optimizers/sync.py) runs them: the residual's
 memory holds c until the collective has read it, then the new residual,
 so a step keeps one f32 copy of the gradients.  Under deterministic int8
-and fp8 the new residual of a CUDA tensor is one launch of a hand-written
-kernel (csrc/ring.cu `ef_residual_kernel`, on the fused ring kernels'
-codec); a CPU tensor takes its plain version, `quant.residual`.
+and fp8 the new residuals of a step's CUDA gradients are one launch of a
+hand-written kernel (csrc/ring.cu `ef_residual_kernel`, on the fused ring
+kernels' codec) over a table of up to EF_TABLE tensors (`residual_group_`;
+more tensors take more launches, `ef_plan`); a CPU tensor takes its plain
+version, `quant.residual`.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+import ctypes
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,11 +37,13 @@ from .config import CompressionConfig, resolve
 from .quant import CODE_RECIP, residual
 
 # The reference computes the residual with XLA ops (no Pallas kernel); on
-# the card it is this one kernel per gradient.
+# the card it is this one kernel over a table of the step's gradients.
 EF_RESIDUAL = Kernel("ef_residual", "kungfu_tpu_torch/ops/csrc/ring.cu",
                      "kungfu_tpu/compression/error_feedback.py:55")  # residual_update
 KERNELS = (EF_RESIDUAL,)
 _SEG = 256  # values one warp of the kernel quantizes at a time
+EF_TABLE = 250  # csrc/ring.cu kEfMax: tensors in one launch (16-byte entries in 4 KB)
+EF_PIECE = 1 << 31  # values of one table entry at most: a larger tensor takes several
 
 
 class EFState(NamedTuple):
@@ -88,44 +93,91 @@ def correct_(updates: Any, state: EFState) -> Any:
     return _map(lambda g, r: r.add_(g), updates, state.residual)
 
 
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _map(out.append, tree)
+    return out
+
+
 def residual_update_(corrected: Any, cfg: CompressionConfig,
                      generator: Optional[torch.Generator] = None) -> EFState:
     """`residual_update` in place: each corrected f32 tensor becomes its
-    residual c - Q(c); returns the state that holds them."""
+    residual c - Q(c); returns the state that holds them.  Under a
+    deterministic int8 or fp8 config the tensors go through
+    `residual_group_` together."""
     cfg = resolve(cfg)
     if cfg.scheme == "none":
         return EFState(residual=_map(lambda c: c.zero_(), corrected))
     if cfg.is_quantized and not cfg.stochastic:
-        return EFState(residual=_map(lambda c: residual_(c, cfg), corrected))
+        residual_group_(_leaves(corrected), cfg)
+        return EFState(residual=corrected)
     return EFState(residual=_map(lambda c: c.copy_(residual(c, cfg, generator)), corrected))
 
 
-def residual_(c: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
-    """c - roundtrip(c) in place on a contiguous f32 tensor, under a
-    deterministic int8 or fp8 config: the `ef_residual` kernel for a CUDA
-    tensor (a block of 8 to 256 values that divides 256), its plain
-    version for a CPU one."""
+def ef_plan(sizes: Sequence[int]) -> List[List[Tuple[int, int, int]]]:
+    """The launches of the residual kernel over tensors of `sizes` values:
+    each a table of at most EF_TABLE entries (tensor index, first value,
+    values).  A tensor above EF_PIECE values takes several entries, each
+    starting on a multiple of 256 values (so on a quantization block of
+    the tensor); an empty tensor takes none.  Never refuses a list."""
+    launches: List[List[Tuple[int, int, int]]] = [[]]
+    for i, n in enumerate(sizes):
+        for first in range(0, n, EF_PIECE):
+            if len(launches[-1]) == EF_TABLE:
+                launches.append([])
+            launches[-1].append((i, first, min(EF_PIECE, n - first)))
+    return [t for t in launches if t]
+
+
+def residual_group_(cs: Sequence[torch.Tensor], cfg: CompressionConfig
+                    ) -> List[torch.Tensor]:
+    """c - roundtrip(c) in place on every tensor of cs (contiguous f32, one
+    device), under a deterministic int8 or fp8 config: on a card one launch
+    of the `ef_residual` kernel per table of `ef_plan` (a block of 8 to 256
+    values that divides 256), bit-equal to a launch per tensor; on the CPU
+    the plain version, tensor by tensor."""
     cfg = resolve(cfg)
     if cfg.scheme not in CODE_RECIP or cfg.stochastic:
         raise NotImplementedError(
             f"ef_residual: {cfg.describe()} has no kernel (deterministic int8/fp8 only)")
-    if c.dtype != torch.float32 or not c.is_contiguous():
-        raise ValueError(f"ef_residual: needs a contiguous f32 tensor, got {c.dtype}")
-    if kernel_mode(c.device) == "plain":
-        return c.copy_(residual(c, cfg))
+    cs = list(cs)
+    for c in cs:
+        if c.dtype != torch.float32 or not c.is_contiguous():
+            raise ValueError(f"ef_residual: needs contiguous f32 tensors, got {c.dtype}"
+                             f"{'' if c.is_contiguous() else ' (not contiguous)'}")
+    devices = {c.device for c in cs}
+    if len(devices) > 1:
+        raise ValueError(f"ef_residual: the tensors lie on {sorted(map(str, devices))}, "
+                         "not on one device")
+    if not cs:
+        return cs
+    device = cs[0].device
+    if kernel_mode(device) == "plain":
+        for c in cs:
+            c.copy_(residual(c, cfg))
+        return cs
     if cfg.block % 8 or _SEG % cfg.block:
         raise NotImplementedError(
             f"ef_residual: block {cfg.block} has no kernel (blocks of 8 to 256 values "
             "that divide 256)")
-    if c.numel() == 0:
-        return c
     from ..ops import _build
 
     fn = _build.function("kft_ef_residual")
-    with torch.cuda.device(c.device):
-        err = fn(c.data_ptr(), c.numel(), 0 if cfg.scheme == "int8" else 1, cfg.block,
-                 float(CODE_RECIP[cfg.scheme]), torch.cuda.current_stream(c.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{EF_RESIDUAL.name}: kernel launch failed with CUDA error {err}")
-    EF_RESIDUAL.launches += 1
-    return c
+    scheme, recip = (0 if cfg.scheme == "int8" else 1), float(CODE_RECIP[cfg.scheme])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for table in ef_plan([c.numel() for c in cs]):
+            entries = (ctypes.c_longlong * (2 * len(table)))(
+                *(v for i, first, n in table for v in (cs[i].data_ptr() + 4 * first, n)))
+            err = fn(entries, len(table), scheme, cfg.block, recip, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"{EF_RESIDUAL.name}: kernel launch failed with CUDA error {err}")
+            EF_RESIDUAL.launches += 1
+    return cs
+
+
+def residual_(c: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
+    """c - roundtrip(c) in place on one contiguous f32 tensor: a group of
+    one (`residual_group_`)."""
+    return residual_group_([c], cfg)[0]

@@ -55,7 +55,7 @@ SIGNATURES = {
     "kft_ring_frs": ([_P, _L, _P, _I, _I, _F] + _RING, "ring"),
     "kft_ring_fag": ([_P, _P, _L, _I, _I, _F] + _RING, "ring"),
     "kft_ring_shift": ([_P, _P, _L, _P, _P, _L, _I] + _RING, "ring"),
-    "kft_ef_residual": ([_P, _L, _I, _I, _F, _P], "ring"),
+    "kft_ef_residual": ([_LP, _I, _I, _I, _F, _P], "ring"),
     "kft_ag_matmul": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
     "kft_matmul_rs": ([_P, _P, _P, _I, _I, _I, _I] + _RING, "fused_matmul"),
     "kft_mm_product": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], "fused_matmul"),

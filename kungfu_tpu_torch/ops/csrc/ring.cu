@@ -120,8 +120,9 @@
 // cannot be exchanged by two ranks issuing them in different orders.  It is
 // bound by bytes: between cards the payload crosses NVLink once (450 GB/s
 // each way), on one card every rank reads and writes it twice (its slot in
-// between).  Its first version stores into the peer and copies out in two
-// passes; the copy-out could land in place of the slot in a later one.
+// between).  Ring attention runs it on a side stream under its flash
+// blocks, so it moves its bytes with the copy engine from a small grid, in
+// stages whose copy-out overlaps the incoming stores (the shift section).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -563,6 +564,114 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------- shift ----
+// B11 runs on a side stream under ring attention's flash blocks
+// (parallel/ring_attention.py), so it is built to share the card: a small
+// grid of 64-thread blocks, one lane of warp 0 sending and one lane of
+// warp 1 receiving, both moving their bytes with the copy engine (bulk
+// asynchronous copies through shared memory), not with the threads.
+//
+//   send     source -> shared memory (cp.async.bulk, completing on an
+//            mbarrier) -> the peer's slot (cp.async.bulk...bulk_group),
+//            kStage bytes a stage, kSendBufs stages in shared memory;
+//            every kChunk stages, once those stores are complete
+//            (wait_group, with the newest kSignalLag still in flight), a
+//            proxy fence and a release store raise the block's flag to
+//            count them
+//   receive  waits for each stage's count in its own flag, then slot ->
+//            shared memory -> the output, by bulk copies too, loads up to
+//            kRecvBufs - 1 stages ahead, so the copy-out of a chunk
+//            overlaps the stores of the next ones
+//
+// What it costs (4 x H100 80GB HBM3 at 700 W, the 16.8 MB pair, 32 blocks,
+// a call with its host issue): raising the flag after every 8 KB stage (a
+// wait for the store's completion and a system release each) took
+// 0.43-0.46 ms, one count at the end 0.18 ms with the copy-out after it,
+// a count a chunk 0.15-0.16 ms; so a count covers kChunk stages, and the
+// copy-out keeps several loads in flight.
+//
+// The flag of block b holds (call << kStageBits) + the stages that landed,
+// so a flag per stage costs one word per block.  Block b owns a range of
+// the pair's 16-byte vectors (K's, then V's) and its peer's block b the
+// same range, so only block b of the two ranks meet.  The last block also
+// carries the byte tails (sizes that are not a multiple of 16) with plain
+// stores, as one more stage.  A block that gives up waiting drains the
+// copies it issued before it leaves.
+constexpr int kShiftThreads = 64;  // warp 0 sends, warp 1 receives
+constexpr int kStage = 16384;      // bytes of one bulk copy
+constexpr int kSendBufs = 4;       // the sender's stages in shared memory
+constexpr int kRecvBufs = 4;       // the receiver's
+constexpr int kChunk = 8;          // stages a count of the flag covers (128 KB)
+constexpr int kSignalLag = 2;      // stores left in flight while a count is raised
+constexpr int kStageBits = 20;     // flag = (seq << kStageBits) + stages landed
+constexpr int kShiftSmem = (kSendBufs + kRecvBufs) * kStage;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// A local copy completes within microseconds; one that does not (a fault)
+// traps, failing the launch, instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity, u64 limit_ns) {
+  if (mbar_try_wait(bar, parity)) return;
+  const u64 deadline = globaltimer() + limit_ns;
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer() > deadline) __trap();
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` from shared `src` to global `dst` (a peer's slot or an output),
+// as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's bulk groups still pending: complete, or
+// (kRead) done reading shared memory.
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Between the copy engine's accesses and this thread's ordinary ones
+// (both directions, global memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // One payload of a shift: `bytes` bytes from src to dst, at `offset` bytes
 // (a multiple of 16) into the slot.
 struct Part {
@@ -571,81 +680,254 @@ struct Part {
   long long bytes, offset;
 };
 
-// Block b's share of `bytes` bytes from `from` to `to` (both 16-byte
-// aligned): its range of 16-byte vectors, and for the last block the tail
-// of bytes % 16 single bytes.  `kFromSlot`: `from` is this rank's slot,
-// stored by a peer, read through L2.
-template <bool kFromSlot>
-__device__ __forceinline__ void copy_share(const char* from, char* to, long long bytes) {
-  const long long nvec = bytes / 16;
+// Block b's share of a shift: its range of the pair's 16-byte vectors (K's
+// then V's, `block_range`), as up to two pieces, cut into stages.
+struct Share {
+  const char* src[2];
+  char* dst[2];
+  long long slot[2], len[2];
+  int stages[2];
+
+  __device__ int count() const { return stages[0] + stages[1]; }
+  // stage i: its piece and its first byte in that piece
+  __device__ int piece(int i) const { return i < stages[0] ? 0 : 1; }
+  __device__ long long at(int i) const {
+    return (long long)(i < stages[0] ? i : i - stages[0]) * kStage;
+  }
+  __device__ int bytes(int i) const {
+    const int k = piece(i);
+    return (int)min((long long)kStage, len[k] - at(i));
+  }
+};
+
+__device__ __forceinline__ Share share_of(const Part& p0, const Part& p1) {
+  const long long n0 = p0.bytes / 16, n1 = p1.bytes / 16;
   long long v0, v1;
-  block_range(nvec, &v0, &v1);
-  const uint4* src = reinterpret_cast<const uint4*>(from);
-  uint4* dst = reinterpret_cast<uint4*>(to);
-  for (long long v = v0 + threadIdx.x; v < v1; v += kUnroll * kThreads) {
-    uint4 r[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      long long w = v + u * kThreads;
-      if (w < v1) r[u] = kFromSlot ? __ldcg(src + w) : src[w];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      long long w = v + u * kThreads;
-      if (w < v1) dst[w] = r[u];
-    }
-  }
-  const long long tail = bytes - nvec * 16;
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
-    const long long i = nvec * 16 + threadIdx.x;
-    const unsigned char* f = reinterpret_cast<const unsigned char*>(from);
-    to[i] = (char)(kFromSlot ? __ldcg(f + i) : f[i]);
-  }
+  block_range(n0 + n1, &v0, &v1);
+  const long long a0 = min(v0, n0), a1 = min(v1, n0);
+  const long long b0 = max(v0, n0) - n0, b1 = max(v1, n0) - n0;
+  Share s;
+  s.src[0] = p0.src + a0 * 16, s.dst[0] = p0.dst + a0 * 16, s.slot[0] = p0.offset + a0 * 16;
+  s.src[1] = p1.src + b0 * 16, s.dst[1] = p1.dst + b0 * 16, s.slot[1] = p1.offset + b0 * 16;
+  s.len[0] = (a1 - a0) * 16, s.len[1] = (b1 - b0) * 16;
+  for (int k = 0; k < 2; ++k) s.stages[k] = (int)((s.len[k] + kStage - 1) / kStage);
+  return s;
 }
 
-// The shift of up to two payloads (K and V of one hop) as one call: every
-// block stores its share of both into the peer's slot (c.ws.right is rank
-// + shift), raises its flag there, waits for the flag of the same block in
-// its own slot (stored by rank - shift) and copies its share out.  `shift`
-// is only recorded with an error, to name the two peers.
-__global__ void __launch_bounds__(kThreads)
-    ring_shift_kernel(Call c, Part p0, Part p1, int shift) {
-  const int b = blockIdx.x;
-  const Layout own = layout(c.ws, c.ws.own, kShift), peer = layout(c.ws, c.ws.right, kShift);
+// The byte tails (bytes % 16 of each payload) go with the last block.
+__device__ __forceinline__ bool has_tail(const Part& p0, const Part& p1) {
+  return blockIdx.x == gridDim.x - 1 && ((p0.bytes | p1.bytes) & 15);
+}
+
+template <bool kFromSlot>
+__device__ __forceinline__ void copy_tail(const Part& p, const char* from, char* to) {
+  for (long long i = p.bytes / 16 * 16; i < p.bytes; ++i)
+    to[i] = kFromSlot ? (char)__ldcg(reinterpret_cast<const unsigned char*>(from) + i) : from[i];
+}
+
+// The stores of this block's stages so far are complete in the peer's
+// slot (wait_group): count them.  The proxy fence orders the copy engine's
+// writes before this thread's release of the flag.
+__device__ __forceinline__ void count_stages(u64* flag, u64 value) {
+  fence_proxy_async();
+  st_release(flag, value);
+}
+
+// Until at most n (0 to kRecvBufs - 1) of this thread's bulk groups are
+// still reading shared memory.
+__device__ __forceinline__ void bulk_wait_read(int n) {
+  switch (n) {
+    case 0: bulk_wait<0, true>(); break;
+    case 1: bulk_wait<1, true>(); break;
+    case 2: bulk_wait<2, true>(); break;
+    default: bulk_wait<3, true>(); break;
+  }
+}
+static_assert(kRecvBufs == 4, "bulk_wait_read covers n up to kRecvBufs - 1");
+
+// Warp 0, lane 0: this block's share into the peer's slot, stage by stage.
+__device__ bool send_share(const Call& c, const Share& s, const Part& p0, const Part& p1,
+                           const Layout& own, const Layout& peer, uint32_t bufs,
+                           uint32_t bars, int shift) {
+  const int S = s.count();
+  const bool tail = has_tail(p0, p1);
+  if (S == 0 && !tail) return true;
   // the peer has read what the earlier shifts stored into its slot
-  if (!block_wait(c, peer.ack, c.ack_want, own.claim, err_ack(kShift), shift)) return;
+  if (!thread_wait(c, peer.ack, c.ack_want, own.claim, err_ack(kShift), shift)) return false;
   char* send = slot(peer, 0);
-  copy_share<false>(p0.src, send + p0.offset, p0.bytes);
-  copy_share<false>(p1.src, send + p1.offset, p1.bytes);
-  block_signal(peer.flags + b, c.seq);
-  if (!block_wait(c, own.flags + b, c.seq, own.claim, err_data(kShift), shift)) return;
+  u64* flag = peer.flags + blockIdx.x;
+  const u64 base = c.seq << kStageBits;
+  auto load = [&](int i) {
+    const int k = s.piece(i);
+    bulk_load(bufs + (i % kSendBufs) * kStage, s.src[k] + s.at(i), s.bytes(i),
+              bars + 8 * (i % kSendBufs));
+  };
+  for (int i = 0; i < S && i < kSendBufs; ++i) load(i);
+  for (int i = 0; i < S; ++i) {
+    const int k = s.piece(i);
+    mbar_wait(bars + 8 * (i % kSendBufs), (i / kSendBufs) & 1, c.timeout_ns);
+    bulk_store(send + s.slot[k] + s.at(i), bufs + (i % kSendBufs) * kStage, s.bytes(i));
+    if (i >= 1 && i - 1 + kSendBufs < S) {  // stage i - 1's buffer is read: refill it
+      bulk_wait<1, true>();
+      load(i - 1 + kSendBufs);
+    }
+    // every kChunk stages, count those complete but the newest kSignalLag
+    const int j = i - kSignalLag;
+    if (j >= 0 && (j + 1) % kChunk == 0 && j + 1 < S) {
+      bulk_wait<kSignalLag, false>();
+      count_stages(flag, base + (u64)(j + 1));
+    }
+  }
+  bulk_wait<0, false>();
+  if (tail) {
+    copy_tail<false>(p0, p0.src, send + p0.offset);
+    copy_tail<false>(p1, p1.src, send + p1.offset);
+    __threadfence_system();
+  }
+  count_stages(flag, base + (u64)S + tail);
+  return true;
+}
+
+// Warp 1, lane 0: this block's share out of its own slot as it lands,
+// stage j's load issued up to kRecvBufs - 1 stages ahead of its store.
+__device__ bool receive_share(const Call& c, const Share& s, const Part& p0, const Part& p1,
+                              const Layout& own, uint32_t bufs, uint32_t bars, int shift) {
+  const int S = s.count();
+  const bool tail = has_tail(p0, p1);
   const char* recv = slot(own, 0);
-  copy_share<true>(recv + p0.offset, p0.dst, p0.bytes);
-  copy_share<true>(recv + p1.offset, p1.dst, p1.bytes);
-  block_ack(own.ack);  // slot read: rank - shift of a later call may refill it
+  const u64* flag = own.flags + blockIdx.x;
+  const u64 base = c.seq << kStageBits;
+  u64 landed = 0;
+  auto poll = [&]() {  // the stages landed so far, without waiting
+    const u64 v = ld_acquire(flag);
+    if (v > base + landed) {
+      landed = v - base;
+      fence_proxy_async();  // the peer's stores, acquired, before the copy engine reads them
+    }
+  };
+  auto arrived = [&](u64 want) {
+    if (landed >= want) return true;
+    if (!thread_wait(c, flag, base + want, own.claim, err_data(kShift), shift)) return false;
+    poll();
+    return true;
+  };
+  int issued = 0;  // loads issued: stages [0, issued)
+  for (int j = 0; j < S; ++j) {  // stage j's store
+    while (issued < S && issued < j + kRecvBufs) {
+      if (landed < (u64)issued + 1) poll();
+      if (landed < (u64)issued + 1) {
+        if (issued > j) break;  // stage j's load is in flight: store it first
+        if (!arrived((u64)issued + 1)) {
+          bulk_wait<0, false>();  // no load is in flight; the stores issued end
+          return false;
+        }
+      }
+      // the buffer's last stage, issued - kRecvBufs, has been read by its store
+      bulk_wait_read(j - 1 - issued + kRecvBufs);
+      const int k = s.piece(issued);
+      bulk_load(bufs + (issued % kRecvBufs) * kStage, recv + s.slot[k] + s.at(issued),
+                s.bytes(issued), bars + 8 * (issued % kRecvBufs));
+      ++issued;
+    }
+    const int k = s.piece(j);
+    mbar_wait(bars + 8 * (j % kRecvBufs), (j / kRecvBufs) & 1, c.timeout_ns);
+    bulk_store(s.dst[k] + s.at(j), bufs + (j % kRecvBufs) * kStage, s.bytes(j));
+  }
+  bulk_wait<0, false>();
+  if (tail) {
+    if (!arrived((u64)S + 1)) return false;
+    copy_tail<true>(p0, recv + p0.offset, p0.dst);
+    copy_tail<true>(p1, recv + p1.offset, p1.dst);
+  }
+  return true;
+}
+
+// The shift of up to two payloads (K and V of one hop) as one call: block
+// b's sender stores its share of both into the peer's slot (c.ws.right is
+// rank + shift), its receiver copies the same share of its own slot
+// (stored by rank - shift) out as it lands.  `shift` is only recorded with
+// an error, to name the two peers.
+__global__ void __launch_bounds__(kShiftThreads)
+    ring_shift_kernel(Call c, Part p0, Part p1, int shift) {
+  extern __shared__ __align__(128) unsigned char shift_smem[];
+  __shared__ __align__(8) u64 bars[kSendBufs + kRecvBufs];
+  __shared__ int failed;
+  const Layout own = layout(c.ws, c.ws.own, kShift), peer = layout(c.ws, c.ws.right, kShift);
+  const uint32_t bufs = smem_addr(shift_smem), bar0 = smem_addr(bars);
+  if (threadIdx.x == 0) {
+    failed = 0;
+    for (int i = 0; i < kSendBufs + kRecvBufs; ++i) mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    const Share s = share_of(p0, p1);
+    const bool ok =
+        threadIdx.x == 0
+            ? send_share(c, s, p0, p1, own, peer, bufs, bar0, shift)
+            : receive_share(c, s, p0, p1, own, bufs + kSendBufs * kStage,
+                            bar0 + 8 * kSendBufs, shift);
+    if (!ok) failed = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && !failed) {  // slot read: rank - shift of a later call may refill it
+    fence_proxy_async();
+    __threadfence_system();
+    atomicAdd_system(own.ack, 1ULL);
+  }
 }
 
 // ------------------------------------------------ error feedback ----
-// The error-feedback residual of one gradient, in place: x holds the
-// corrected gradient c (`size` f32 values) and becomes c - code * scale,
-// c quantized in blocks from its first value (the last block padded with
-// zeros), each element one fused multiply-add.  That is the reference's
-// c - roundtrip(c) as XLA compiles it, and the plain version
-// (compression/quant.py `residual`) computes the same bits.  One warp per
-// 256 values, as in the fused ring kernels; no peer, no workspace.
+// The error-feedback residual of a list of gradients, in place, in one
+// launch: each tensor x (the corrected gradient c, f32) becomes c - code *
+// scale, c quantized in blocks from its first value (the last block padded
+// with zeros), each element one fused multiply-add.  That is the
+// reference's c - roundtrip(c) as XLA compiles it, and the plain version
+// (compression/quant.py `residual`) computes the same bits.  The tensors
+// come as a table passed by value (no copy to the card): entry i names a
+// tensor and its first 256-value segment in one flat index over the
+// launch, and one warp takes a segment at a time (as in the fused ring
+// kernels), finding its tensor by a binary search over the table.  A
+// segment never spans two tensors, so a grouped launch computes the bits of
+// a launch per tensor.  Bound by bytes: each value read and written once.
+constexpr int kEfMax = 250;  // tensors in one launch (compression/error_feedback.py)
+
+struct EfEntry {
+  float* x;
+  unsigned size;  // values
+  unsigned seg0;  // its first segment in the launch's flat index
+};
+
+struct EfTable {
+  EfEntry e[kEfMax];
+  int count;
+  unsigned segs;  // segments of the launch
+};
+static_assert(sizeof(EfEntry) == 16, "a table entry is 16 bytes");
+static_assert(sizeof(Codec) + sizeof(EfTable) <= 4096, "a launch's parameters must fit 4 KB");
+
 __global__ void __launch_bounds__(kThreads)
-    ef_residual_kernel(Codec q, float* __restrict__ x, long long size) {
+    ef_residual_kernel(Codec q, const __grid_constant__ EfTable t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long segs = (size + kSeg - 1) / kSeg;
-  for (long long g = (long long)blockIdx.x * kWarps + warp; g < segs;
+  for (long long g = (long long)blockIdx.x * kWarps + warp; g < t.segs;
        g += (long long)gridDim.x * kWarps) {
-    const long long j = g * kSeg + lane * 8;
+    int lo = 0, hi = t.count - 1;  // the last entry whose first segment is at or before g
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.e[mid].seg0 <= g)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const EfEntry& e = t.e[lo];
+    const long long j = (g - e.seg0) * kSeg + lane * 8;
     float v[8];
-    load8(x, j, size, v);
+    load8(e.x, j, e.size, v);
     float scale;
     const uint2 codes = quantize8(q, v, &scale);
     sub_decoded(q, codes, scale, v);
-    store8(x, j, size, v);
+    store8(e.x, j, e.size, v);
   }
 }
 
@@ -789,30 +1071,53 @@ extern "C" int kft_ring_shift(void* src0, void* dst0, long long bytes0, void* sr
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(src0) | reinterpret_cast<uintptr_t>(dst0) |
                          reinterpret_cast<uintptr_t>(src1) | reinterpret_cast<uintptr_t>(dst1);
   if (!kft_ring::args_ok(a) || bytes0 < 0 || bytes1 < 0 || (ptrs & 15) ||
-      chunk != off1 + bytes1 || chunk > slot_bytes)
+      chunk != off1 + bytes1 || chunk > slot_bytes ||
+      seq >= (1ULL << (64 - kft_ring::kStageBits)) ||
+      (bytes0 + bytes1) / 16 / blocks / kft_ring::kStage >= (1LL << kft_ring::kStageBits) - 1)
     return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;  // once per process: above 48 KB needs the attribute
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kft_ring::ring_shift_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kft_ring::kShiftSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
   const kft_ring::Part p0{static_cast<const char*>(src0), static_cast<char*>(dst0), bytes0, 0};
   const kft_ring::Part p1{static_cast<const char*>(src1), static_cast<char*>(dst1), bytes1, off1};
-  kft_ring::ring_shift_kernel<<<blocks, kft_ring::kThreads, 0,
+  kft_ring::ring_shift_kernel<<<blocks, kft_ring::kShiftThreads, kft_ring::kShiftSmem,
                                 static_cast<cudaStream_t>(stream)>>>(kft_ring::make_call(a), p0,
                                                                      p1, shift);
   return (int)cudaGetLastError();
 }
 
-// Error-feedback residual in place on x (`size` f32 values): x - code *
-// scale under int8 (scheme 0) or fp8 (1) codes, one scale per `block`
-// values counted from x[0]; `recip` = 1 / codemax rounded to f32.
-extern "C" int kft_ef_residual(void* x, long long size, int scheme, int block, float recip,
-                               void* stream) {
+// Error-feedback residual in place on `count` tensors (at most kEfMax) in
+// one launch: entry i of `entries` is two values, a tensor's address and
+// its size (1 to 2^31 f32 values); each becomes x - code * scale under
+// int8 (scheme 0) or fp8 (1) codes, one scale per `block` values counted
+// from its first value; `recip` = 1 / codemax rounded to f32.
+extern "C" int kft_ef_residual(const long long* entries, int count, int scheme, int block,
+                               float recip, void* stream) {
   using namespace kft_ring;
   const Codec q{scheme, block, recip};
-  if (size < 1 || (scheme != kInt8 && scheme != kFp8) || block < 8 || block > kSeg ||
-      kSeg % block)
+  if (count < 1 || count > kEfMax || (scheme != kInt8 && scheme != kFp8) || block < 8 ||
+      block > kSeg || kSeg % block)
     return (int)cudaErrorInvalidValue;
-  const long long segs = (size + kSeg - 1) / kSeg;
-  const long long blocks = (segs + kWarps - 1) / kWarps;
+  EfTable t;
+  memset(&t, 0, sizeof(t));
+  unsigned long long segs = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long x = entries[2 * i], size = entries[2 * i + 1];
+    if (size < 1 || size > (1LL << 31) || (x & 3)) return (int)cudaErrorInvalidValue;
+    t.e[i] = EfEntry{reinterpret_cast<float*>(x), (unsigned)size, (unsigned)segs};
+    segs += (unsigned long long)(size + kSeg - 1) / kSeg;
+    if (segs >= (1ULL << 32)) return (int)cudaErrorInvalidValue;
+  }
+  t.count = count;
+  t.segs = (unsigned)segs;
+  const unsigned long long blocks = (segs + kWarps - 1) / kWarps;
   ef_residual_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(q, static_cast<float*>(x), size);
+                       static_cast<cudaStream_t>(stream)>>>(q, t);
   return (int)cudaGetLastError();
 }
 

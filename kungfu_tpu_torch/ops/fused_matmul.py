@@ -12,6 +12,7 @@ kungfu_tpu/ops/ring_kernels.py).
                          their gradients in one grouped B5 call (FSDPTrainer)
   ring_shift             csrc/ring.cu `ring_shift_kernel` replaces `make_shift_kernel` (B11)
   ring_shift_pair        the same kernel, two payloads in one launch
+  ring_shift_pair_async  ring_shift_pair on the group's side stream, waited for later
 
 Every function runs over a process group where the JAX one runs over a
 mesh axis, with the JAX layouts:
@@ -72,7 +73,7 @@ on gloo ranks without a card).
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -88,6 +89,7 @@ from .ring_collectives import _launch
 
 SHIFT = Kernel("ring_shift", "kungfu_tpu_torch/ops/csrc/ring.cu",
                "kungfu_tpu/ops/ring_kernels.py:453")  # make_shift_kernel
+SHIFT.side_launches = 0  # of its launches, those on a group's side stream
 AG_MATMUL = Kernel("all_gather_matmul", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu",
                    "kungfu_tpu/ops/ring_kernels.py:347")  # make_ag_matmul_kernel
 MATMUL_RS = Kernel("matmul_reduce_scatter", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu",
@@ -96,7 +98,9 @@ KERNELS = (SHIFT, AG_MATMUL, MATMUL_RS)
 # B9's and B10's product body alone (`mm_product`): replaces no TPU kernel
 MM_PRODUCT = Kernel("mm_product", "kungfu_tpu_torch/ops/csrc/fused_matmul.cu", "")
 
-_THREADS, _UNROLL, _VEC = 512, 4, 16  # csrc/ring.cu kThreads, kUnroll, 16-byte vectors
+_VEC = 16  # bytes: the alignment of B11's payloads and of their places in the slot
+SHIFT_GRID = 16  # B11's blocks (chosen by `tools/shift_check --grid`: PERF.md)
+_SHIFT_MIN_BLOCK = 64 << 10  # bytes a block of B11 takes at least
 _MM_DTYPES = {torch.float32: 0, torch.bfloat16: 2}  # csrc/fused_matmul.cu MmDType
 # A block's output tile (rows, columns): bf16 on csrc/mm_sm90.cuh's tilings
 # kAg and kRs, f32 on the FMA body's 128 x 128
@@ -137,52 +141,114 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % _VEC == 0 else x.clone()
 
 
-def _kernel_shift(xs: Sequence[torch.Tensor], group, shift: int) -> List[torch.Tensor]:
-    """B11 on one or two CUDA payloads (any dtypes and sizes)."""
+class _ShiftPlan(NamedTuple):
+    """What every B11 call of one (shapes, dtypes, shift) on a workspace
+    passes unchanged: the payloads' bytes and their offsets in the slot and
+    in the one output buffer, the grid, and the launch's constant
+    arguments (`ring_common.cuh` KFT_RING_PARAMS without seq, ack_want and
+    the stream)."""
+
+    nbytes: Tuple[int, int]
+    offsets: Tuple[int, int]
+    total: int
+    blocks: int
+    ring: tuple  # own, right, n, rank, max_blocks, slots, slot_bytes, chunk, blocks
+    tail: tuple  # timeout_ns, err
+
+
+def _shift_blocks(total: int, max_blocks: int) -> int:
+    """B11's grid: SHIFT_GRID blocks, fewer for a payload below
+    _SHIFT_MIN_BLOCK bytes a block."""
+    return max(1, min(SHIFT_GRID, max_blocks, -(-total // _SHIFT_MIN_BLOCK)))
+
+
+def _shift_plan(ws, xs: Sequence[torch.Tensor], shift: int) -> _ShiftPlan:
+    """The workspace's cached plan of a shift of xs by `shift`, made (and
+    the shift slot grown) on first use; `Workspace.reserve` forgets every
+    plan when it moves the slots."""
+    key = (tuple((tuple(x.shape), x.dtype) for x in xs), shift)
+    plan = ws.shift_plans.get(key)
+    if plan is not None:
+        return plan
+    nbytes = tuple(x.numel() * x.element_size() for x in xs) + (0,) * (2 - len(xs))
+    offsets = (0, -(-nbytes[0] // _VEC) * _VEC)
+    total = offsets[1] + nbytes[1]
+    ws.reserve(total, "shift")
+    blocks = _shift_blocks(total, ws.max_blocks)
+    plan = _ShiftPlan(nbytes, offsets, total, blocks,
+                      (ws.own, ws.peer(shift), ws.n, ws.rank, ws.max_blocks, *ws.slots("shift"),
+                       total, blocks),
+                      (peer_memory._timeout_ns(), ws.err_ptr))
+    ws.shift_plans[key] = plan
+    return plan
+
+
+def _kernel_shift(xs: Sequence[torch.Tensor], group, shift: int,
+                  consumer=None) -> List[torch.Tensor]:
+    """B11 on one or two CUDA payloads (any dtypes and sizes), on the
+    current stream; the outputs are views of one buffer.  `consumer`: the
+    stream that reads the outputs when the current one is the group's side
+    stream (the caching allocator is told of both streams' uses)."""
+    from . import _build
+
     device = xs[0].device
     if any(x.device != device for x in xs):
         raise ValueError(f"ring_shift: every payload must be on {device}")
     xs = [_aligned(x) for x in xs]
-    outs = [torch.empty_like(x) for x in xs]
-    nbytes = [x.numel() * x.element_size() for x in xs] + [0]
-    off1 = -(-nbytes[0] // _VEC) * _VEC
-    total = off1 + nbytes[1]
     ws = peer_memory.workspace(group, device)
     ws.raise_if_failed()
-    ws.reserve(total, "shift")
-    blocks = max(1, min(ws.max_blocks, -(-total // (_VEC * _THREADS * _UNROLL))))
-    ptrs = [(x.data_ptr(), o.data_ptr()) for x, o in zip(xs, outs)] + [(None, None)]
     shift %= ws.n
-    _launch(SHIFT, "kft_ring_shift", ws, "shift", device, total, blocks,
-            (*ptrs[0], nbytes[0], *ptrs[1], nbytes[1], shift), peer=shift)
+    plan = _shift_plan(ws, xs, shift)
+    out = torch.empty(plan.total, dtype=torch.uint8, device=device)
+    outs = [out[o:o + nb].view(x.dtype).view(x.shape)
+            for x, o, nb in zip(xs, plan.offsets, plan.nbytes)]
+    stream = torch.cuda.current_stream(device)
+    if consumer is not None:
+        for x in xs:
+            x.record_stream(stream)
+        out.record_stream(consumer)
+    ptrs = [(x.data_ptr(), o.data_ptr()) for x, o in zip(xs, outs)] + [(None, None)]
+    seq, ack_want = ws.next_call("shift", plan.blocks)
+    with torch.cuda.device(device):
+        err = _build.function("kft_ring_shift")(
+            *ptrs[0], plan.nbytes[0], *ptrs[1], plan.nbytes[1], shift, *plan.ring, seq,
+            ack_want, *plan.tail, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{SHIFT.name}: kernel launch failed with CUDA error {err}")
+    SHIFT.launches += 1
+    if consumer is not None:
+        SHIFT.side_launches += 1
     return outs
 
 
-def _shift(xs: Sequence[torch.Tensor], group, shift: int) -> List[torch.Tensor]:
+def _shift(xs: Sequence[torch.Tensor], group, shift: int, consumer=None) -> List[torch.Tensor]:
     if kernel_mode(xs[0].device) == "plain":
         return _exchange(xs, group, shift)
-    return _kernel_shift(xs, group, shift)
+    return _kernel_shift(xs, group, shift, consumer)
 
 
 class _RingShift(torch.autograd.Function):
     """One shift of one or two payloads; the backward shifts the
-    cotangents by -shift, as one call."""
+    cotangents by -shift, as one call.  `consumer` (None, or the stream
+    that reads the result while this runs on the group's side stream):
+    autograd runs the backward on the forward's stream, so the backward's
+    shift runs on the side stream too, its result read on `consumer`."""
 
     @staticmethod
-    def forward(ctx, group, shift, *xs):
-        ctx.group, ctx.shift = group, shift
-        return tuple(_shift(xs, group, shift))
+    def forward(ctx, group, shift, consumer, *xs):
+        ctx.group, ctx.shift, ctx.consumer = group, shift, consumer
+        return tuple(_shift(xs, group, shift, consumer))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_shift(gs, ctx.group, -ctx.shift))
+        return (None, None, None, *_shift(gs, ctx.group, -ctx.shift, ctx.consumer))
 
 
 def _apply(xs: Tuple[torch.Tensor, ...], group, shift: int) -> Tuple[torch.Tensor, ...]:
     n = _world(group)
     if n == 1 or shift % n == 0:
         return xs
-    return _RingShift.apply(group, shift, *xs)
+    return _RingShift.apply(group, shift, None, *xs)
 
 
 def ring_shift(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
@@ -195,6 +261,32 @@ def ring_shift_pair(x: torch.Tensor, y: torch.Tensor, group=None, shift: int = 1
     """`ring_shift` of two tensors as one call (one launch of B11 forward,
     one backward): the same result as two calls."""
     return _apply((x, y), group, shift)
+
+
+def ring_shift_pair_async(x: torch.Tensor, y: torch.Tensor, group=None, shift: int = 1
+                          ) -> Callable[[], Tuple[torch.Tensor, torch.Tensor]]:
+    """`ring_shift_pair` issued on the group's side stream: returns `wait`,
+    which makes the current stream wait for the shift and returns its
+    result.  What the caller issues in between runs on the card beside the
+    shift; the shift's backward runs on the side stream too.  A CPU pair
+    (or a shift that moves nothing) is shifted at once."""
+    n = _world(group)
+    if n == 1 or shift % n == 0 or kernel_mode(x.device) == "plain":
+        out = _apply((x, y), group, shift)
+        return lambda: out
+    main = torch.cuda.current_stream(x.device)
+    side = peer_memory.workspace(group, x.device).side_stream()
+    side.wait_stream(main)  # x and y are ready, and main's earlier reads of the slot's outputs
+    with torch.cuda.stream(side):
+        out = _RingShift.apply(group, shift, main, x, y)
+        done = torch.cuda.Event()
+        done.record(side)
+
+    def wait() -> Tuple[torch.Tensor, torch.Tensor]:
+        torch.cuda.current_stream(x.device).wait_event(done)
+        return out
+
+    return wait
 
 
 # ------------------------------------------- all-gather-matmul (B9) ----

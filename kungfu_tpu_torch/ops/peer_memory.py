@@ -50,7 +50,8 @@ workspace once no rank can still touch it.
 
 The kernels' error record lives in mapped host memory: a wait that
 expires writes (kind, hop, block, seq) there, and `Workspace.check`
-raises it.
+raises it, once the current stream and the workspace's side stream (where
+ring attention's shifts run) have finished what they hold.
 """
 from __future__ import annotations
 
@@ -125,6 +126,9 @@ class Workspace:
         self.own: Optional[int] = None
         self._handles: List[bytes] = []  # every rank's IPC handle
         self._peers: Dict[int, int] = {}  # rank -> its workspace, mapped here
+        # (shapes, dtypes, shift) -> the shift's launch plan (ops/fused_matmul.py)
+        self.shift_plans: Dict[tuple, tuple] = {}
+        self._side: Optional[torch.cuda.Stream] = None
         self._fresh_counts()
         err = ctypes.c_void_p()
         _call("kft_host_alloc", 32, ctypes.byref(err))
@@ -154,6 +158,7 @@ class Workspace:
         for k in kinds:
             sizes[k] = max(sizes[k], slot_size(nbytes))
         self._release()
+        self.shift_plans.clear()  # they name the old slots and peers
         self.slot_bytes = sizes
         own = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
@@ -231,9 +236,20 @@ class Workspace:
             raise RingError(f"rank {self.rank}/{self.n}: ring kernel gave up after "
                             f"{_timeout_ns() / 1e9:g} s waiting for the {what}")
 
+    def side_stream(self) -> torch.cuda.Stream:
+        """The group's second stream, made on first use, at high priority:
+        ring attention's shifts run on it under the flash blocks
+        (`fused_matmul.ring_shift_pair_async`)."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device, priority=-1)
+        return self._side
+
     def check(self) -> None:
-        """Wait for the kernels queued so far, then raise their error, if any."""
+        """Wait for the kernels queued so far, on the current stream and on
+        the side stream, then raise their error, if any."""
         torch.cuda.current_stream(self.device).synchronize()
+        if self._side is not None:
+            self._side.synchronize()
         self.raise_if_failed()
 
 

@@ -4,10 +4,15 @@
 The sequence is split over the ranks of a group (the mesh's sp axis),
 each rank holding one chunk of q, k and v.  K/V blocks rotate around the
 ring, one hop at a time, through the hand-written shift kernel B11
-(`ops/fused_matmul.ring_shift_pair`: K and V of a hop in one launch), and
-each rank folds the block it holds into its running attention, so the
-whole sequence is never on one rank.  Call it on every rank of the group
-with that rank's chunks:
+(`ops/fused_matmul.ring_shift_pair_async`: K and V of a hop in one
+launch), and each rank folds the block it holds into its running
+attention, so the whole sequence is never on one rank.  The rotation that
+brings hop s + 1's block is issued before hop s's block is folded: on a
+card it runs on the group's side stream under hop s's kernels (and its
+backward under theirs), and hop s + 1 waits for it; on the CPU it runs at
+once.  Every rank issues the same shifts in the same order, and the folds
+are the same, so the result is the same bits as rotating first.  Call it
+on every rank of the group with that rank's chunks:
 
     o = ring_attention(q, k, v, group=mesh.group("sp"))
 
@@ -39,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..compat import kernel_mode
-from ..ops.fused_matmul import ring_shift_pair
+from ..ops.fused_matmul import ring_shift_pair_async
 
 NEG_INF = -1e30
 SKIP, FULL, DIAG = 0, 1, 2  # how a hop's block is folded (`_block_attn_flash`)
@@ -52,10 +57,12 @@ def _group_rank(group):
 
 
 def _rotate_kv(k, v, group):
-    """One ring hop of the K/V blocks: one launch of B11 for the pair (the
-    JAX package's two `ring_shift` calls); its backward shifts (dk, dv)
-    back by one."""
-    return ring_shift_pair(k, v, group, 1)
+    """One ring hop of the K/V blocks, issued ahead: one launch of B11 for
+    the pair (the JAX package's two `ring_shift` calls) on the group's side
+    stream; returns `wait`, which hands the next hop's (k, v) to the
+    current stream.  Its backward shifts (dk, dv) back by one, on the side
+    stream too."""
+    return ring_shift_pair_async(k, v, group, 1)
 
 
 def _block_attn(q, k, v, m, l, o, q_off: int, k_off: int, causal: bool, scale: float):
@@ -144,11 +151,12 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group=None
     l = torch.zeros((B, H, Lc), dtype=torch.float32, device=q.device)
     k_cur, v_cur = k, v
     for s in range(n):
-        if s:
-            k_cur, v_cur = _rotate_kv(k_cur, v_cur, group)
+        nxt = _rotate_kv(k_cur, v_cur, group) if s + 1 < n else None
         # the block held at hop s came from rank (idx - s) mod n
         k_off = ((idx - s) % n) * Lc
         m, l, o = _block_attn(q, k_cur, v_cur, m, l, o, q_off, k_off, causal, scale)
+        if nxt is not None:
+            k_cur, v_cur = nxt()
     l = torch.where(l == 0.0, 1.0, l)  # fully masked rows stay 0
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
@@ -165,15 +173,19 @@ def _ring_attention_flash(q, k, v, group, causal: bool, scale: float):
         src = (idx - s) % n  # the rank the held block came from
         return FULL if src < idx else DIAG if src == idx else SKIP
 
-    # hop 0 is this rank's own block, never skipped; merging it into the
-    # empty accumulator (o = 0, lse = -1e30) would leave it as it is
-    o, lse = _block_attn_flash(q, k, v, mode_for(0), scale)
     k_cur, v_cur = k, v
-    for s in range(1, n):
-        k_cur, v_cur = _rotate_kv(k_cur, v_cur, group)
+    for s in range(n):
+        # the rotation to hop s + 1 first: it runs under hop s's block
+        nxt = _rotate_kv(k_cur, v_cur, group) if s + 1 < n else None
         mode = mode_for(s)
-        if mode != SKIP:
+        if s == 0:
+            # this rank's own block, never skipped; merging it into the empty
+            # accumulator (o = 0, lse = -1e30) would leave it as it is
+            o, lse = _block_attn_flash(q, k_cur, v_cur, mode, scale)
+        elif mode != SKIP:
             o, lse = _merge_blocks(o, lse, *_block_attn_flash(q, k_cur, v_cur, mode, scale))
+        if nxt is not None:
+            k_cur, v_cur = nxt()
     if n > 1 and torch.is_grad_enabled():
         o = _KeepInGraph.apply(o, k_cur, v_cur)
     return o.to(q.dtype)

@@ -1,8 +1,8 @@
 """The ring shift kernel (B11) against its stacked plain version, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.shift_check \\
-        [--kv 2,2048,16,64] [--odd 1000003] [--interleave] [--faults] [--iters 5] \\
-        [--seed 0] [--device cpu]
+        [--kv 2,2048,16,64] [--odd 1000003] [--interleave] [--faults] [--beside-flash] \\
+        [--grid 8,16,32,66] [--iters 5] [--seed 0] [--device cpu]
 
 Every rank makes every rank's payloads from the seed on its own device, so
 the check needs no communication.  Cases, each held against the stacked
@@ -20,11 +20,21 @@ sync, the ring kernels B5-B8 on payloads of other sizes between shifts of
 both directions, and holds every result against its plain version: the
 kinds keep their own flags, counters and slots.  `--faults` shows that
 the comparison rejects a pair shifted the wrong way and one 16-byte
-vector corrupted.
+vector corrupted.  `--beside-flash` shifts the pair as ring attention
+does, on the group's side stream (`ring_shift_pair_async`), while a flash
+forward at ring attention's block shape (q, k, v of `--kv`, not causal)
+runs on the current stream: both bit-equal to their results alone, and
+on a card the times of each alone and of both together.  `--grid 8,16,32`
+repeats kv+1 and odd+1 with B11's grid set to each of those block counts
+(every rank the same), bit for bit, and on a card times the pair at each.
 
 On a card, B11 is then timed on the kv+1 pair, on every rank at once.
 With a card per rank: the median of `--iters` calls between two CUDA
-events.  With ranks sharing a card, which runs them in turn, a rank's
+events ("ms", the wrapper's issue included, as earlier versions read it),
+and the device time alone ("device_ms": each call queued behind a spin
+kernel after a barrier, so it starts on every rank together, within the
+hosts' skew; the grid sweep and the case beside a flash call are timed
+so too); "host_ms" is the wrapper's issue alone.  With ranks sharing a card, which runs them in turn, a rank's
 events can miss the others' turns, so every rank issues `--iters` calls
 between two barriers taken after a device sync, and the wall time over
 `--iters` is the time of a call of all ranks.  Rank 0 alone times
@@ -42,7 +52,9 @@ failed.  Start it with `ring_check.launch`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import statistics
 import sys
 import time
 from typing import Dict, List, Optional, Sequence
@@ -53,9 +65,11 @@ import torch.distributed as dist
 from .. import distributed
 from ..compression import config as comp_config
 from ..ops import collective as C
+from ..ops import flash
 from ..ops import fused_matmul as FM
+from ..ops import peer_memory
 from ..ops import ring_collectives as RC
-from .ring_check import HBM_BYTES_PER_S, NVLINK_BYTES_PER_S, _median_ms, make_inputs
+from .ring_check import HBM_BYTES_PER_S, NVLINK_BYTES_PER_S, _host_ms, _median_ms, make_inputs
 
 LINE = "SHIFT_CHECK "
 
@@ -179,6 +193,116 @@ def _span_ms(fn, iters: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+SPIN_CYCLES = 1_000_000  # about 0.5 ms of an H100's clock: longer than a call's issue
+
+
+def _primed_ms(fn, iters: int) -> float:
+    """Median device time of one call of every rank, its launches queued
+    behind a spin kernel so the host's issue is not in it: after a barrier
+    (the ranks' calls start together, within the host's skew), a spin,
+    then the call between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _call_ms(fn, iters: int, device, own_cards: bool) -> float:
+    """A call's device time: primed (`_primed_ms`) with a card per rank, the
+    wall time of every rank's calls on a shared card."""
+    return _primed_ms(fn, iters) if own_cards else _span_ms(fn, iters, device)
+
+
+@contextlib.contextmanager
+def shift_grid(blocks: int, device):
+    """B11's grid set to `blocks` (every rank must set the same), its
+    cached plans forgotten on the way in and out."""
+    def forget():
+        if device.type == "cuda":
+            peer_memory.workspace(None, device).shift_plans.clear()
+
+    old = FM.SHIFT_GRID
+    FM.SHIFT_GRID = blocks
+    forget()
+    try:
+        yield
+    finally:
+        FM.SHIFT_GRID = old
+        forget()
+
+
+def run_grids(n: int, d: int, kv: Sequence[int], odd: int, seed: int, device,
+              grids: Sequence[int], iters: int, own_cards: bool) -> Dict:
+    """kv+1 and odd+1 at each grid of `grids`, bit for bit; on a card the
+    pair's time at each."""
+    ks, vs = (stacked(n, kv, torch.bfloat16, seed + 30 + i, device) for i in (0, 1))
+    xs = stacked(n, (odd,), torch.uint8, seed + 32, device)
+    want_kv = [FM._plain_ring_shift(x, 1)[d] for x in (ks, vs)]
+    want_odd = FM._plain_ring_shift(xs, 1)[d]
+    ok, err, ms = {}, {}, {}
+    for g in grids:
+        with shift_grid(g, device):
+            got = FM.ring_shift_pair(ks[d], vs[d], None, 1)
+            ok[f"grid {g} kv+1"] = all(torch.equal(a, b) for a, b in zip(got, want_kv))
+            err[f"grid {g} kv+1"] = max(_err(a, b) for a, b in zip(got, want_kv))
+            got = FM.ring_shift(xs[d], None, 1)
+            ok[f"grid {g} odd+1"], err[f"grid {g} odd+1"] = (torch.equal(got, want_odd),
+                                                             _err(got, want_odd))
+            if device.type == "cuda":
+                dist.barrier()
+                ms[str(g)] = _call_ms(lambda: FM.ring_shift_pair(ks[d], vs[d], None, 1), iters,
+                                      device, own_cards)
+    return {"ok": ok, "max_abs_err": err, "grid_ms": ms}
+
+
+def run_beside_flash(n: int, d: int, kv: Sequence[int], seed: int, device, iters: int,
+                     own_cards: bool) -> Dict:
+    """The pair shifted on the side stream while a flash forward of ring
+    attention's block shape runs on the current stream."""
+    ks, vs = (stacked(n, kv, torch.bfloat16, seed + 40 + i, device) for i in (0, 1))
+    q = stacked(1, kv, torch.bfloat16, seed + 42, device)[0]
+    k, v = ks[d], vs[d]
+
+    def attend():
+        return flash.flash_attention_with_lse(q, k, v, causal=False)
+
+    def both():
+        wait = FM.ring_shift_pair_async(k, v, None, 1)
+        out = attend()
+        return wait(), out
+
+    alone = attend()
+    want = [FM._plain_ring_shift(x, 1)[d] for x in (ks, vs)]
+    got, beside = both()
+    ok = {"beside flash kv+1": all(torch.equal(a, b) for a, b in zip(got, want)),
+          "flash beside the shift": all(torch.equal(a, b) for a, b in zip(beside, alone))}
+    err = {"beside flash kv+1": max(_err(a, b) for a, b in zip(got, want)),
+           "flash beside the shift": max(_err(a, b) for a, b in zip(beside, alone))}
+    res = {"ok": ok, "max_abs_err": err}
+    if device.type == "cuda":
+        dist.barrier()
+        res["beside_flash_ms"] = {
+            "flash": _call_ms(attend, iters, device, own_cards),
+            "shift": _call_ms(lambda: FM.ring_shift_pair(k, v, None, 1), iters, device,
+                              own_cards),
+            "both": _call_ms(both, iters, device, own_cards),
+            "how": "flash forward [B, L, H, D] = --kv, not causal, on the current stream; "
+                   "the shift alone on the current stream; both: the shift on the side "
+                   "stream issued first, the flash call, then the wait"}
+    return res
+
+
 def time_pair(n: int, d: int, kv: Sequence[int], seed: int, device, iters: int,
               own_cards: bool) -> Dict:
     """Times of B11 on the kv+1 pair, its plain version and NCCL's."""
@@ -192,8 +316,14 @@ def time_pair(n: int, d: int, kv: Sequence[int], seed: int, device, iters: int,
     dist.barrier()
     res = {"bytes": nbytes,
            "ms": _median_ms(shift, iters) if own_cards else _span_ms(shift, iters, device),
-           "how": (f"median of {iters} calls between CUDA events" if own_cards else
+           "how": (f"median of {iters} calls between CUDA events, the host's issue "
+                   "included" if own_cards else
                    f"wall time of {iters} calls of all ranks between barriers, per call")}
+    dist.barrier()
+    if own_cards:  # the card's own time, the issue ahead of it
+        res["device_ms"] = _primed_ms(shift, iters)
+        dist.barrier()
+    res["host_ms"] = _host_ms(shift, iters)  # the wrapper's issue, the card idle
     dist.barrier()
     if d == 0:
         res["plain_ms"] = _median_ms(
@@ -227,6 +357,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--odd", type=int, default=1000003, help="bytes of the odd case")
     ap.add_argument("--interleave", action="store_true")
     ap.add_argument("--faults", action="store_true")
+    ap.add_argument("--beside-flash", action="store_true")
+    ap.add_argument("--grid", default="", help="B11 grids to check (and time) the pair at")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -243,12 +375,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     kv = [int(x) for x in args.kv.split(",")]
     for k in FM.KERNELS + RC.KERNELS:
         k.launches = 0
+    FM.SHIFT.side_launches = 0
     res = run_cases(n, d, kv, args.odd, args.seed, device, args.faults)
+    more = []
     if args.interleave:
-        more = run_interleaved(n, d, kv, args.seed, device)
-        res["ok"].update(more["ok"])
-        res["max_abs_err"].update(more["max_abs_err"])
+        more.append(run_interleaved(n, d, kv, args.seed, device))
+    if args.beside_flash:
+        more.append(run_beside_flash(n, d, kv, args.seed, device, args.iters, own_cards))
+    grids = [int(g) for g in args.grid.split(",") if g]
+    if grids:
+        more.append(run_grids(n, d, kv, args.odd, args.seed, device, grids, args.iters,
+                              own_cards))
+    for m in more:
+        res["ok"].update(m.pop("ok"))
+        res["max_abs_err"].update(m.pop("max_abs_err"))
+        res.update(m)
     launches = {k.name: k.launches for k in FM.KERNELS + RC.KERNELS}
+    launches["ring_shift on the side stream"] = FM.SHIFT.side_launches
     if device.type == "cuda":
         res["timing"] = time_pair(n, d, kv, args.seed, device, args.iters, own_cards)
     out = {"rank": d, "n": n, "device": str(device), "backend": dist.get_backend(),

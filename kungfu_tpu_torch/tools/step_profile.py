@@ -30,8 +30,10 @@ torch.distributed instead (`dma_collectives=False`, the yardstick).
 Prints the step time on the host clock (with and without the profiler),
 the peak memory, the device time of every kernel
 summed by category (the port's flash kernels, its ring kernels, NCCL,
-matrix products, the optimizer, everything else), that of B5, B6 and
-NCCL's collectives, the ring kernels' launches a step, the device's idle
+matrix products, the optimizer, everything else), that of B5, B6, B11,
+the EF residual and NCCL's collectives, B11's time that no other kernel overlaps ("B11
+exposed": it runs on a side stream under ring attention's flash blocks),
+the ring, shift, flash and residual kernels' launches a step, the device's idle
 share (1 - the union of
 kernel intervals / the step's wall time), and the kernels that take the
 most device time; the last line is the same as one JSON object.  Needs a
@@ -54,7 +56,10 @@ from torch.profiler import ProfilerActivity, profile
 from .. import distributed
 from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
                                   lm_loss_shard)
+from ..compression import error_feedback as EF
 from ..fsdp import FSDPTrainer
+from ..ops import flash
+from ..ops import fused_matmul as FM
 from ..ops import ring_collectives as RC
 from ..optimizers import adamw, synchronous_sgd
 from ..plan import make_mesh
@@ -71,6 +76,8 @@ CATEGORIES = (  # first match wins
 
 
 COLLECTIVES = {"B5": re.compile(r"ring_rs_kernel"), "B6": re.compile(r"ring_ag_kernel"),
+               "B11": re.compile(r"ring_shift_kernel"),
+               "EF": re.compile(r"ef_residual_kernel"),
                "NCCL reduce-scatter": re.compile(r"nccl.*ReduceScatter", re.I),
                "NCCL all-gather": re.compile(r"nccl.*AllGather", re.I)}
 
@@ -212,7 +219,8 @@ def main() -> int:
     m["loss"].item()
     plain_step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     torch.cuda.reset_peak_memory_stats()
-    for kern in RC.KERNELS:
+    counted = RC.KERNELS + (FM.SHIFT,) + flash.KERNELS + EF.KERNELS
+    for kern in counted:
         kern.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -233,10 +241,14 @@ def main() -> int:
         by_cat[_category(e.name)] += us
         by_name[e.name] += us
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
-    launches = {k.name: k.launches / args.steps for k in RC.KERNELS}
+    # B11's time that no other kernel overlaps (it runs on a side stream)
+    others_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels
+                          if not COLLECTIVES["B11"].search(e.name))
+    launches = {k.name: k.launches / args.steps for k in counted}
     # the collectives of the step by kernel: B5, B6 and NCCL's
     collectives = {label: sum(us for name, us in by_name.items() if pattern.search(name))
                    / args.steps / 1e3 for label, pattern in COLLECTIVES.items()}
+    collectives["B11 exposed"] = (busy_us - others_us) / args.steps / 1e3
     steps = args.steps
     step_ms = wall_us / steps / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -246,7 +258,7 @@ def main() -> int:
           f"{step_ms:.1f} ms on the host clock ({plain_step_ms:.1f} ms without the profiler), "
           f"peak memory {peak_gib:.2f} GiB, this process's device busy "
           f"{busy_us / steps / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}")
-    print(f"[profile] collectives ms/step {json.dumps(collectives)}; ring launches a step "
+    print(f"[profile] collectives ms/step {json.dumps(collectives)}; launches a step "
           f"{json.dumps(launches)}")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: {us / steps / 1e3:.1f} ms/step "
@@ -255,7 +267,8 @@ def main() -> int:
     for name, us in top:
         print(f"[profile]   {us / steps / 1e3:8.2f} ms/step  {name[:110]}")
     print(json.dumps({
-        "rank": rank, "world": world, "step_ms": step_ms, "step_ms_unprofiled": plain_step_ms,
+        "rank": rank, "world": world, "tokens": args.batch * cfg.max_len,
+        "step_ms": step_ms, "step_ms_unprofiled": plain_step_ms,
         "peak_gib": peak_gib,
         "device_busy_ms": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,

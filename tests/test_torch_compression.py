@@ -9,7 +9,10 @@ computes too):
                                    lengths that are not a multiple of the
                                    block, all-zero blocks, values at the
                                    clamp: bit for bit
-  error feedback                   correct and residual_update: bit for bit
+  error feedback                   correct and residual_update: bit for bit;
+                                   the grouped residual (one table of
+                                   tensors a launch on a card) per tensor
+                                   and against the JAX residual_update
   compression.all_reduce           on 2, 3 and 4 gloo ranks against the JAX
                                    all_reduce in shard_map: the peer sums
                                    run in another order (torch's sum over
@@ -215,6 +218,81 @@ def test_residual_kernel_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="contiguous f32"):
         tef.residual_(torch.ones(4, 6).t(), tc.INT8)
     assert tef.EF_RESIDUAL.launches == 0  # the CPU runs the plain version
+
+
+EF_SIZES = (1, 255, 256, 4099, 0)  # a value, a block short, one block, ragged, empty
+
+
+def _gradients(sizes, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in sizes:
+        x = (rng.standard_normal(n) * rng.uniform(0.01, 50.0, n)).astype(np.float32)
+        x[256:512] = 0.0  # an all-zero block where there is room
+        out.append(torch.from_numpy(x))
+    return out
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("scheme", ["int8", "fp8"])
+def test_grouped_residual_matches_per_tensor_and_jax(jc, scheme, block):
+    """residual_group_ on a list (the compressed step's one call) gives each
+    tensor the bits of residual_ alone and of the JAX residual_update."""
+    cfg = tc.CompressionConfig(scheme=scheme, block=block)
+    xs = _gradients(EF_SIZES, 11 + block)
+    grouped = [x.clone() for x in xs]
+    got = tef.residual_group_(grouped, cfg)
+    assert all(a is b for a, b in zip(got, grouped))  # in place
+    jcfg = jc.CompressionConfig(scheme=scheme, block=block)
+    nonempty = [x for x in xs if x.numel()]
+    jres = jax.jit(lambda cs: jc.error_feedback.residual_update(cs, jcfg))(
+        [jnp.asarray(x.numpy()) for x in nonempty]).residual
+    for x, g in zip(xs, grouped):
+        one = tef.residual_(x.clone(), cfg)
+        assert torch.equal(g.view(torch.int32), one.view(torch.int32))
+    for g, j in zip([g for g in grouped if g.numel()], jres):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    assert tef.EF_RESIDUAL.launches == 0  # the CPU runs the plain version
+
+
+def test_grouped_residual_longer_than_one_table():
+    """More tensors than a launch's table holds: every one still gets its
+    own residual, and the plan splits them into tables in order."""
+    sizes = [(37 * i) % 700 for i in range(2 * tef.EF_TABLE + 13)]
+    xs = _gradients(sizes, 3)
+    grouped = tef.residual_group_([x.clone() for x in xs], tc.INT8)
+    for x, g in zip(xs, grouped):
+        assert torch.equal(g, tef.residual_(x.clone(), tc.INT8))
+    tables = tef.ef_plan(sizes)
+    assert len(tables) == 3 and all(len(t) <= tef.EF_TABLE for t in tables)
+    entries = [e for t in tables for e in t]
+    assert entries == [(i, 0, n) for i, n in enumerate(sizes) if n]  # empty ones: no entry
+
+
+def test_ef_plan_splits_a_tensor_past_an_entry():
+    """A tensor above EF_PIECE values takes several entries, each from a
+    multiple of 256 values (a quantization block of the tensor); a plan
+    never refuses."""
+    big = 2 * tef.EF_PIECE + 5
+    assert tef.EF_PIECE % 256 == 0
+    assert tef.ef_plan([3, big, 0, 7]) == [[(0, 0, 3), (1, 0, tef.EF_PIECE),
+                                            (1, tef.EF_PIECE, tef.EF_PIECE),
+                                            (1, 2 * tef.EF_PIECE, 5), (3, 0, 7)]]
+    assert tef.ef_plan([]) == [] and tef.ef_plan([0, 0]) == []
+
+
+def test_grouped_residual_refuses_what_it_cannot_run():
+    x = torch.ones(300)
+    with pytest.raises(NotImplementedError, match="deterministic int8/fp8"):
+        tef.residual_group_([x], tc.INT8_SR)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        tef.residual_group_([x, x.to(torch.bfloat16)], tc.INT8)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tef.residual_group_([x, torch.ones(4, 6).t()], tc.INT8)
+    with pytest.raises(ValueError, match="not on one device"):
+        tef.residual_group_([x, torch.ones(3, device="meta")], tc.INT8)
+    assert torch.equal(x, torch.ones(300))  # a refused list is left as it was
+    assert tef.residual_group_([], tc.INT8) == []
 
 
 def test_config_registry_matches_jax(jc):

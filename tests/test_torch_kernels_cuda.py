@@ -312,3 +312,41 @@ def test_ef_residual_kernel_refuses_a_block_it_cannot_run(card):
 
     with pytest.raises(NotImplementedError, match="block 512"):
         ef.residual_(torch.ones(1024, device=card), tc.CompressionConfig(scheme="int8", block=512))
+
+
+def _gqa_flagship_sizes():
+    """The GQA flagship's 195 gradient sizes (FakeTensorMode: shapes only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from kungfu_tpu_torch.models import transformer as tt
+
+    with FakeTensorMode():
+        cfg = tt.TransformerConfig(**{**tt.FLAGSHIP_GPT, "dtype": torch.bfloat16,
+                                      "attention": "flash", "n_kv_heads": 8})
+        return [p.numel() for p in tt.TransformerLM(cfg, device="cpu").parameters()]
+
+
+# The grouped residual (one launch over a table of tensors) against a
+# launch per tensor, bit for bit: the GQA flagship's 195 gradients in one
+# launch, and 600 small ragged tensors in the launches of `ef_plan`.
+@pytest.mark.parametrize("sizes", ["flagship", "ragged"])
+@pytest.mark.parametrize("scheme", ["int8", "fp8"])
+def test_ef_residual_grouped_matches_per_tensor(card, scheme, sizes):
+    from kungfu_tpu_torch import compression as tc
+    from kungfu_tpu_torch.compression import error_feedback as ef
+
+    if sizes == "flagship":
+        sizes = _gqa_flagship_sizes()
+        assert len(sizes) == 195
+    else:
+        sizes = [1 + (97 * i) % 4099 for i in range(600)]
+    cfg = tc.resolve(scheme)
+    g = torch.Generator(device=card).manual_seed(len(sizes))
+    xs = [torch.randn(n, generator=g, device=card) * 1e-2 for n in sizes]
+    grouped = [x.clone() for x in xs]
+    before = ef.EF_RESIDUAL.launches
+    ef.residual_group_(grouped, cfg)
+    assert ef.EF_RESIDUAL.launches - before == len(ef.ef_plan(sizes)) == -(-len(sizes) // 250)
+    for x, got in zip(xs, grouped):
+        one = ef.residual_(x.clone(), cfg)
+        assert torch.equal(got.view(torch.int32), one.view(torch.int32))

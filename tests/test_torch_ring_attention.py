@@ -18,6 +18,11 @@ twice moves some rows by 1e-2 or more.  The port's 4-rank ring is also
 held to the same tolerance against its own one-process `full_attention`
 over the whole sequence, and merging a skipped block (lse = -1e30) leaves
 (o, lse) bit for bit as they were, in both packages.
+
+The port issues the rotation that brings hop s + 1's K/V before it folds
+hop s's block (on a card the rotation then runs on a side stream under
+the block): each rank records the order of its shifts and blocks, forward
+and backward, and every rank's order is held to that schedule.
 """
 from __future__ import annotations
 
@@ -114,6 +119,33 @@ WORKER = textwrap.dedent("""
         key = f"{impl}-hkv{hkv}-{'causal' if causal else 'full'}"
         for name, t in zip(("o", "dq", "dk", "dv"), (o, q.grad, k.grad, v.grad)):
             out[f"{key}/{name}"] = t.detach().numpy()
+    # the order of the shifts (numbered in the forward) and the blocks
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    import importlib
+    RA = importlib.import_module("kungfu_tpu_torch.parallel.ring_attention")
+    log = []
+    fwd, bwd, block = FM._RingShift.forward, FM._RingShift.backward, RA._block_attn_flash
+    def forward(ctx, *args):
+        ctx.hop = sum(e[0] == "shift" for e in log)
+        log.append(("shift", ctx.hop))
+        return fwd(ctx, *args)
+    def backward(ctx, *gs):
+        log.append(("unshift", ctx.hop))
+        return bwd(ctx, *gs)
+    def traced_block(q, k, v, mode, scale):
+        log.append(("block", mode))
+        return block(q, k, v, mode, scale)
+    FM._RingShift.forward, FM._RingShift.backward = staticmethod(forward), staticmethod(backward)
+    RA._block_attn_flash = traced_block
+    for causal in (True, False):
+        log.clear()
+        data = np.load(path + ".hkv2.npz")
+        q, k, v = (torch.from_numpy(data[x][:, rows]).requires_grad_() for x in "qkv")
+        o = ring_attention(q, k, v, causal=causal, impl="flash")
+        out[f"order/{causal}/forward"] = np.array(repr(log))
+        log.clear()
+        o.sum().backward()
+        out[f"order/{causal}/backward"] = np.array(repr(log))
     np.savez(path + f".{d}.npz", **out)
     distributed.shutdown_distributed()
 """)
@@ -128,8 +160,12 @@ def ranks(tmp_path_factory):
         np.savez(tmp / f"in.hkv{hkv}.npz", **dict(zip("qkvw", _inputs(hkv))))
     wait_ranks(start_ranks(WORKER, N, [tmp / "in", repr(CONFIGS), LC]))
     files = [np.load(tmp / f"in.{r}.npz") for r in range(N)]
-    return {_key(*c): {name: np.concatenate([f[f"{_key(*c)}/{name}"] for f in files], axis=1)
-                       for name in OUTS} for c in CONFIGS}
+    out = {_key(*c): {name: np.concatenate([f[f"{_key(*c)}/{name}"] for f in files], axis=1)
+                      for name in OUTS} for c in CONFIGS}
+    out["order"] = {(r, causal, way): eval(str(f[f"order/{causal}/{way}"]))
+                    for r, f in enumerate(files) for causal in CAUSAL
+                    for way in ("forward", "backward")}
+    return out
 
 
 def _close(got, want):
@@ -153,6 +189,27 @@ def test_ring_matches_full_attention(ranks, impl, hkv, causal):
     got = ranks[_key(impl, hkv, causal)]
     for name, want in zip(OUTS, (o, q.grad, k.grad, v.grad)):
         _close(got[name], want.detach().numpy())
+
+
+@pytest.mark.parametrize("causal", CAUSAL)
+@pytest.mark.parametrize("rank", range(N))
+def test_rotation_issued_before_the_block(ranks, rank, causal):
+    """Rank r's forward: the shift to hop s + 1, then hop s's block (none
+    for a skipped hop), n - 1 shifts in all; its backward: the shifts'
+    backwards from the last hop's down, the same on every rank."""
+    want = []
+    for s in range(N):
+        if s + 1 < N:
+            want.append(("shift", s))
+        src = (rank - s) % N
+        mode = RA.FULL if not causal or src < rank else RA.DIAG if src == rank else RA.SKIP
+        if mode != RA.SKIP:
+            want.append(("block", mode))
+    order = ranks["order"]
+    assert order[(rank, causal, "forward")] == want
+    assert order[(rank, causal, "backward")] == [("unshift", s) for s in reversed(range(N - 1))]
+    assert all(order[(r, causal, "backward")] == order[(0, causal, "backward")]
+               for r in range(N))
 
 
 def test_skipped_block_merge_is_bit_neutral(ref):

@@ -184,3 +184,54 @@ def test_one_rank_returns_the_input_and_launches_nothing():
     k, v = FM.ring_shift_pair(x, x + 1, None, 3)
     assert k is x and torch.equal(v, x + 1)
     assert FM.SHIFT.launches == 0
+
+
+class _Workspace:
+    """The parts of `peer_memory.Workspace` a shift's plan reads, on the CPU:
+    4 ranks of 132 blocks, a slot that grows, the plans it keeps."""
+
+    def __init__(self):
+        self.n, self.rank, self.max_blocks = 4, 1, 132
+        self.own, self.err_ptr = 0x1000, 0x2000
+        self.shift_plans, self.reserved, self.peers = {}, [], []
+
+    def reserve(self, nbytes, kind):
+        self.reserved.append((nbytes, kind))
+
+    def slots(self, kind):
+        return (4096, 1 << 30)
+
+    def peer(self, offset):
+        self.peers.append(offset)
+        return 0x3000 + offset
+
+
+def test_shift_plan_is_cached_per_shapes_dtypes_and_shift():
+    """The same shapes, dtypes and shift reuse the workspace's plan (no
+    reserve, no peer lookup); new shapes, another dtype or shift re-plan.
+    The plan lays V out from the 16 bytes after K, in one output buffer."""
+    ws = _Workspace()
+    k = torch.zeros(2, 64, 4, 8, dtype=torch.bfloat16)
+    v = torch.zeros(2, 64, 4, 8, dtype=torch.bfloat16)
+    plan = FM._shift_plan(ws, (k, v), 1)
+    nbytes = k.numel() * 2
+    assert plan.nbytes == (nbytes, nbytes) and plan.offsets == (0, nbytes)
+    assert plan.total == 2 * nbytes and ws.reserved == [(2 * nbytes, "shift")]
+    assert plan.blocks == 1 and plan.ring[-1] == plan.blocks and plan.ring[1] == 0x3001
+    assert FM._shift_plan(ws, (k.clone(), v.clone()), 1) is plan
+    assert len(ws.reserved) == 1 and ws.peers == [1]
+    odd = torch.zeros(1003, dtype=torch.uint8)
+    for xs, shift in (((k, v), 3), ((k.float(), v), 1), ((odd,), 1), ((k[:1], v[:1]), 1)):
+        other = FM._shift_plan(ws, xs, shift)
+        assert other is not plan and FM._shift_plan(ws, xs, shift) is other
+    assert FM._shift_plan(ws, (odd,), 1).nbytes == (1003, 0)
+    assert FM._shift_plan(ws, (odd, odd), 1).offsets == (0, 1008)  # V from the next 16 bytes
+    assert len(ws.shift_plans) == 6
+
+
+@pytest.mark.parametrize("total,blocks", [(1, 1), (64 << 10, 1), ((64 << 10) + 1, 2),
+                                          (16 << 20, FM.SHIFT_GRID)])
+def test_shift_grid(total, blocks):
+    """SHIFT_GRID blocks, fewer below 64 KB a block, never more than the card's SMs."""
+    assert FM._shift_blocks(total, 132) == blocks
+    assert FM._shift_blocks(16 << 20, 8) == min(8, FM.SHIFT_GRID)
