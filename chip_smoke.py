@@ -13,7 +13,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  3. kernels  each flash kernel against its plain PyTorch version at the
              flagship attention shape (B=8, H=16, L=2048, D=64, bf16,
              causal), plus the ragged L=2000, window=256 and non-causal
-             cases, head dims 16 and 128 at B=2 (the GQA shape too),
+             cases, head dims 16, 128 and 8 (in the kernels) and 12
+             (padded to 16 by the wrappers) at B=2 (16 and 128 at the GQA
+             shape too),
              and the backward (B2, B3) with a non-zero lse
              cotangent, causal and not, against the plain blocked
              backward (ring attention's full hops and merges); times of
@@ -63,7 +65,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              fused-codec kernels B7 (reduce-scatter) and B8 (all-gather)
              through fused_ring_all_reduce, int8 and fp8, at the GQA
              flagship's gradient size and at 1,000,003 values: bit-equal to
-             the stacked plain version on every rank, within the JAX
+             the stacked plain version on every rank, B7 alone bit-equal
+             to its plain reduce-scatter, within the JAX
              package's quantization tolerance of the exact sum, planted
              faults (a hop's scales dropped, a block's codes zeroed)
              rejected; their times (median of 5 calls, CUDA events), the
@@ -331,11 +334,13 @@ def phase_kernels(seed: int):
     B, H, D, dtype = 8, 16, 64, torch.bfloat16
     errs = {k.name: 0.0 for k in flash.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # (L, window, causal, batch, head dim): the flagship's, then head dims 16
-    # and 128 (ROADMAP C.1) at batch 2
+    # (L, window, causal, batch, head dim): the flagship's, then head dims 16,
+    # 128 and 8 in the kernels, and 12 padded to 16 by the wrappers (ROADMAP
+    # C.1), at batch 2
     for L, window, causal, nb, d in ((2048, 0, True, B, D), (2000, 0, True, B, D),
                                      (2048, 256, True, B, D), (2048, 0, False, B, D),
-                                     (2048, 0, True, 2, 16), (2000, 256, True, 2, 128)):
+                                     (2048, 0, True, 2, 16), (2000, 256, True, 2, 128),
+                                     (2048, 0, True, 2, 8), (2000, 256, True, 2, 12)):
         scale = d ** -0.5
         q, k, v, do = (torch.randn(nb, L, H, d, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
@@ -740,7 +745,8 @@ def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, fsdp_groups: str, see
     r0 = res[0]
     print(f"[ring] {N_RANKS} ranks, backend {r0['backend']}, {r0['card']}: every rank's "
           f"reduce-scatter, all-gather and all-reduce (sum, mean) equal the stacked plain "
-          f"versions bit for bit, and so do the fused int8/fp8 all-reduces (sum, mean), "
+          f"versions bit for bit, and so do the fused int8/fp8 all-reduces (sum, mean) and "
+          f"their reduce-scatter (B7) alone, "
           f"within the reference's tolerance of the exact sum, and the grouped "
           f"reduce-scatter and all-gather at phase fsdp's buckets, each in the launches of "
           f"its segment plan; planted faults rejected")
@@ -768,6 +774,10 @@ def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, fsdp_groups: str, see
             extra = f"; error vs exact sum {worst:.4g} (tolerance {case['tolerance']:.4g})"
         if case.get("nccl_f32_ms"):
             extra += f"; NCCL f32 at this size (context) {json.dumps(case['nccl_f32_ms'])}"
+        if case.get("device_ms"):
+            dev = {k: max(rr["cases"][i]["device_ms"][k] for rr in res.values())
+                   for k in case["device_ms"]}
+            extra += f"; device ms, the host's issue out (slowest rank) {json.dumps(dev)}"
         print(f"[ring] {case['dtype']} x {case['size']} (chunk {case['chunk']}): kernel ms "
               f"(slowest rank's median) rs {slowest['rs']:.3f} ag {slowest['ag']:.3f} "
               f"all-reduce {slowest['ar']:.3f}; plain ms {json.dumps(case['plain_ms'])}; "
@@ -785,9 +795,10 @@ def phase_ring(n_params: int, gqa_params: int, fsdp_sizes, fsdp_groups: str, see
                    if (c["dtype"] in ("int8", "fp8")) == fused_cases
                    for e, v in c["max_abs_err"].items() if e in names)
 
-    # B7 and B8 are held together: the fused all-reduce against its plain version
+    # B7 alone and with B8: its reduce-scatter and the fused all-reduce
+    # against their plain versions; B8 with B7
     errs = {RC.RING_RS.name: worst(False, ("rs",)), RC.RING_AG.name: worst(False, ("ag",)),
-            RC.FUSED_RS.name: worst(True, ("fused_sum", "fused_mean")),
+            RC.FUSED_RS.name: worst(True, ("rs", "fused_sum", "fused_mean")),
             RC.FUSED_AG.name: worst(True, ("fused_sum", "fused_mean"))}
     ms = {name: case["slowest_ms"][k] for name, (case, k) in keys.items()}
     # the stacked plain fused all-reduce computes both kernels' work at once

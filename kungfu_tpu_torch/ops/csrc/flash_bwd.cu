@@ -9,9 +9,11 @@
 // dS = P * (dP - delta) with dP = dO V^T.  P and dS are rounded to the
 // operand type before they enter a product, as the TPU kernels do, and
 // every accumulator is float.  dq = scale * dS K, dk = scale * dS^T Q,
-// dv = P^T dO.  Head dims: any multiple of 16 up to 128.  Tiles are padded
-// to 64 or 128 columns with zeros in shared memory (never in device
-// memory), and the padded columns are not stored.
+// dv = P^T dO.  Head dims: any multiple of 8 up to 128 (a row is then
+// whole 16-byte chunks; ops/flash.py pads any other head dim up to one).
+// Tiles are padded to 64 or 128 columns with zeros in shared memory (never
+// in device memory), and the padded columns are not stored; a head of 8 is
+// one 16-deep wgmma step with half its columns zero.
 //
 // What bounds them on the card: at the flagship shape (B=8, H=16, L=2048,
 // D=64, causal) dq does ~103 GFLOP and dk/dv ~137 GFLOP against ~50 MB of
@@ -581,7 +583,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // Padded width of a head dim: 64 or 128, or 0 if the kernels do not take it.
 inline int padded_dim(int D) {
-  if (D < 16 || D > 128 || D % 16) return 0;
+  if (D < 8 || D > 128 || D % 8) return 0;
   return D <= 64 ? 64 : 128;
 }
 

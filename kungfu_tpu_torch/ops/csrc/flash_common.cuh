@@ -2,7 +2,7 @@
 //
 // Layout contract with ops/flash.py: q, o, dq, do are [B, L, H, D]; k, v,
 // dk, dv are [B, L, Hkv, D]; lse and delta are [B, H, L] float32.  All are
-// contiguous, D is a multiple of 16 up to 128, and the element type is
+// contiguous, D is a multiple of 8 up to 128, and the element type is
 // float, __half or __nv_bfloat16.  Tiles in shared memory are DP = 64 or
 // 128 columns wide; a head dim D < DP is padded there with zero columns,
 // which are never stored.

@@ -5,9 +5,10 @@
 // with float statistics, the scale applied to the float scores, and P
 // rounded to the operand type before the PV product.  GQA maps each query
 // head to its kv head (`_kv_row`) instead of repeating k/v.  lse is the
-// natural log, m + log(l).  Head dims: any multiple of 16 up to 128, in
-// tiles of 64 or 128 columns (DP) whose padded columns read as zeros and
-// are not stored.  Rows past L are not stored.  A block owns its query
+// natural log, m + log(l).  Head dims: any multiple of 8 up to 128 (a row
+// of whole 16-byte chunks, as TMA's strides need; ops/flash.py pads any
+// other head dim up to one), in tiles of 64 or 128 columns (DP) whose
+// padded columns read as zeros and are not stored.  Rows past L are not stored.  A block owns its query
 // rows, so there are no atomics and the output is deterministic.
 //
 // What bounds it on the card: at the flagship shape (B=8, H=16, L=2048,
@@ -479,7 +480,7 @@ template <typename T>
 int dispatch_fwd(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
                  int H, int Hkv, int L, float scale, int causal, int window,
                  cudaStream_t stream) {
-  if (D < 16 || D > 128 || D % 16 || Hkv < 1 || H % Hkv) return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > 128 || D % 8 || Hkv < 1 || H % Hkv) return (int)cudaErrorInvalidValue;
   if (D <= 64)
     return launch_fwd<T, 64>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, stream);
   return launch_fwd<T, 128>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, stream);

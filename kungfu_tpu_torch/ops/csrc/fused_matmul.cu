@@ -348,6 +348,7 @@ int launch_matmul_rs_f32(const Args& a, const void* x, const void* w, void* out,
 
 namespace kft_mm {
 
+using kft_ring::allow_smem;
 using kft_ring::Call;
 using kft_ring::Layout;
 using kft_ring::ring_mod;
@@ -629,19 +630,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// Let `kern` take `bytes` of dynamic shared memory, unless it already may
-// on this device (*done_on, one per kernel): host time a call spends here,
-// the card waits for.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, int* done_on) {
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || dev == *done_on) return e;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) *done_on = dev;
-  return e;
-}
 
 // B9's views and launch; `own_slots` is the first slot of this rank's
 // workspace (unused when c.ws.n == 1).

@@ -70,6 +70,10 @@
 //                   codes and scales unchanged hop by hop, and decodes every
 //                   chunk into the f32 output.
 //
+// The fused reduce-scatter runs its hops as a wavefront of stages, each
+// stage's codes and scales one bulk copy with a flag that counts stages
+// (its section below); the fused all-gather keeps a flag per (hop, block).
+//
 // One warp quantizes 256 values at a time (8 a lane, 8 bytes of codes a
 // lane), the absmax of a block taken with __shfl_xor_sync across its lanes;
 // a CUDA block owns whole quantization blocks, so its flag covers whole
@@ -350,6 +354,95 @@ __global__ void __launch_bounds__(kThreads)
   block_ack(own.ack);
 }
 
+// ------------------------------------------------------ bulk copies ----
+// The copy engine's asynchronous bulk copies (cp.async.bulk) between global
+// and shared memory, completing on shared-memory barriers (mbarrier) or as
+// bulk groups of the issuing thread: the shift (B11) and the fused
+// reduce-scatter (B7) move their bytes with them.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// A local copy completes within microseconds; one that does not (a fault)
+// traps, failing the launch, instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity, u64 limit_ns) {
+  if (mbar_try_wait(bar, parity)) return;
+  const u64 deadline = globaltimer() + limit_ns;
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer() > deadline) __trap();
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` from shared `src` to global `dst` (a peer's slot or an output),
+// as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's bulk groups still pending: complete, or
+// (kRead) done reading shared memory.
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Between the copy engine's accesses and this thread's ordinary ones
+// (both directions, global memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The stores of this block's stages so far are complete in the peer's
+// slot (wait_group): count them.  The proxy fence orders the copy engine's
+// writes before this thread's release of the flag.
+__device__ __forceinline__ void count_stages(u64* flag, u64 value) {
+  fence_proxy_async();
+  st_release(flag, value);
+}
+
+// A flag that counts stages holds (call << kStageBits) + the stages that
+// landed (the shift's and the fused reduce-scatter's).
+constexpr int kStageBits = 20;
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // ------------------------------------------------------- fused codec ----
 
 struct Codec {
@@ -462,56 +555,344 @@ __device__ __forceinline__ void load_payload(const Codec& q, const Payload& p, l
   *scale = __ldcg(p.scales + j / q.block);
 }
 
-// x: the f32 flat payload, chunk c at x[c * chunk + j], zero past x_size;
-// out: this rank's reduced chunk, `chunk` f32 values.
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------- fused reduce-scatter (B7) ----
+// A stage-pipelined ring.  The chunk is cut into stages of kFStageVals
+// values (32 segments of 256); block b owns a range of whole stages
+// (`block_range`), and its peer's block b the same range.  Stage t of a
+// hop travels as one record at t * (kFStageVals + its scales' bytes) in
+// the hop's slot: the stage's codes, then its scales, so one bulk copy
+// carries both (the last stage's record is shorter; a slot is still codes
+// plus scales of the chunk, as the workspace reserves it).
+//
+// A block runs n steps a stage in turn, hop 0 over all its stages, then
+// hop 1, ..., then the final pass, with one producer lane and 16 consumer
+// warps:
+//
+//   producer   warp 16, lane 0: from hop 1 on, the record of hop s - 1 out
+//              of this rank's slot into a ring of kFInBufs buffers by one
+//              bulk copy, once the left neighbour's flag counts that stage
+//   consumers  warps 0-15: x's stage (chunk ci of the payload) into a ring
+//              of kFXBufs buffers by their own 16-byte cp.async, two stages
+//              ahead; then a warp a segment at a time: x + the decoded
+//              record (one FMA a value), quantized into a record in one of
+//              kFOutBufs shared buffers; thread 0 sends the record to the
+//              right neighbour's slot as one bulk copy and, every kFCount
+//              stages (with kFCountLag stores still in flight) and at the
+//              end of the hop, once those stores are complete, a proxy
+//              fence and a release raise the block's flag of the hop to
+//              count them: (call << kStageBits) + stages landed
+//   final      x's own chunk + the decoded record of hop n - 2, in f32,
+//              stored to the output by the consumers
+//
+// So the right rank's hop s + 1 on stage k starts as soon as stage k of
+// hop s has landed, a hop's loads and codec overlap the previous stages'
+// transfers, and the final pass overlaps the stores still crossing: the
+// hops become a wavefront instead of n - 1 walls.  Slots stay one per hop,
+// so no stage waits for a reader (no back-pressure), which keeps ranks that
+// time-slice one card progressing.  The arithmetic of every value is the
+// old kernel's: x + code * scale as one __fmaf_rn, the absmax over its
+// block by shuffles, the scale as absmax * recip, the code as
+// rintf(__fdiv_rn(v, s)) clamped; only the schedule changed, so the result
+// is bit-equal to the plain version.
+//
+// What bounds it: bytes.  Between cards a rank sends (n - 1) chunks of
+// codes and scales over NVLink and reads its payload's n chunks and the
+// n - 1 received slots from device memory; the old kernel ran the hops and
+// the final pass strictly one after another (a flag per (hop, block)),
+// each lane storing 8 bytes to the peer with one load in flight.  x, four
+// bytes a value, comes by the threads' cp.async and not by bulk copies:
+// with x as a 32 KB bulk copy a stage as well (4 x H100 80GB HBM3 at
+// 700 W) a block moved about 14 GB/s of bulk copies, 3.5 us a stage
+// whatever the grid and however many stores were in flight (1.29 ms at 132
+// blocks and 9.05 ms at 16 for the 342.4M-value payload), about the rate
+// B11's blocks reach.
+//
+// Acknowledgements: thread 0 waits for the right neighbour's (every block
+// of the earlier calls) before its first store into that neighbour's
+// slots, so a call never overwrites a slot the neighbour's previous call
+// still reads, whatever the sizes and grids of the two calls.
+//
+// Failure: every flag wait is the producer's and the acknowledgement wait
+// thread 0's, bounded as every ring wait.  A producer that gives up raises
+// `failed` in shared memory; the consumers leave together at the next step
+// (a barrier that reduces their view of it and of thread 0's wait), and
+// raise `failed` themselves, which stops the producer at its next wait for
+// a free buffer.  The producer drains its loads, thread 0 its stores and
+// every consumer its cp.async copies before the block ends.
+constexpr int kFStageVals = 8192;  // values of a stage: 32 segments
+constexpr int kFConsumers = 512;   // 16 warps
+constexpr int kFThreads = kFConsumers + 32;  // and the producer's warp
+constexpr int kFXBufs = 3;         // x stages in shared memory: two loading, one read
+constexpr int kFInBufs = 3;        // received records
+constexpr int kFOutBufs = 7;       // records on their way out: up to 6 stores in flight
+constexpr int kFCount = 8;         // stages a count of the flag covers (64 KB of codes)
+constexpr int kFCountLag = 5;      // stores left in flight while a count is raised
+constexpr int kFRecMax = kFStageVals + kFStageVals / 8 * 4;  // a record at block 8
+constexpr int kFSmem = kFXBufs * kFStageVals * 4 + (kFInBufs + kFOutBufs) * kFRecMax;
+constexpr int kFXCopies = kFStageVals / 4 / kFConsumers;  // 16-byte copies a thread a stage
+static_assert(kFStageVals % 1024 == 0, "stages of whole 1024-value tiles");
+static_assert(kFStageVals % (4 * kFConsumers) == 0, "whole copies a thread");
+static_assert(kFCountLag < kFOutBufs, "a count waits for stores older than the pending reads");
+static_assert(kFSmem <= 232448 - 1024, "shared memory of one block, its barriers beside it");
+
+// The consumers' barrier (named barrier 1), and its form that returns
+// whether any of them passed `p`.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kFConsumers) : "memory");
+}
+
+__device__ __forceinline__ bool consumers_any(bool p) {
+  int r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.s32 p, %1, 0;\nbar.red.or.pred q, 1, %2, p;\n"
+      "selp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((int)p), "n"(kFConsumers)
+      : "memory");
+  return r != 0;
+}
+
+// 16 bytes from global `src` to shared `dst`, of which the first `bytes`
+// (0 to 16) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's cp.async groups still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A consumer's wait for a record: true when it landed, false once the
+// producer has given up (it issues nothing more).
+__device__ __forceinline__ bool wait_load(uint32_t bar, int parity, volatile int* failed) {
+  while (!mbar_try_wait(bar, parity))
+    if (*failed) return false;
+  return true;
+}
+
+// A block's steps in order, hop s (s = n - 1: the final pass) and local
+// stage k, without a division a step.
+struct FCursor {
+  int s = 0, k = 0;
+  __device__ void next(int T) {
+    if (++k == T) k = 0, ++s;
+  }
+};
+
+// Step (s, k) of a block whose first stage is t0: where its stage lies.
+struct FStep {
+  long long v0;    // first value of the stage in the chunk
+  int nv;          // values of the stage (a multiple of 1024)
+  long long xoff;  // the stage's first value in x
+  int valid;       // values of the stage below x_size
+  long long rec;   // byte offset of the stage's record in a slot
+  int rec_bytes;   // bytes of its record
+};
+
+__device__ __forceinline__ FStep fstep(int s, int k, long long t0, int n, int d, long long chunk,
+                                       long long x_size, int block) {
+  FStep f;
+  const long long t = t0 + k;
+  f.v0 = t * kFStageVals;
+  f.nv = (int)min((long long)kFStageVals, chunk - f.v0);
+  const int ci = s < n - 1 ? (d - s - 1 + n) % n : d;
+  f.xoff = (long long)ci * chunk + f.v0;
+  f.valid = (int)max(0LL, min((long long)f.nv, x_size - f.xoff));
+  f.rec = t * (kFStageVals + kFStageVals / block * 4);
+  f.rec_bytes = f.nv + f.nv / block * 4;
+  return f;
+}
+
+// Warp 16, lane 0: the block's record loads, hop by hop.  Returns false
+// when a wait gave up or the consumers left; then no load of it is left in
+// flight.
+__device__ bool frs_produce(const Call& c, int block, long long chunk, int T, long long t0,
+                            const Layout& own, uint32_t inbufs, uint32_t bars,
+                            volatile int* failed) {
+  const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks;
+  const uint32_t in_full = bars, in_empty = bars + 8 * kFInBufs;
+  const u64 base = c.seq << kStageBits;
+  int j = 0;  // record loads issued
+  bool ok = true;
+  for (int s = 1; ok && s < n; ++s) {
+    const u64* flag = own.flags + (long long)(s - 1) * mb + blockIdx.x;
+    u64 landed = 0;  // stages of hop s - 1 the flag has counted
+    for (int k = 0; k < T; ++k, ++j) {
+      if (landed < (u64)k + 1) {
+        u64 v = ld_acquire(flag);
+        if (v < base + k + 1) {
+          if (!thread_wait(c, flag, base + k + 1, own.claim, err_data(kFusedRs), s - 1)) {
+            ok = false;
+            break;
+          }
+          v = ld_acquire(flag);
+        }
+        landed = v - base;
+        fence_proxy_async();  // the left's stores, acquired, before the copy engine reads them
+      }
+      // the consumers are done with the buffer's last record (or have left)
+      if (j >= kFInBufs && !wait_load(in_empty + 8 * (j % kFInBufs), (j / kFInBufs - 1) & 1,
+                                      failed)) {
+        ok = false;
+        break;
+      }
+      const FStep f = fstep(s, k, t0, n, d, chunk, 0, block);
+      bulk_load(inbufs + (j % kFInBufs) * kFRecMax, slot(own, s - 1) + f.rec, f.rec_bytes,
+                in_full + 8 * (j % kFInBufs));
+    }
+  }
+  // drain (a no-op when the consumers read every record): the last load
+  // issued into each buffer lands
+  for (int m = max(0, j - kFInBufs); m < j; ++m)
+    mbar_wait(in_full + 8 * (m % kFInBufs), (m / kFInBufs) & 1, c.timeout_ns);
+  return ok;
+}
+
+// A consumer's share of step (s, k)'s x stage into shared buffer `buf`,
+// zero past x_size, as one cp.async group.
+__device__ __forceinline__ void frs_load_x(const FStep& f, const float* x, uint32_t buf) {
+#pragma unroll
+  for (int u = 0; u < kFXCopies; ++u) {
+    const int e = 4 * (threadIdx.x + u * kFConsumers);  // the copy's first value
+    if (e < f.nv) {
+      const int bytes = 4 * max(0, min(4, f.valid - e));
+      cp_async16(buf + 4 * e, bytes ? x + f.xoff + e : x, bytes);
+    }
+  }
+  cp_async_commit();
+}
+
+// Warps 0-15: x's loads and every step's codec, thread 0 sending the
+// records and counting them in the right neighbour's flag of the hop.
+__device__ void frs_consume(const Call& c, const Codec& q, const float* x, long long x_size,
+                            float* out, long long chunk, int T, long long t0,
+                            const Layout& own, const Layout& right, unsigned char* smem,
+                            uint32_t bars, volatile int* failed) {
+  const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t in_full = bars, in_empty = bars + 8 * kFInBufs;
+  const unsigned char* xbufs = smem;
+  const unsigned char* inbufs = smem + kFXBufs * kFStageVals * 4;
+  unsigned char* outbufs = smem + kFXBufs * kFStageVals * 4 + kFInBufs * kFRecMax;
+  const uint32_t xaddr = smem_addr(xbufs);
+  const u64 base = c.seq << kStageBits;
+  const int steps = n * T;
+  FCursor cur, ahead;  // this step, and the step whose x loads next
+  for (int m = 0; m < kFXBufs - 1; ++m, ahead.next(T)) {
+    if (m < steps)
+      frs_load_x(fstep(ahead.s, ahead.k, t0, n, d, chunk, x_size, q.block), x,
+                 xaddr + m * kFStageVals * 4);
+    else
+      cp_async_commit();
+  }
+  // thread 0 stores into the right neighbour's slots only once it has read
+  // what the earlier calls sent it (every block of them acknowledged)
+  bool acked = threadIdx.x != 0 || steps == 0 ||
+               thread_wait(c, right.ack, c.ack_want, own.claim, err_ack(kFusedRs), 0);
+  if (threadIdx.x == 0 && acked) fence_proxy_async();  // before the copy engine's stores
+  for (int i = 0; i < steps; ++i, cur.next(T), ahead.next(T)) {
+    // x of step i + 2 into the buffer step i - 1 read (every consumer passed
+    // that step's last barrier)
+    const int ia = i + kFXBufs - 1;
+    if (ia < steps)
+      frs_load_x(fstep(ahead.s, ahead.k, t0, n, d, chunk, x_size, q.block), x,
+                 xaddr + (ia % kFXBufs) * kFStageVals * 4);
+    else
+      cp_async_commit();
+    cp_async_wait<kFXBufs - 1>();  // this thread's share of step i's x landed
+    const FStep f = fstep(cur.s, cur.k, t0, n, d, chunk, x_size, q.block);
+    const int j = i - T;  // its record load, from hop 1 on
+    const bool send = cur.s < n - 1;
+    const bool ok = cur.s == 0 || wait_load(in_full + 8 * (j % kFInBufs), (j / kFInBufs) & 1,
+                                            failed);
+    if (threadIdx.x == 0 && send) bulk_wait<kFOutBufs - 1, true>();  // its out buffer is free
+    if (consumers_any(!ok || !acked)) {  // also: every consumer's share of x landed
+      if (threadIdx.x == 0) *failed = 1;  // the producer stops too
+      break;
+    }
+    const float* xs = reinterpret_cast<const float*>(xbufs + (i % kFXBufs) * kFStageVals * 4);
+    const unsigned char* in = inbufs + (j >= 0 ? j % kFInBufs : 0) * kFRecMax;
+    unsigned char* rec = outbufs + (i % kFOutBufs) * kFRecMax;
+    for (int g = warp; g < f.nv / kSeg; g += kFConsumers / 32) {
+      const int e = g * kSeg + lane * 8;  // this lane's first value in the stage
+      const float4 a = *reinterpret_cast<const float4*>(xs + e);
+      const float4 b = *reinterpret_cast<const float4*>(xs + e + 4);
+      float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      if (cur.s > 0)
+        add_decoded(q, *reinterpret_cast<const uint2*>(in + e),
+                    *reinterpret_cast<const float*>(in + f.nv + e / q.block * 4), v);
+      if (send) {
+        float scale;
+        *reinterpret_cast<uint2*>(rec + e) = quantize8(q, v, &scale);
+        if (lane % (q.block / 8) == 0) *reinterpret_cast<float*>(rec + f.nv + e / q.block * 4) = scale;
+      } else {
+        store8(out, f.v0 + e, chunk, v);
+      }
+    }
+    if (send) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync();  // x and the record read, the out record written
+    if (threadIdx.x == 0) {
+      if (cur.s > 0) mbar_arrive(in_empty + 8 * (j % kFInBufs));
+      if (send) {
+        bulk_store(slot(right, cur.s) + f.rec, smem_addr(rec), f.rec_bytes);
+        u64* flag = right.flags + (long long)cur.s * mb + blockIdx.x;
+        const int lag = cur.k - kFCountLag;  // complete once kFCountLag newer are pending
+        if (cur.k == T - 1) {
+          bulk_wait<0, false>();
+          count_stages(flag, base + (u64)T);
+        } else if (lag >= 0 && (lag + 1) % kFCount == 0) {
+          bulk_wait<kFCountLag, false>();
+          count_stages(flag, base + (u64)(lag + 1));
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // a block that gave up drains its copies
+  if (threadIdx.x == 0) bulk_wait<0, false>();
+}
+
+// x: the f32 flat payload, chunk c at x[c * chunk + j], zero past x_size
+// (16-byte aligned); out: this rank's reduced chunk, `chunk` f32 values.
+__global__ void __launch_bounds__(kFThreads, 1)
     ring_fused_rs_kernel(Call c, Codec q, const float* __restrict__ x, long long x_size,
                          float* __restrict__ out, long long chunk) {
-  const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks, b = blockIdx.x;
+  extern __shared__ __align__(128) unsigned char frs_smem[];
+  __shared__ __align__(8) u64 bars[2 * kFInBufs];
+  __shared__ int failed;
   const Layout own = layout(c.ws, c.ws.own, kFusedRs);
   const Layout right = layout(c.ws, c.ws.right, kFusedRs);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  long long g0, g1;
-  block_range(chunk / kSeg, &g0, &g1);  // this block's 256-value segments
-  if (!block_wait(c, right.ack, c.ack_want, own.claim, err_ack(kFusedRs), 0)) return;
-  for (int s = 0; s < n - 1; ++s) {
-    const int ci = ((d - s - 1) % n + n) % n;
-    if (s > 0 && !block_wait(c, own.flags + (long long)(s - 1) * mb + b, c.seq, own.claim,
-                             err_data(kFusedRs), s - 1))
-      return;
-    const Payload recv = payload(own, s > 0 ? s - 1 : 0, chunk);
-    const Payload send = payload(right, s, chunk);
-    for (long long g = g0 + warp; g < g1; g += kWarps) {
-      const long long j = g * kSeg + lane * 8;
-      float v[8];
-      load8(x, (long long)ci * chunk + j, x_size, v);
-      if (s > 0) {
-        uint2 codes;
-        float scale;
-        load_payload(q, recv, j, &codes, &scale);
-        add_decoded(q, codes, scale, v);
-      }
-      float scale;
-      const uint2 codes = quantize8(q, v, &scale);
-      store_payload(q, send, j, codes, scale);
-    }
-    block_signal(right.flags + (long long)s * mb + b, c.seq);
+  long long t0, t1;
+  block_range((chunk + kFStageVals - 1) / kFStageVals, &t0, &t1);  // this block's stages
+  const int T = (int)(t1 - t0);
+  const uint32_t bar0 = smem_addr(bars);
+  if (threadIdx.x == 0) {
+    failed = 0;
+    for (int i = 0; i < 2 * kFInBufs; ++i) mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  if (!block_wait(c, own.flags + (long long)(n - 2) * mb + b, c.seq, own.claim,
-                  err_data(kFusedRs), n - 2))
-    return;
-  const Payload recv = payload(own, n - 2, chunk);
-  for (long long g = g0 + warp; g < g1; g += kWarps) {
-    const long long j = g * kSeg + lane * 8;
-    float v[8];
-    load8(x, (long long)d * chunk + j, x_size, v);
-    uint2 codes;
-    float scale;
-    load_payload(q, recv, j, &codes, &scale);
-    add_decoded(q, codes, scale, v);
-    store8(out, j, chunk, v);
+  __syncthreads();
+  if (threadIdx.x < kFConsumers) {
+    frs_consume(c, q, x, x_size, out, chunk, T, t0, own, right, frs_smem, bar0, &failed);
+  } else if (threadIdx.x == kFConsumers) {
+    if (!frs_produce(c, q.block, chunk, T, t0, own,
+                     smem_addr(frs_smem) + kFXBufs * kFStageVals * 4, bar0, &failed))
+      failed = 1;
   }
-  block_ack(own.ack);  // slots read: the left may refill them
+  __syncthreads();
+  if (threadIdx.x == 0 && !failed) {  // slots read: the left may refill them
+    fence_proxy_async();
+    __threadfence_system();
+    atomicAdd_system(own.ack, 1ULL);
+  }
 }
 
 // x: this rank's reduced chunk (`chunk` f32 values); chunk c of the result
@@ -602,75 +983,7 @@ constexpr int kSendBufs = 4;       // the sender's stages in shared memory
 constexpr int kRecvBufs = 4;       // the receiver's
 constexpr int kChunk = 8;          // stages a count of the flag covers (128 KB)
 constexpr int kSignalLag = 2;      // stores left in flight while a count is raised
-constexpr int kStageBits = 20;     // flag = (seq << kStageBits) + stages landed
 constexpr int kShiftSmem = (kSendBufs + kRecvBufs) * kStage;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// A local copy completes within microseconds; one that does not (a fault)
-// traps, failing the launch, instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity, u64 limit_ns) {
-  if (mbar_try_wait(bar, parity)) return;
-  const u64 deadline = globaltimer() + limit_ns;
-  while (!mbar_try_wait(bar, parity))
-    if (globaltimer() > deadline) __trap();
-}
-
-// `bytes` (a multiple of 16) from global `src` into shared `dst`,
-// completing on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
-                                          uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// `bytes` from shared `src` to global `dst` (a peer's slot or an output),
-// as one bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(src), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// At most N of this thread's bulk groups still pending: complete, or
-// (kRead) done reading shared memory.
-template <int N, bool kRead>
-__device__ __forceinline__ void bulk_wait() {
-  if constexpr (kRead)
-    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Between the copy engine's accesses and this thread's ordinary ones
-// (both directions, global memory).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
 
 // One payload of a shift: `bytes` bytes from src to dst, at `offset` bytes
 // (a multiple of 16) into the slot.
@@ -723,14 +1036,6 @@ template <bool kFromSlot>
 __device__ __forceinline__ void copy_tail(const Part& p, const char* from, char* to) {
   for (long long i = p.bytes / 16 * 16; i < p.bytes; ++i)
     to[i] = kFromSlot ? (char)__ldcg(reinterpret_cast<const unsigned char*>(from) + i) : from[i];
-}
-
-// The stores of this block's stages so far are complete in the peer's
-// slot (wait_group): count them.  The proxy fence orders the copy engine's
-// writes before this thread's release of the flag.
-__device__ __forceinline__ void count_stages(u64* flag, u64 value) {
-  fence_proxy_async();
-  st_release(flag, value);
 }
 
 // Until at most n (0 to kRecvBufs - 1) of this thread's bulk groups are
@@ -1028,18 +1333,25 @@ extern "C" int kft_ring_ag(const long long* segs, int count, int dtype, KFT_RING
 }
 
 // Fused-codec reduce-scatter: x is the f32 payload (x_size values, n
-// chunks of `chunk`, zero past the end); out (chunk f32 values) = this
-// rank's chunk reduced through int8 (scheme 0) or fp8 (1) codes with one
-// scale per `block` values; `recip` = 1 / codemax rounded to f32.
+// chunks of `chunk`, zero past the end, 16-byte aligned); out (chunk f32
+// values) = this rank's chunk reduced through int8 (scheme 0) or fp8 (1)
+// codes with one scale per `block` values; `recip` = 1 / codemax rounded to
+// f32.  `blocks` at most the stages of the chunk (kFStageVals values each).
 extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, int block,
                             float recip, KFT_RING_PARAMS) {
+  using namespace kft_ring;
   Args a = KFT_RING_ARGS;
   Codec q{scheme, block, recip};
-  if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
-  kft_ring::ring_fused_rs_kernel<<<blocks, kft_ring::kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      kft_ring::make_call(a), q, static_cast<const float*>(x), x_size,
-      static_cast<float*>(out), chunk);
+  const long long stages = (chunk + kFStageVals - 1) / kFStageVals;
+  if (!fused_ok(a, q) || (reinterpret_cast<uintptr_t>(x) & 15) || x_size < 0 ||
+      seq >= (1ULL << (64 - kStageBits)) ||
+      (stages + blocks - 1) / blocks >= (1LL << kStageBits) - 1)
+    return (int)cudaErrorInvalidValue;
+  static int smem_on = -1;  // above 48 KB needs the attribute, once a device
+  const cudaError_t e = allow_smem(ring_fused_rs_kernel, kFSmem, &smem_on);
+  if (e != cudaSuccess) return (int)e;
+  ring_fused_rs_kernel<<<blocks, kFThreads, kFSmem, static_cast<cudaStream_t>(stream)>>>(
+      make_call(a), q, static_cast<const float*>(x), x_size, static_cast<float*>(out), chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1075,14 +1387,10 @@ extern "C" int kft_ring_shift(void* src0, void* dst0, long long bytes0, void* sr
       seq >= (1ULL << (64 - kft_ring::kStageBits)) ||
       (bytes0 + bytes1) / 16 / blocks / kft_ring::kStage >= (1LL << kft_ring::kStageBits) - 1)
     return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;  // once per process: above 48 KB needs the attribute
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(kft_ring::ring_shift_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               kft_ring::kShiftSmem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
+  static int smem_on = -1;  // above 48 KB needs the attribute, once a device
+  const cudaError_t e =
+      kft_ring::allow_smem(kft_ring::ring_shift_kernel, kft_ring::kShiftSmem, &smem_on);
+  if (e != cudaSuccess) return (int)e;
   const kft_ring::Part p0{static_cast<const char*>(src0), static_cast<char*>(dst0), bytes0, 0};
   const kft_ring::Part p1{static_cast<const char*>(src1), static_cast<char*>(dst1), bytes1, off1};
   kft_ring::ring_shift_kernel<<<blocks, kft_ring::kShiftThreads, kft_ring::kShiftSmem,

@@ -197,6 +197,19 @@ inline bool args_ok(const Args& a) {
          a.slots % 16 == 0 && a.slot_bytes % 16 == 0;
 }
 
+// Let `kern` take `bytes` of dynamic shared memory, unless it already may
+// on this device (*done_on, one per kernel): host time a call spends here,
+// the card waits for.
+template <typename Kern>
+inline cudaError_t allow_smem(Kern kern, int bytes, int* done_on) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev == *done_on) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) *done_on = dev;
+  return e;
+}
+
 }  // namespace kft_ring
 
 // The arguments every ring entry point ends with, in this order

@@ -20,11 +20,17 @@ version.  The plain versions are ports of `_fwd_reference` and
 holds the kernels against them.  Each kernel's `launches` count says how
 often the wrapper launched it.
 
-The kernels take head dims 16 to 128 in steps of 16 (`HEAD_DIMS`; a
-narrower head is padded with zero columns in shared memory); any other
-head dim raises NotImplementedError naming ROADMAP C.1, where the Pallas
-kernels take any.  In bf16 and fp16 all four run on wgmma (the forward
-with TMA loads); f32 runs on float FMA loops.
+Head dims: the kernels take 8 to 128 in steps of 8 in place (`HEAD_DIMS`:
+rows of whole 16-byte chunks; a head narrower than the 64- or 128-column
+tile is padded with zero columns in shared memory).  Any other head dim up
+to 128 goes through the same kernels on copies of the operands padded with
+zero columns to the next multiple of 8 (`pad_head`), with the caller's
+scale, and the outputs are cut back (`cut_head`): the zero columns add
+exact zeros to every q.k sum and to rowsum(dO * O), so this is exact; the
+copy is what an odd head costs.  A head dim over 128 raises
+NotImplementedError naming ROADMAP C.1, where the Pallas kernels take any.
+In bf16 and fp16 all four run on wgmma (the forward with TMA loads); f32
+runs on float FMA loops.
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.
@@ -40,7 +46,8 @@ from ..compat import kernel_mode
 NEG_INF = -1e30
 _PLAIN_BLOCK_K = 128  # key block of the wrappers' plain backward on the CPU
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-HEAD_DIMS = tuple(range(16, 129, 16))  # what the kernels take (ROADMAP C.1)
+HEAD_DIMS = tuple(range(8, 129, 8))  # what the kernels take in place
+MAX_HEAD_DIM = 128  # past it, ROADMAP C.1
 
 
 class Kernel:
@@ -169,12 +176,31 @@ def _plain_bwd_blhd(q, k, v, g, lse, delta, scale, causal, block_k, window):
 # [B, H, L] f32.
 
 def check_head_dim(name: str, d: int) -> None:
-    """The kernels take head dims 16-128 in steps of 16 (narrower ones
-    padded with zero columns in shared memory); the rest raise."""
-    if d not in HEAD_DIMS:
+    """Head dims 1 to 128 run on the kernels (those not a multiple of 8
+    padded to one); a wider head raises."""
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"{name}: head dim {d}: the CUDA flash kernels take multiples of 16 "
-            f"from 16 to 128 (ROADMAP C.1)")
+            f"{name}: head dim {d}: the CUDA flash kernels take head dims up to "
+            f"{MAX_HEAD_DIM}; a wider head needs another tile plan (the backward's dK and dV "
+            f"accumulators at D = 256 would take 256 registers a thread of one warpgroup) "
+            f"(ROADMAP C.1)")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head of d on: d rounded up to a
+    multiple of 8."""
+    return -(-d // 8) * 8
+
+
+def pad_head(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """x [..., D] with zero columns D..dp-1 appended (x itself at D = dp)."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
+def cut_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first d columns of x [..., dp], contiguous (x itself at d = dp)."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
@@ -191,7 +217,8 @@ def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
             raise ValueError(f"{name}: mixed dtypes {t.dtype} and {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous [B, L, H, D]")
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16 and kernel_head_dim(q.shape[-1]) == q.shape[-1]:
+            # (an odd head reaches the kernels as padded copies)
             raise ValueError(f"{name}: operands must start 16-byte aligned")
     for t in f32_tensors:
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -217,6 +244,10 @@ def flash_fwd(q, k, v, scale: float, causal: bool, window: int = 0
     b, l, h, d = q.shape
     hkv = k.shape[2]
     _check_cuda("flash_fwd", (q, k, v))
+    dp = kernel_head_dim(d)
+    if dp != d:
+        o, lse = flash_fwd(*(pad_head(x, dp) for x in (q, k, v)), scale, causal, window)
+        return cut_head(o, d), lse
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     _launch(FLASH_FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -234,6 +265,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
         return _plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, _PLAIN_BLOCK_K,
                                window)[0]
     _check_cuda("flash_bwd_dq", (q, k, v, do), (lse, delta))
+    dp = kernel_head_dim(d)
+    if dp != d:
+        return cut_head(flash_bwd_dq(*(pad_head(x, dp) for x in (q, k, v, do)), lse, delta,
+                                     scale, causal, window), d)
     dq = torch.empty_like(q)
     _launch(FLASH_BWD_DQ, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -252,6 +287,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
         return _plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, _PLAIN_BLOCK_K,
                                window)[1:]
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
+    dp = kernel_head_dim(d)
+    if dp != d:
+        dk, dv = flash_bwd_dkv(*(pad_head(x, dp) for x in (q, k, v, do)), lse, delta, scale,
+                               causal, window)
+        return cut_head(dk, d), cut_head(dv, d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -16,9 +16,11 @@ One `Workspace` per process group, symmetric across its ranks:
              (csrc/ring_common.cuh, `header_bytes`)
   rs slots   n-1 receive slots of the reduce-scatter (B5), one per hop
   ag slots   n-1 landing slots of the all-gather (B6), one per hop
-  frs slots  n-1 slots of the fused-codec reduce-scatter (B7): codes, then
-             one f32 scale per quantization block
-  fag slots  n-1 slots of the fused-codec all-gather (B8), the same layout
+  frs slots  n-1 slots of the fused-codec reduce-scatter (B7): a record a
+             stage of the chunk, its codes then its f32 scales (one per
+             quantization block; csrc/ring.cu, B7's section)
+  fag slots  n-1 slots of the fused-codec all-gather (B8): codes, then one
+             f32 scale per quantization block
   shift slot one slot of the ring shift (B11): the payloads of one call
              (K, then V from the next 16 bytes)
   agmm slots n slots of the all-gather-matmul (B9): slot c holds weight

@@ -54,7 +54,10 @@ all-reduce).
 semantics: "none" is `ring_all_reduce`; "bf16" casts, runs B5/B6 on bf16
 and casts back; int8/fp8 take x in f32, pad each chunk to a multiple of
 lcm(block, 1024) (`collective.fused_chunk_elems`), run B7, the mean (times
-1/n), then B8, and cast back to x's dtype.  Where the JAX wrapper hands a
+1/n), then B8, and cast back to x's dtype.  B7 runs its hops as a
+wavefront of stages of FRS_STAGE_VALUES values (`fused_rs_plan`: whole
+stages a block on at most FRS_GRID blocks; `frs_counts`: the stage counts
+its flags carry).  Where the JAX wrapper hands a
 stochastic or sparse config, another op or an oversized payload to
 `compression.all_reduce`, this one raises for the first three (that path
 is `synchronous_sgd(impl="pmean", compression=...)`) and runs every
@@ -69,7 +72,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -94,8 +97,14 @@ TILE = C.TILE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _THREADS, _VEC_BYTES, _UNROLL = 512, 16, 4  # csrc/ring.cu kThreads, 16-byte vectors, kUnroll
 MAX_SEGMENTS = 32  # csrc/ring.cu kMaxSegs: segments in one launch of B5/B6
-_SEG, _SEGS_PER_BLOCK = 256, 64  # fused kernels: values a warp quantizes at once; 16 warps x 4
+_SEG, _SEGS_PER_BLOCK = 256, 64  # fused kernels: values a warp quantizes at once; B8: 16 warps x 4
 _SCHEMES = {"int8": 0, "fp8": 1}
+# B7 (csrc/ring.cu, the fused reduce-scatter's section): values of a stage
+# (kFStageVals), stages a count of its flag covers and the stores left in
+# flight while one is raised (kFCount, kFCountLag), the bits of a flag's
+# count (kStageBits)
+FRS_STAGE_VALUES, FRS_COUNT, FRS_COUNT_LAG, STAGE_BITS = 8192, 8, 5, 20
+FRS_GRID = 132  # B7's blocks at most (and at most one an SM); chosen by a grid sweep
 _chunk_elems = C._chunk_elems
 _world = C._world
 
@@ -310,9 +319,48 @@ def require_fused_kernel(cfg: CompressionConfig, op: str) -> None:
             "(compression.all_reduce)")
 
 
+class FrsPlan(NamedTuple):
+    """B7's launch for one chunk: `stages` of FRS_STAGE_VALUES values (the
+    last one shorter), `per_block` of them a block over `blocks` blocks
+    (`block_range`, none empty); a stage's record (its codes, then its
+    scales) at `record` bytes a stage into a slot of `slot` bytes."""
+    stages: int
+    blocks: int
+    per_block: int
+    record: int
+    slot: int
+
+
+def fused_rs_plan(chunk: int, block: int, max_blocks: int) -> FrsPlan:
+    """B7's plan for a chunk of `chunk` values (a multiple of 1024) and
+    quantization blocks of `block` values, on at most FRS_GRID and
+    `max_blocks` blocks."""
+    stages = -(-chunk // FRS_STAGE_VALUES)
+    cap = max(1, min(max_blocks, FRS_GRID, stages))
+    per = -(-stages // cap)
+    return FrsPlan(stages, -(-stages // per), per,
+                   FRS_STAGE_VALUES + FRS_STAGE_VALUES // block * 4, chunk + chunk // block * 4)
+
+
+def frs_counts(stages: int) -> List[int]:
+    """The counts a block of B7 with `stages` stages raises in its flag of
+    a hop, in order (csrc/ring.cu `frs_consume`): every FRS_COUNT stages,
+    those complete while FRS_COUNT_LAG newer stores are in flight, and all
+    of them at the hop's last stage."""
+    counts = []
+    for k in range(stages):
+        lag = k - FRS_COUNT_LAG
+        if k == stages - 1:
+            counts.append(stages)
+        elif lag >= 0 and (lag + 1) % FRS_COUNT == 0:
+            counts.append(lag + 1)
+    return counts
+
+
 def _fused_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor,
-                  cfg: CompressionConfig, chunk: int, group, head) -> None:
-    """B7 or B8: reserve fused slots for `chunk` codes and their scales, launch."""
+                  cfg: CompressionConfig, chunk: int, group, head, grid) -> None:
+    """B7 or B8: reserve fused slots for `chunk` codes and their scales,
+    launch on `grid(max_blocks)` blocks."""
     if cfg.block % 8 or _SEG % cfg.block:
         raise NotImplementedError(
             f"fused_ring_all_reduce: block {cfg.block} has no ring kernel (B7/B8 take "
@@ -320,16 +368,18 @@ def _fused_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor,
     ws = peer_memory.workspace(group, x.device)
     ws.raise_if_failed()
     ws.reserve(chunk + chunk // cfg.block * 4, "frs", "fag")
-    blocks = max(1, min(ws.max_blocks, -(-(chunk // _SEG) // _SEGS_PER_BLOCK)))
     codec = (_SCHEMES[cfg.scheme], cfg.block, float(CODE_RECIP[cfg.scheme]))
-    _launch(kernel, fn_name, ws, kind, x.device, chunk, blocks, (*head, *codec))
+    _launch(kernel, fn_name, ws, kind, x.device, chunk, grid(ws.max_blocks), (*head, *codec))
 
 
 def _fused_rs(flat: torch.Tensor, cfg: CompressionConfig, chunk: int, group) -> torch.Tensor:
     """B7 on the contiguous f32 payload `flat`: this rank's reduced chunk."""
+    if flat.data_ptr() % 16:  # its stages leave by 16-byte bulk copies
+        flat = flat.clone()
     mine = torch.empty(chunk, dtype=torch.float32, device=flat.device)
     _fused_launch(FUSED_RS, "kft_ring_frs", "frs", flat, cfg, chunk, group,
-                  (flat.data_ptr(), flat.numel(), mine.data_ptr()))
+                  (flat.data_ptr(), flat.numel(), mine.data_ptr()),
+                  lambda max_blocks: fused_rs_plan(chunk, cfg.block, max_blocks).blocks)
     return mine
 
 
@@ -338,7 +388,9 @@ def _fused_ag(mine: torch.Tensor, cfg: CompressionConfig, chunk: int, size: int,
     """B8: every rank's chunk, quantized once by its owner, as `size` f32 values."""
     out = torch.empty(size, dtype=torch.float32, device=mine.device)
     _fused_launch(FUSED_AG, "kft_ring_fag", "fag", mine, cfg, chunk, group,
-                  (mine.data_ptr(), out.data_ptr(), size))
+                  (mine.data_ptr(), out.data_ptr(), size),
+                  lambda max_blocks: max(1, min(max_blocks,
+                                                -(-(chunk // _SEG) // _SEGS_PER_BLOCK))))
     return out
 
 

@@ -1,7 +1,8 @@
 """The ring kernels against their stacked plain versions, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.ring_check \\
-        [--cases f32:1000003,bf16:4099] [--groups f32:256+262144+1000] [--grid 16,32]
+        [--cases f32:1000003,bf16:4099,int8:1000003] [--groups f32:256+262144+1000]
+        [--grid 16,32]
         [--iters 5] [--seed 0] [--faults] [--device cpu]
 
 Each case is `dtype:size`.  Every rank makes every rank's input from the
@@ -25,10 +26,16 @@ exact sum (the bound the JAX package's own tests put on its fused ring).
 `planted_fused_faults`) in the cases of at most 16M values and shows that
 the comparison rejects each.
 
-On a card each kernel is then timed: the median of `--iters` calls, each
-between two CUDA events, on every rank at once, and the median host time
-of a call (the wrapper's work up to the launch, `host_ms`) (for a fused case "rs" is
-B7 alone on the payload, "ag" B8 alone on its result).  Rank 0 alone,
+On a card a fused case also holds B7 alone (`_fused_rs`) against its
+plain version (`plain_fused_rs`), bit for bit, at its grid and at each
+`--grid` cap.  Each kernel is then timed: the median of `--iters` calls,
+each between two CUDA events, on every rank at once (`ms`, the host's issue
+in it), and the median host time of a call (the wrapper's work up to the
+launch, `host_ms`) (for a fused case "rs" is B7 alone on the payload, "ag"
+B8 alone on its result); with a card per rank a fused case also times B7
+and B8 primed (`device_ms`: each call queued behind a spin kernel after a
+barrier, so the host's issue is out of it), and B7 at each `--grid` cap
+(`grid_ms`, primed with a card per rank).  Rank 0 alone,
 while the others wait, times the stacked plain version (which computes
 every rank's result in one process).  Where every rank has a card of its
 own (an NCCL group), every rank also times NCCL's reduce_scatter_tensor,
@@ -59,6 +66,7 @@ their lines.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -70,6 +78,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from .. import distributed
 from ..compression import config as comp_config
@@ -213,6 +222,31 @@ def _median_ms(fn, iters: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+SPIN_CYCLES = 1_000_000  # about 0.5 ms of an H100's clock: longer than a call's issue
+
+
+def _primed_ms(fn, iters: int) -> float:
+    """Median device time of one call of every rank, its launches queued
+    behind a spin kernel so the host's issue is not in it: after a barrier
+    (the ranks' calls start together, within the host's skew), a spin,
+    then the call between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _host_ms(fn, iters: int) -> float:
     """Median host time of one call (the wrapper's issue, up to the
     kernel's launch), the card idle between calls."""
@@ -263,14 +297,38 @@ def fused_bounds(n: int, size: int, cfg, own_cards: bool) -> Dict[str, float]:
     return _bound_ms(n, sends, memory, own_cards)
 
 
+def plain_fused_rs(xs: Sequence[torch.Tensor], cfg, d: int) -> torch.Tensor:
+    """Rank d's reduced chunk after the fused reduce-scatter (B7) of every
+    rank's x, f32: the stacked plain version's sums for chunk d alone
+    (`collective._plain_fused_ring_all_reduce` before its mean and its
+    all-gather), without padding the whole payloads."""
+    n, size = len(xs), xs[0].numel()
+    chunk = C.fused_chunk_elems(size, n, cfg)
+    lo, hi = min(size, d * chunk), min(size, (d + 1) * chunk)
+    parts = [F.pad(x.reshape(-1)[lo:hi].float(), (0, chunk - (hi - lo))) for x in xs]
+    q = quantize(parts[(d + 1) % n], cfg)
+    for k in range(2, n):
+        q = quantize(add_dequantized(parts[(d + k) % n], q), cfg)
+    return add_dequantized(parts[d], q)
+
+
 def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, iters: int,
-                     faults: bool, own_cards: bool) -> Dict:
+                     faults: bool, own_cards: bool, grids: Sequence[int] = ()) -> Dict:
     cfg = comp_config.resolve(scheme)
     xs = make_inputs(n, size, torch.float32, seed, device)
     chunk = C.fused_chunk_elems(size, n, cfg)
     res: Dict = {"dtype": scheme, "size": size, "chunk": chunk}
     ok, err = {}, {}
     tol = fused_tolerance(xs, scheme)
+    if device.type == "cuda":  # B7 alone against its plain version, every grid of `grids`
+        rs_want = plain_fused_rs(xs, cfg, d)
+        for g in [0, *grids]:
+            with fused_grid(g):
+                got = RC._fused_rs(xs[d], cfg, chunk, None)
+            key = f"rs grid {g}" if g else "rs"
+            ok[key] = bool(torch.equal(got, rs_want))
+            err[key] = (got - rs_want).abs().max().item()
+        del got, rs_want
     for op in ("sum", "mean"):
         got = RC.fused_ring_all_reduce(xs[d], None, cfg, op)
         want = C._plain_fused_ring_all_reduce(xs, cfg, op)[d]
@@ -293,6 +351,16 @@ def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, 
                  "ar": lambda: RC.fused_ring_all_reduce(flat, None, cfg, "mean")}
         dist.barrier()
         res["ms"] = {k: _median_ms(fn, iters) for k, fn in calls.items()}
+        res["host_ms"] = {k: _host_ms(fn, iters) for k, fn in calls.items()}
+        if own_cards:  # each kernel's device time, the host's issue out of it
+            res["device_ms"] = {k: _primed_ms(calls[k], iters) for k in ("rs", "ag")}
+        res["grid_ms"] = {}
+        for g in grids:
+            with fused_grid(g):
+                res["grid_ms"][str(g)] = (_primed_ms(calls["rs"], iters) if own_cards
+                                          else _median_ms(calls["rs"], iters))
+        res["grid_how"] = ("B7 primed (a spin kernel ahead, the host's issue out of it)"
+                           if own_cards else "B7, median of CUDA events around each call")
         dist.barrier()
         if d == 0:
             res["plain_ms"] = {"ar": _median_ms(
@@ -315,10 +383,23 @@ def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, 
     return res
 
 
+@contextlib.contextmanager
+def fused_grid(blocks: int):
+    """B7's grid capped at `blocks` (every rank the same; 0 leaves it)."""
+    if not blocks:
+        yield
+        return
+    old, RC.FRS_GRID = RC.FRS_GRID, blocks
+    try:
+        yield
+    finally:
+        RC.FRS_GRID = old
+
+
 def check_case(name: str, size: int, n: int, d: int, seed: int, device, iters: int,
-               faults: bool, own_cards: bool) -> Dict:
+               faults: bool, own_cards: bool, grids: Sequence[int] = ()) -> Dict:
     if name in SCHEMES:
-        return check_fused_case(name, size, n, d, seed, device, iters, faults, own_cards)
+        return check_fused_case(name, size, n, d, seed, device, iters, faults, own_cards, grids)
     dtype = DTYPES[name]
     xs = make_inputs(n, size, dtype, seed, device)
     row = size // n
@@ -508,8 +589,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--groups", default="",
                     help="groups through the grouped B5/B6: dtype:row+row+... separated by ;")
     ap.add_argument("--grid", default="",
-                    help="also time each group with the grid capped at each of these block "
-                    "counts, comma-separated (a measurement: the wrappers take one block an SM)")
+                    help="also time each group, and B7 in each fused case, with the grid "
+                    "capped at each of these block counts, comma-separated (a measurement; "
+                    "B7 is also checked bit for bit at each)")
     args = ap.parse_args(argv)
     n = distributed.init_distributed(device=args.device)
     if n < 2:
@@ -522,15 +604,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     own_cards = dist.get_backend() == "nccl"
     for k in RC.KERNELS:
         k.launches = 0
+    grids = [int(g) for g in args.grid.split(",") if g]
     cases = []
     for name, size in parse_cases(args.cases):
         cases.append(check_case(name, size, n, d, args.seed, device, args.iters, args.faults,
-                                own_cards))
+                                own_cards, grids))
         if device.type == "cuda":
             torch.cuda.empty_cache()  # the ranks of one card share its memory
     for name, rows in parse_groups(args.groups):
         cases.append(check_group(name, rows, n, d, args.seed, device, args.iters, args.faults,
-                                 own_cards, [int(g) for g in args.grid.split(",") if g]))
+                                 own_cards, grids))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     out = {"rank": d, "n": n, "device": str(device), "backend": dist.get_backend(),

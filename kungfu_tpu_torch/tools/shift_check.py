@@ -69,7 +69,8 @@ from ..ops import flash
 from ..ops import fused_matmul as FM
 from ..ops import peer_memory
 from ..ops import ring_collectives as RC
-from .ring_check import HBM_BYTES_PER_S, NVLINK_BYTES_PER_S, _host_ms, _median_ms, make_inputs
+from .ring_check import (HBM_BYTES_PER_S, NVLINK_BYTES_PER_S, _host_ms, _median_ms, _primed_ms,
+                         make_inputs)
 
 LINE = "SHIFT_CHECK "
 
@@ -191,31 +192,6 @@ def _span_ms(fn, iters: int, device) -> float:
     torch.cuda.synchronize(device)
     dist.barrier()
     return (time.perf_counter() - t0) * 1e3 / iters
-
-
-SPIN_CYCLES = 1_000_000  # about 0.5 ms of an H100's clock: longer than a call's issue
-
-
-def _primed_ms(fn, iters: int) -> float:
-    """Median device time of one call of every rank, its launches queued
-    behind a spin kernel so the host's issue is not in it: after a barrier
-    (the ranks' calls start together, within the host's skew), a spin,
-    then the call between two CUDA events."""
-    fn()
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        dist.barrier()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _call_ms(fn, iters: int, device, own_cards: bool) -> float:

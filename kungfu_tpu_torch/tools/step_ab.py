@@ -19,8 +19,8 @@ FSDPTrainer on the ring kernels; the sequence-parallel step with `--sp
 (FSDPTrainer(dma_collectives=False): torch.distributed a parameter, the
 yardstick).  Each run's reading: the slowest rank's step time with and
 without the profiler, tokens/s over all ranks, every rank's idle share
-and device busy time (of the profiled steps), device time of B5, B6,
-B11 (and the part of it no other kernel overlaps) and NCCL's
+and device busy time (of the profiled steps), device time of B5-B8,
+B11 (and the part of it no other kernel overlaps), EF and NCCL's
 collectives, of the flash kernels, peak memory, and the kernels'
 launches a step.
 Prints a line a run and then `STEP_AB {json}`; each run's output is kept

@@ -30,7 +30,7 @@ torch.distributed instead (`dma_collectives=False`, the yardstick).
 Prints the step time on the host clock (with and without the profiler),
 the peak memory, the device time of every kernel
 summed by category (the port's flash kernels, its ring kernels, NCCL,
-matrix products, the optimizer, everything else), that of B5, B6, B11,
+matrix products, the optimizer, everything else), that of B5-B8, B11,
 the EF residual and NCCL's collectives, B11's time that no other kernel overlaps ("B11
 exposed": it runs on a side stream under ring attention's flash blocks),
 the ring, shift, flash and residual kernels' launches a step, the device's idle
@@ -76,6 +76,8 @@ CATEGORIES = (  # first match wins
 
 
 COLLECTIVES = {"B5": re.compile(r"ring_rs_kernel"), "B6": re.compile(r"ring_ag_kernel"),
+               "B7": re.compile(r"ring_fused_rs_kernel"),
+               "B8": re.compile(r"ring_fused_ag_kernel"),
                "B11": re.compile(r"ring_shift_kernel"),
                "EF": re.compile(r"ef_residual_kernel"),
                "NCCL reduce-scatter": re.compile(r"nccl.*ReduceScatter", re.I),
@@ -245,7 +247,7 @@ def main() -> int:
     others_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels
                           if not COLLECTIVES["B11"].search(e.name))
     launches = {k.name: k.launches / args.steps for k in counted}
-    # the collectives of the step by kernel: B5, B6 and NCCL's
+    # the collectives of the step by kernel: B5-B8, B11, EF and NCCL's
     collectives = {label: sum(us for name, us in by_name.items() if pattern.search(name))
                    / args.steps / 1e3 for label, pattern in COLLECTIVES.items()}
     collectives["B11 exposed"] = (busy_us - others_us) / args.steps / 1e3

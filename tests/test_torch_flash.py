@@ -172,11 +172,87 @@ def test_kernels_take_head_dims_16_to_128(d):
     tflash.check_head_dim("flash_fwd", d)
 
 
-@pytest.mark.parametrize("d", [8, 40, 144])
+@pytest.mark.parametrize("d", [129, 144, 256])
 def test_other_head_dims_name_roadmap_c1(d):
+    """Only a head wider than 128 is refused (fault C.1, narrowed)."""
     assert d not in tflash.HEAD_DIMS
     with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
         tflash.check_head_dim("flash_fwd", d)
+
+
+@pytest.mark.parametrize("d", list(range(1, 129)))
+def test_check_head_dim_takes_1_to_128(d):
+    """Every head dim up to 128 runs on the kernels: in place at a multiple
+    of 8, else padded to the next one."""
+    tflash.check_head_dim("flash_fwd", d)
+    dp = tflash.kernel_head_dim(d)
+    assert dp in tflash.HEAD_DIMS and d <= dp < d + 8
+    assert (dp == d) == (d % 8 == 0)
+
+
+# The padded route of a head dim that is not a multiple of 8: the plain
+# forward and backward on the operands padded with zero columns, cut back
+# to D, against the plain version at D.  The zero columns add exact zeros
+# to every q.k sum and to rowsum(dO * O); only the order of the f32 sums
+# in the products of other shapes may differ, so 1e-5 absolute on values
+# of order one.
+PAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("d", [12, 20, 100])
+def test_padded_head_matches_plain(d, h, hkv):
+    l, causal, window = 136, True, 48
+    q, k, v, g_o, g_lse = map(torch.from_numpy, _inputs(l, h, hkv, d=d, seed=100 + d))
+    scale = d ** -0.5
+    dp = tflash.kernel_head_dim(d)
+    assert dp % 8 == 0 and dp > d
+    o, lse = tflash._plain_fwd_blhd(q, k, v, scale, causal, window)
+    delta = (o * g_o).sum(-1).transpose(1, 2).contiguous() - g_lse
+    want = tflash._plain_bwd_blhd(q, k, v, g_o, lse, delta, scale, causal, 64, window)
+
+    qp, kp, vp, gp = (tflash.pad_head(x, dp) for x in (q, k, v, g_o))
+    assert qp.shape[-1] == dp and torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    o_p, lse_p = tflash._plain_fwd_blhd(qp, kp, vp, scale, causal, window)
+    delta_p = (o_p * gp).sum(-1).transpose(1, 2).contiguous() - g_lse
+    got = tflash._plain_bwd_blhd(qp, kp, vp, gp, lse_p, delta_p, scale, causal, 64, window)
+
+    np.testing.assert_allclose(tflash.cut_head(o_p, d).numpy(), o.numpy(), atol=PAD_ATOL)
+    assert not o_p[..., d:].any()  # the padded columns of o are exact zeros
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), atol=PAD_ATOL)
+    np.testing.assert_allclose(delta_p.numpy(), delta.numpy(), atol=PAD_ATOL)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(tflash.cut_head(g, d).numpy(), w.numpy(), atol=PAD_ATOL,
+                                   err_msg=name)
+
+
+def test_padded_head_matches_pallas(kflash):
+    """A head of 12 through the padded route, forward and gradients,
+    against the interpreted Pallas kernels, which take the whole head dim
+    as one block; f32, 2e-5 as above."""
+    d, l, h, hkv, causal, window = 12, 200, 4, 2, True, 64
+    q, k, v, g_o, g_lse = _inputs(l, h, hkv, d=d, seed=12)
+    kw = dict(causal=causal, window=window, block_q=64, block_k=64)
+
+    def jax_fn(q, k, v):
+        return kflash.flash_attention_with_lse(q, k, v, interpret=True,
+                                               backward="pallas", **kw)
+
+    (o_ref, lse_ref), vjp = jax.vjp(jax_fn, *map(jnp.asarray, (q, k, v)))
+    grads_ref = vjp((jnp.asarray(g_o), jnp.asarray(g_lse)))
+
+    dp = tflash.kernel_head_dim(d)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o_p, lse = tflash.flash_attention_with_lse(
+        *(tflash.pad_head(x, dp) for x in (tq, tk, tv)), scale=d ** -0.5, **kw)
+    o = tflash.cut_head(o_p, d)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv),
+                                (torch.from_numpy(g_o), torch.from_numpy(g_lse)))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_ref), atol=ATOL)
+    for name, got, want in zip("qkv", grads, grads_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -107,6 +107,16 @@ CASES = [
     (1, 300, 2, 2, 16, True, 128),
     (1, 300, 2, 2, 128, True, 129),
     (1, 300, 2, 2, 64, True, 400),
+    # head dims that are multiples of 8 but not of 16, in the kernels
+    # (fault C.1): a head of 8 is one 16-deep wgmma step, half of it zeros
+    (1, 200, 2, 2, 8, True, 0),
+    (2, 256, 2, 2, 24, True, 96),
+    (1, 300, 2, 2, 40, False, 0),
+    (1, 333, 2, 2, 72, True, 50),
+    (1, 200, 2, 2, 120, True, 0),
+    # and heads that are not, padded to the next multiple of 8 by the wrappers
+    (1, 200, 2, 2, 12, True, 0),
+    (1, 300, 2, 2, 100, True, 64),
 ]
 
 
@@ -158,7 +168,27 @@ GQA_CASES = [
     (1, 200, 8, 1, 64, True, 0),  # a group of 8
     (1, 129, 8, 1, 128, False, 0),
     (2, 257, 8, 1, 64, True, 65),
+    (1, 200, 4, 2, 8, True, 0),  # head dims of C.1, as in CASES
+    (2, 256, 4, 2, 24, True, 96),
+    (1, 300, 4, 1, 40, True, 50),
+    (1, 333, 4, 2, 72, False, 0),
+    (1, 200, 4, 2, 120, True, 64),
+    (1, 200, 4, 2, 12, True, 0),
+    (1, 300, 4, 1, 100, True, 50),
 ]
+
+
+@pytest.mark.parametrize("d", [12, 100])
+def test_padded_heads_launch_each_kernel_once(card, d):
+    """A head dim that is not a multiple of 8 runs each kernel once, on
+    copies padded to the next multiple, and returns the caller's width."""
+    q, k, v, do = (x.requires_grad_() for x in _inputs(card, 1, 128, 2, 2, d, torch.bfloat16))
+    before = [kern.launches for kern in flash.KERNELS]
+    o = flash.flash_attention(q, k, v, causal=True)
+    o.backward(do)
+    assert o.shape == q.shape and o.is_contiguous()
+    assert all(x.grad.shape == x.shape for x in (q, k, v))
+    assert [kern.launches - n for kern, n in zip(flash.KERNELS, before)] == [1, 1, 1, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
@@ -258,7 +288,7 @@ def test_xla_backward_takes_the_plain_arm(card):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    for d in (40, 144):
+    for d in (129, 144):
         q, k, v, do = _inputs(card, 1, 64, 2, 2, d, torch.bfloat16)
         lse = torch.zeros(1, 2, 64, device=card)
         with pytest.raises(NotImplementedError, match="ROADMAP C.1"):

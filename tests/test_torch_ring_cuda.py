@@ -17,8 +17,12 @@ and must also lie within the JAX package's quantization tolerance of the
 exact sum.  The cases are f32 and bf16 of ragged sizes (not multiples of
 n * 1024, rows not multiples of 4 at n = 3), and the planted faults (a
 chunk misrouted, a hop left out; a hop's scales dropped, a block's codes
-zeroed) must be rejected.  Plain and fused calls of different sizes,
-interleaved as the buckets of a step interleave them, stay bit-equal.
+zeroed) must be rejected; B7 alone is held to its plain version bit for
+bit, also at capped grids and at payloads that end mid-stage,
+mid-segment and mid-vector, and call after call with changing sizes and
+grids while one rank comes late to each.  Plain and fused calls of
+different sizes, interleaved as the buckets of a step interleave them,
+stay bit-equal.
 Groups of tensors through the grouped calls (one launch of B5 or B6 for up
 to MAX_SEGMENTS tensors that fit a slot) are bit-equal tensor by tensor,
 take the launches of their segment plan, reject planted faults (a tensor
@@ -91,11 +95,43 @@ def test_ranks_on_their_own_cards(cards, n):
     assert {res["backend"] for res in results.values()} == {"nccl"}
 
 
+# The fused reduce-scatter B7 runs in stages of FRS_STAGE_VALUES values: a
+# chunk of one short stage (100 values), chunks that end mid-stage and
+# payloads that end mid-segment and mid-vector, int8 and fp8, sum and mean;
+# B7 alone bit-equal to its plain version at its own grid and at grids of 1,
+# 3 and 7 blocks (a block of many stages counts them in its flag as it goes).
+# (f32:4099 runs B5/B6 beside them: `_run` wants every ring kernel launched.)
+FUSED_STAGE_CASES = "int8:100,fp8:36827,int8:36827,fp8:131075,int8:1000003,fp8:8193,f32:4099"
+
+
+def _check_fused_stages(results):
+    for res in results.values():
+        fused = [c for c in res["cases"] if c["dtype"] in ring_check.SCHEMES]
+        assert len(fused) == 6, res
+        for case in fused:
+            assert {"rs", "rs grid 1", "rs grid 3", "rs grid 7", "fused_sum",
+                    "fused_mean"} <= set(case["ok"]), case
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_fused_stages_share_one_card(cards, n):
+    _check_fused_stages(_run(n, "0", FUSED_STAGE_CASES, "--grid", "1,3,7"))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_stages_on_their_own_cards(cards, n):
+    if cards < n:
+        pytest.skip(f"needs {n} cards")
+    _check_fused_stages(_run(n, ",".join(str(i) for i in range(n)), FUSED_STAGE_CASES,
+                             "--grid", "1,3,7"))
+
+
 def test_times_against_nccl(cards):
     """The kernels at the flagship's gradient size, f32, on four cards."""
     if cards < 4:
         pytest.skip("needs 4 cards")
-    results = _run(4, "0,1,2,3", f"f32:{FLAGSHIP_GRAD}", "--iters", "5")
+    # (int8:4099 beside it: `_run` wants every ring kernel launched)
+    results = _run(4, "0,1,2,3", f"f32:{FLAGSHIP_GRAD},int8:4099", "--iters", "5")
     for r, res in sorted(results.items()):
         case = res["cases"][0]
         print(f"rank {r} {res['card']}: kernel ms {case['ms']}, NCCL ms {case['library_ms']}, "
@@ -186,6 +222,69 @@ def test_plain_and_fused_calls_interleave(cards, n):
     assert sorted(results) == list(range(n)), out[-8000:]
     for r, res in results.items():
         assert all(res["ok"]), (r, res)
+
+
+B7_BACK_TO_BACK = textwrap.dedent("""
+    import json
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.compression import resolve
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.tools.ring_check import fused_grid, make_inputs, plain_fused_rs
+
+    n = distributed.init_distributed(device="cuda")
+    d = dist.get_rank()
+    dev = torch.device("cuda")
+    # B7 alone, call after call with no host sync between them, the sizes
+    # shrinking and growing and the grid changing; before call i rank i % n
+    # spins, so its left neighbour may finish call i - 1 and start call i
+    # while it still reads that call's slots
+    calls = [(3000001, "int8", 132), (100, "fp8", 1), (1000003, "int8", 7),
+             (5000000, "fp8", 132), (36827, "int8", 3), (2000003, "int8", 66),
+             (8193, "fp8", 132), (3000001, "fp8", 16), (1000003, "int8", 132)]
+    xs = [make_inputs(n, size, torch.float32, 20 + i, dev) for i, (size, _, _) in enumerate(calls)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    got = []
+    for i, (size, kind, grid) in enumerate(calls):
+        cfg = resolve(kind)
+        if d == i % n:
+            torch.cuda._sleep(4_000_000)  # about 2 ms of an H100's clock
+        with fused_grid(grid):
+            got.append(RC._fused_rs(xs[i][d], cfg, C.fused_chunk_elems(size, n, cfg), None))
+    peer_memory.check_all()
+    ok = [bool(torch.equal(g, plain_fused_rs(x, resolve(kind), d)))
+          for g, x, (_, kind, _) in zip(got, xs, calls)]
+    print("B7 " + json.dumps({"ok": ok}), flush=True)
+    distributed.shutdown_distributed()
+""")
+
+
+def _b7_back_to_back(n: int, visible: str):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible, KFT_RING_TIMEOUT_S="60")
+    rc, out, results = ring_check.launch(n, [sys.executable, "-c", B7_BACK_TO_BACK], env=env,
+                                         timeout=600, tag="B7 ")
+    assert rc == 0, out[-8000:]
+    assert sorted(results) == list(range(n)), out[-8000:]
+    for r, res in results.items():
+        assert len(res["ok"]) == 9 and all(res["ok"]), (r, res)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_b7_back_to_back_shares_one_card(cards, n):
+    """B7 alone, call after call: a block stores into its right
+    neighbour's slots only after that neighbour acknowledged every block of
+    the earlier calls, whatever their sizes and grids."""
+    _b7_back_to_back(n, "0")
+
+
+def test_b7_back_to_back_on_their_own_cards(cards):
+    if cards < 4:
+        pytest.skip("needs 4 cards")
+    _b7_back_to_back(4, "0,1,2,3")
 
 
 # Groups through the grouped B5/B6 (ring_check --groups): one tensor, two,
