@@ -27,14 +27,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              planted B4 fault (a 64-wide key block missing half its query
              rows) rejected, and B4's times (library: the GQA backward of
              scaled_dot_product_attention(enable_gqa=True))
+ 3b. wide    the wide flash family (head dims over 128, csrc/flash_wide.cu)
+             against its plain versions (which split the work as its
+             blocks do) by the same blockwise check: Gemma 2B's attention
+             (B=1, H=8, Hkv=1, L=8192, D=256, bf16, causal: the forward,
+             dq and the GQA dk/dv), the same with Hkv=8 (dk/dv without a
+             group), D=192 causal, windowed and not; the three kernels'
+             times at the Gemma-2B shape, the plain versions', SDPA's
+             (a yardstick) and the bound; then a Gemma-2B-shaped model
+             (d_model 2048, 8 heads of 256, one kv head, 2 layers) trains
+             a step on 8192 tokens: each wide kernel (and its B row)
+             launched once per layer
  4. check    a small f32 model: flash kernels against full attention on the
-             same weights (loss and every gradient)
+             same weights (loss and every gradient); then with dropout 0.1:
+             train=False equals the model without dropout, train=True from
+             generators of one seed gives one loss twice, another seed
+             another loss
  5. main     the flagship GPT (vocab 32000, d_model 1024, 24 layers, 16
              heads, d_ff 4096, seq 2048, bf16, RoPE, causal) training with
              DataParallelTrainer + synchronous_sgd(AdamW(3e-4, (0.9, 0.95),
              wd 1e-4)) for a few steps on one repeated random batch of 8, in
              this process: the loss must be finite and fall, and each
              kernel must launch once per layer per step
+ 5b. chunked the flagship's row of 8 heads of 128 (config_gpt_mfu (8, False,
+             True, 8); otherwise as phase main, batch 8): the dense head
+             (2 steps), then head="hidden" with lm_loss_chunked (vocab
+             blocks of 1024) under the same trainer for 3 steps, on the
+             same weights (checksum) and sequences: loss finite and
+             falling, the first step within 1e-3 of the dense head's, the
+             peak memory at least 1.95 GiB (one f32 logits tensor) below
+             the dense step's, B1-B3 once per layer per step; both step
+             times and peaks; then one forward and backward under
+             remat=True, remat_policy="dots" against remat=False on the
+             same weights: the same loss and gradients (within 1e-6
+             normwise; bit-equal expected) and a lower peak
  6. gqa-ref  the GQA flagship (n_kv_heads=8, otherwise as phase main) with
              the same seed: its loss on the same 8 sequences in one process
              (forward only), its parameter count and gradient shapes
@@ -152,10 +178,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              step, B1-B3 once per layer, no other kernel; the slowest
              rank's step time, tokens/s,
              peak memory per rank
-15. report   one JSON line of kernels B1-B11 and the residual kernel
-             (launches from rank 0 of the path that runs each: phase ranks
-             for B1-B3, B5, B6, phase sp for B11, phase fused for B9 and
-             B10, phase gqa for the others), then the last line {"ok":
+15. report   one JSON line of kernels B1-B11, the wide flash family and the
+             residual kernel (launches from rank 0 of the path that runs
+             each: phase ranks for B1-B3, B5, B6, phase sp for B11, phase
+             fused for B9 and B10, phase wide's model step for the wide
+             family, phase gqa for the others), then the last line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
@@ -215,6 +242,24 @@ TOL_FSDP_LOSS = 1e-2
 # gradients and moments (sharded: 1/4, the chunks of all four; moments
 # that were not sharded would make it 5/8).
 FSDP_MEMORY_SHARE = 0.3
+# Phase chunked: the chunked head's first-step loss against the dense
+# head's on the same weights and sequences (the same f32 log-softmax,
+# streamed over 1024-column blocks: f32 sums in another order over 16,376
+# positions, about 1e-6); its peak at least one f32 logits tensor
+# [8, 2048, 32000] (1.95 GiB) below the dense step's; remat "dots" against
+# no remat, loss and every gradient's normwise relative error within 1e-6
+# (the recompute repeats the same kernels on the same inputs, so bit-equal
+# is expected; a bf16 rounding that differed would read 4e-3).
+TOL_CHUNKED_LOSS = 1e-3
+CHUNKED_SAVING = int(1.95 * 2**30)
+TOL_REMAT = 1e-6
+CHUNKED_STEPS = 3
+# Phase check's dropout: two forwards from generators of one seed, and
+# train=False against the model without dropout, repeat the same kernels
+# on the same inputs (bit-equal expected; the limit is 1e-6 absolute on a
+# loss near log 512); another seed moves the loss by far more than 1e-4.
+TOL_DROPOUT_SAME = 1e-6
+DROPOUT_MOVES = 1e-4
 FSDP_STEPS = 3  # phase fsdp: each step makes 24 ring calls (a card switch each on one card)
 N_RANKS = 4
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
@@ -334,15 +379,16 @@ def phase_kernels(seed: int):
     B, H, D, dtype = 8, 16, 64, torch.bfloat16
     errs = {k.name: 0.0 for k in flash.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # (L, window, causal, batch, head dim): the flagship's, then head dims 16,
-    # 128 and 8 in the kernels, and 12 padded to 16 by the wrappers (ROADMAP
-    # C.1), at batch 2
-    for L, window, causal, nb, d in ((2048, 0, True, B, D), (2000, 0, True, B, D),
-                                     (2048, 256, True, B, D), (2048, 0, False, B, D),
-                                     (2048, 0, True, 2, 16), (2000, 256, True, 2, 128),
-                                     (2048, 0, True, 2, 8), (2000, 256, True, 2, 12)):
+    # (L, window, causal, batch, heads, head dim): the flagship's, then head
+    # dims 16, 128 and 8 in the kernels, and 12 padded to 16 by the wrappers,
+    # at batch 2; last the shape of phase chunked's row (8 heads of 128, a
+    # full causal 2048: every query block over up to 32 key tiles)
+    for L, window, causal, nb, h, d in (
+            (2048, 0, True, B, H, D), (2000, 0, True, B, H, D), (2048, 256, True, B, H, D),
+            (2048, 0, False, B, H, D), (2048, 0, True, 2, H, 16), (2000, 256, True, 2, H, 128),
+            (2048, 0, True, 2, H, 8), (2000, 256, True, 2, H, 12), (2048, 0, True, B, 8, 128)):
         scale = d ** -0.5
-        q, k, v, do = (torch.randn(nb, L, H, d, generator=gen, device="cuda").to(dtype)
+        q, k, v, do = (torch.randn(nb, L, h, d, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
         o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
         o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
@@ -352,7 +398,7 @@ def phase_kernels(seed: int):
         dq_ref, dk_ref, dv_ref = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale,
                                                        causal, 128, window)
         torch.cuda.synchronize()
-        case = f"B={nb} L={L} D={d} window={window}" + ("" if causal else " non-causal")
+        case = f"B={nb} L={L} H={h} D={d} window={window}" + ("" if causal else " non-causal")
         limit = REL_LIMIT[dtype]
         rel = {}
         for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
@@ -540,6 +586,244 @@ def phase_kernels_gqa(seed: int):
     return {name: err}, {name: ms}, {name: plain}, {name: lib}, {name: bound}
 
 
+def _flash_check(flash, case: str, q, k, v, do, scale, causal, window, limit):
+    """Forward, dq and dk/dv against their plain versions at one shape:
+    each output's blockwise normwise relative error within `limit`, lse
+    within LSE_ATOL.  Returns {kernel name: max abs err} for the wide
+    family."""
+    from kungfu_tpu_torch.utils.compare import LSE_ATOL, rel_errs
+
+    o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
+    refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, 128, window)
+    torch.cuda.synchronize()
+    rel = {}
+    for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                            ("dv", dv, refs[2])):
+        whole, worst = rel[name] = rel_errs(got, want)
+        check(worst <= limit, f"{name} kernel vs plain at {case}: normwise relative "
+              f"error {whole:.3g}, worst 64-row block {worst:.3g} > {limit}")
+    e_lse = max_err(lse, lse_ref)
+    check(e_lse <= LSE_ATOL, f"lse at {case}: max abs err {e_lse:.4g} > {LSE_ATOL}")
+    errs = {flash.FLASH_WIDE_FWD.name: max_err(o, o_ref),
+            flash.FLASH_WIDE_DQ.name: max_err(dq, refs[0]),
+            flash.FLASH_WIDE_DKV.name: max(max_err(dk, refs[1]), max_err(dv, refs[2]))}
+    print(f"[wide] {case}: normwise relative error (whole, worst 64-row block) "
+          + ", ".join(f"{n} {w:.3g} {b:.3g}" for n, (w, b) in rel.items())
+          + f" (limit {limit}); lse max abs err {e_lse:.3g}; max abs err "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    return errs
+
+
+def phase_wide(seed: int):
+    """The wide flash family (head dims over 128, csrc/flash_wide.cu)
+    against its plain versions at the Gemma-2B attention shape and others;
+    its times, the plain versions', SDPA's and the bound; then a Gemma-2B-
+    shaped model's training step through the entry points, which must run
+    on the wide kernels."""
+    from kungfu_tpu_torch.models import TransformerConfig, TransformerLM
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.tools.step_profile import lm_step_loss
+    from kungfu_tpu_torch.train import DataParallelTrainer
+    from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
+    from kungfu_tpu_torch.utils.compare import REL_LIMIT
+
+    dtype = torch.bfloat16
+    limit = REL_LIMIT[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    errs = {kern.name: 0.0 for kern in flash.WIDE_KERNELS}
+
+    def inputs(nb, L, h, hkv, d):
+        def rnd(heads):
+            return torch.randn(nb, L, heads, d, generator=gen, device="cuda").to(dtype)
+
+        return rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+
+    # (B, L, H, Hkv, D, causal, window): Gemma 2B's attention (arXiv
+    # 2403.08295: 8 heads of 256, one kv head) at 8192 positions, the same
+    # without a group (B3's path), then D = 192 causal, windowed and not
+    for nb, L, h, hkv, d, causal, window in ((1, 8192, 8, 1, 256, True, 0),
+                                             (1, 8192, 8, 8, 256, True, 0),
+                                             (2, 2048, 8, 2, 192, True, 0),
+                                             (2, 2000, 8, 8, 192, True, 256),
+                                             (1, 2048, 8, 1, 192, False, 0)):
+        case = (f"B={nb} L={L} H={h} Hkv={hkv} D={d} window={window}"
+                + ("" if causal else " non-causal") + " bf16")
+        for name, e in _flash_check(flash, case, *inputs(nb, L, h, hkv, d), d ** -0.5, causal,
+                                    window, limit).items():
+            errs[name] = max(errs[name], e)
+        torch.cuda.empty_cache()
+
+    # times at the Gemma-2B shape
+    nb, L, h, hkv, d = 1, 8192, 8, 1, 256
+    scale = d ** -0.5
+    q, k, v, do = inputs(nb, L, h, hkv, d)
+    o, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = {
+        flash.FLASH_WIDE_FWD.name: time_ms(lambda: flash.flash_fwd(q, k, v, scale, True), 3, 1),
+        flash.FLASH_WIDE_DQ.name: time_ms(
+            lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True), 3, 1),
+        flash.FLASH_WIDE_DKV.name: time_ms(
+            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True), 3, 1),
+    }
+    plain_fwd = time_ms(lambda: flash._plain_fwd_blhd(q, k, v, scale, True, 0), 1, 1)
+    plain_bwd = time_ms(lambda: flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True,
+                                                      128, 0), 1, 1)
+    plain = {flash.FLASH_WIDE_FWD.name: plain_fwd, flash.FLASH_WIDE_DQ.name: plain_bwd,
+             flash.FLASH_WIDE_DKV.name: plain_bwd}
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True), 5)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True), 5)
+    library = {flash.FLASH_WIDE_FWD.name: lib_fwd, flash.FLASH_WIDE_DQ.name: None,
+               flash.FLASH_WIDE_DKV.name: None}
+    pairs = _pairs(L, True, 0) * nb * h
+    act, kv = nb * L * h * d * 2, nb * L * hkv * d * 2  # bf16 [B, L, H, D], [B, L, Hkv, D]
+    row = nb * h * L * 4
+    work = {  # (matmul flops, bytes each input read once + each output written once)
+        flash.FLASH_WIDE_FWD.name: (4 * d * pairs, 2 * act + 2 * kv + row),
+        flash.FLASH_WIDE_DQ.name: (6 * d * pairs, 3 * act + 2 * kv + 2 * row),
+        flash.FLASH_WIDE_DKV.name: (8 * d * pairs, 2 * act + 4 * kv + 2 * row),
+    }
+    bounds = {n: _bound(f, b, dtype) for n, (f, b) in work.items()}
+    for n in ms:
+        lib = (f"SDPA forward (enable_gqa) {lib_fwd:.3f} ms" if n == flash.FLASH_WIDE_FWD.name
+               else f"SDPA backward (dq, dk, dv in one call, enable_gqa) {lib_bwd:.3f} ms")
+        print(f"[wide] {n} at B={nb} H={h} Hkv={hkv} L={L} D={d} bf16 causal: {ms[n]:.3f} ms, "
+              f"plain {plain[n]:.3f} ms, bound {bounds[n][0]:.4f} ms ({bounds[n][1]}: "
+              f"{work[n][0] / 1e9:.1f} GFLOP, {work[n][1] / 1e6:.1f} MB), "
+              f"{work[n][0] / ms[n] / 1e9:.1f} TFLOP/s achieved "
+              f"({100 * bounds[n][0] / ms[n]:.2f}% of the bound); library {lib}")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg, out
+    torch.cuda.empty_cache()
+
+    # the path: a Gemma-2B-shaped model (d_model 2048, 8 heads of 256, one
+    # kv head; depth cut to 2 layers, vocab to 32000, GELU in place of
+    # GeGLU) trains a step on one sequence of 8192 tokens
+    cfg = TransformerConfig(vocab_size=32000, d_model=2048, n_layers=2, n_heads=8, n_kv_heads=1,
+                            d_ff=16384, max_len=8192, rope=True, attention="flash",
+                            dtype=dtype)
+    model = TransformerLM(cfg, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer = DataParallelTrainer(lm_step_loss, synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95)),
+                                  device="cuda")
+    state = trainer.init(model)
+    tokens = torch.randint(0, cfg.vocab_size, (1, cfg.max_len), generator=gen, device="cuda")
+    for kern in flash.WIDE_KERNELS + flash.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, tokens)
+    loss = metrics["loss"].item()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {kern.name: kern.launches for kern in flash.WIDE_KERNELS + flash.KERNELS}
+    check(math.isfinite(loss), f"wide: non-finite loss {loss}")
+    want = dict.fromkeys(launches, cfg.n_layers)
+    want[flash.FLASH_BWD_DKV.name] = 0  # one kv head: the dk/dv launches count for B4
+    check(launches == want, f"wide: kernel launches {launches}, expected {want}")
+    print(f"[wide] Gemma-2B-shaped model ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, {cfg.kv_heads} kv head), one "
+          f"step on 1 x {cfg.max_len} tokens: loss {loss:.4f}, {step_ms:.1f} ms with the first "
+          f"call's setup; launches {json.dumps(launches)}")
+    del state, model, trainer
+    torch.cuda.empty_cache()
+    path = {kern.name: launches[kern.name] for kern in flash.WIDE_KERNELS}
+    return (errs, ms, plain, library, bounds), path
+
+
+def _loss_and_grads(model, tokens):
+    """One forward and backward of `lm_step_loss`: (loss, gradients on
+    the host, peak device memory in bytes)."""
+    from kungfu_tpu_torch.tools.step_profile import lm_step_loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = lm_step_loss(model, tokens)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}, peak
+
+
+def phase_chunked(batch: int, seed: int, steps: int = CHUNKED_STEPS):
+    """The flagship's row of 8 heads of 128 (config_gpt_mfu (8, False,
+    True, 8)) trained with the chunked head (head="hidden",
+    lm_loss_chunked) against the dense head on the same weights and
+    sequences; then a step under remat_policy="dots" against no remat."""
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_step, flagship_tokens
+
+    runs = {}
+    for head in ("dense", "hidden"):
+        cfg, trainer, state, tokens = flagship_step(batch, seed, n_heads=8, head=head)
+        total = sum(p.double().sum().item() for p in state.params.parameters())
+        for kern in flash.KERNELS + flash.WIDE_KERNELS:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(steps if head == "hidden" else 2):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, tokens)
+            losses.append(metrics["loss"].item())
+            times.append(time.perf_counter() - t0)
+        runs[head] = dict(losses=losses, step_ms=times[-1] * 1e3, checksum=total,
+                          peak=torch.cuda.max_memory_allocated(),
+                          launches={k.name: k.launches for k in flash.KERNELS + flash.WIDE_KERNELS})
+        print(f"[chunked] head={head}: losses {' '.join(f'{x:.4f}' for x in losses)}, step "
+              f"times {' '.join(f'{t * 1e3:.1f}' for t in times)} ms, peak memory "
+              f"{runs[head]['peak'] / 2**30:.2f} GiB")
+        del cfg, trainer, state, tokens
+        torch.cuda.empty_cache()
+    dense, chunked = runs["dense"], runs["hidden"]
+    losses = chunked["losses"]
+    check(dense["checksum"] == chunked["checksum"], "chunked: the two arms' weights differ")
+    check(all(math.isfinite(x) for x in losses), f"chunked: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"chunked: loss did not fall: {losses}")
+    check(abs(losses[0] - dense["losses"][0]) <= TOL_CHUNKED_LOSS,
+          f"chunked: first-step loss {losses[0]} vs the dense head's {dense['losses'][0]}")
+    saved = dense["peak"] - chunked["peak"]
+    check(saved >= CHUNKED_SAVING, f"chunked: peak {chunked['peak'] / 2**30:.3f} GiB, only "
+          f"{saved / 2**30:.3f} GiB below the dense step's (want {CHUNKED_SAVING / 2**30:.2f})")
+    want = {k.name: 24 * steps for k in flash.KERNELS + flash.WIDE_KERNELS}
+    for kern in (flash.FLASH_BWD_DKV_GQA,) + flash.WIDE_KERNELS:
+        want[kern.name] = 0
+    check(chunked["launches"] == want, f"chunked: launches {chunked['launches']}, want {want}")
+    print(f"[chunked] 8 heads of 128, batch {batch} x 2048: first-step loss {losses[0]:.6f} vs "
+          f"the dense head's {dense['losses'][0]:.6f} (same weights, checksum "
+          f"{chunked['checksum']:.6f}); steady step {chunked['step_ms']:.1f} ms vs dense "
+          f"{dense['step_ms']:.1f} ms; peak {chunked['peak'] / 2**30:.2f} GiB vs dense "
+          f"{dense['peak'] / 2**30:.2f} GiB ({saved / 2**30:.2f} GiB less); launches "
+          f"{json.dumps(chunked['launches'])}")
+
+    # remat_policy="dots" against no remat: one forward and backward each
+    results = {}
+    for remat in (False, True):
+        extra = dict(remat=True, remat_policy="dots") if remat else {}
+        cfg, model = flagship_model(seed, "cuda", n_heads=8, head="hidden", **extra)
+        results[remat] = _loss_and_grads(model, flagship_tokens(cfg, batch, seed))
+        del model
+        torch.cuda.empty_cache()
+    (l0, g0, p0), (l1, g1, p1) = results[False], results[True]
+    worst = max(((g1[n].float() - g0[n].float()).norm() / g0[n].float().norm().clamp_min(1e-30))
+                .item() for n in g0)
+    same = all(torch.equal(g1[n], g0[n]) for n in g0)
+    check(abs(l1 - l0) <= TOL_REMAT and worst <= TOL_REMAT,
+          f"remat dots: loss {l1} vs {l0}, worst gradient normwise relative error {worst:.3g}")
+    check(p1 < p0, f"remat dots: peak {p1 / 2**30:.2f} GiB not below no remat's "
+          f"{p0 / 2**30:.2f} GiB")
+    print(f"[chunked] remat_policy=\"dots\" vs no remat, one step (head=\"hidden\"): loss "
+          f"{l1:.6f} vs {l0:.6f}, gradients {'bit-equal' if same else 'not bit-equal'} (worst "
+          f"normwise relative error {worst:.3g}, limit {TOL_REMAT}); peak {p1 / 2**30:.2f} GiB "
+          f"vs {p0 / 2**30:.2f} GiB")
+    return losses
+
+
 def phase_gqa_reference(batch: int, seed: int):
     """The GQA flagship's loss on phase main's 8 sequences, in one process."""
     from kungfu_tpu_torch import convert
@@ -675,6 +959,27 @@ def phase_model_check(seed: int):
     check(worst <= TOL_MODEL_GRAD, f"model check: gradient normwise rel err {worst:.3g}")
     print(f"[check] f32 2-layer model, flash kernels vs full attention: loss {l_flash:.6f} vs "
           f"{l_full:.6f}, worst gradient normwise relative error {worst:.3g}")
+
+    # dropout 0.1 on the same weights: only under train=True, from the generator
+    model = TransformerLM(TransformerConfig(attention="flash", dropout=0.1, **common),
+                          device="cuda")
+    model.load_state_dict(state)
+    with torch.no_grad():
+        def loss_of(**kw):
+            return lm_loss(model(tokens, **kw), tokens).item()
+
+        l_eval = loss_of()
+        seeded = [loss_of(train=True, generator=torch.Generator(device="cuda").manual_seed(s))
+                  for s in (seed + 1, seed + 1, seed + 2)]
+    check(abs(l_eval - l_flash) <= TOL_DROPOUT_SAME,
+          f"dropout: train=False loss {l_eval} vs the model without dropout {l_flash}")
+    check(abs(seeded[0] - seeded[1]) <= TOL_DROPOUT_SAME,
+          f"dropout: one seed gave losses {seeded[0]} and {seeded[1]}")
+    check(abs(seeded[2] - seeded[0]) > DROPOUT_MOVES,
+          f"dropout: another seed gave the same loss {seeded[2]} vs {seeded[0]}")
+    print(f"[check] dropout 0.1: train=False loss {l_eval:.6f} (without dropout {l_flash:.6f}); "
+          f"train=True, one seed twice {seeded[0]:.6f} {seeded[1]:.6f}, another seed "
+          f"{seeded[2]:.6f}")
 
 
 def phase_main(steps: int, batch: int, seed: int):
@@ -1295,9 +1600,13 @@ def main() -> int:
         _, kind, count = phase_device()
         phase_build()
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
+        wide, wide_launches = phase_wide(args.seed)
+        results.append(wide)
         phase_model_check(args.seed)
         main_losses, n_params, fsdp_sizes, fsdp_groups = phase_main(args.steps, args.batch,
                                                                     args.seed)
+        torch.cuda.empty_cache()
+        phase_chunked(args.batch, args.seed)
         torch.cuda.empty_cache()  # the ranks need the card's memory
         gqa_loss, gqa_params, gqa_shapes = phase_gqa_reference(args.batch, args.seed)
         results.append(phase_ef(gqa_shapes, args.seed))
@@ -1318,6 +1627,7 @@ def main() -> int:
         launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
         for kern in (FM.AG_MATMUL, FM.MATMUL_RS):
             launches[kern.name] = fused_launches[kern.name]
+        launches.update(wide_launches)
         check(all(launches.values()), f"a kernel of the main paths never launched: {launches}")
         check(jax_free(), "JAX or the JAX package was imported")
     except SmokeFailure as e:
@@ -1330,7 +1640,7 @@ def main() -> int:
         "launches": launches[k.name], "max_abs_err": errs[k.name], "ms": ms[k.name],
         "plain_ms": plain[k.name], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
-    } for k in flash.KERNELS + RC.KERNELS + FM.KERNELS + EF.KERNELS]
+    } for k in flash.KERNELS + flash.WIDE_KERNELS + RC.KERNELS + FM.KERNELS + EF.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

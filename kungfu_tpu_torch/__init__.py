@@ -15,8 +15,11 @@ plain or with int8/fp8 codes on the wire and error feedback
 (`compression/`); and the flagship's sequence-parallel step
 (`trainer.MeshTrainer` over `plan.make_mesh(dp=..., sp=...)`, ring
 attention in `parallel/ring_attention.py` with K/V rotating through a
-hand-written shift kernel, `ops/fused_matmul.py`).  The kernel sources are
-in `ops/csrc/`.
+hand-written shift kernel, `ops/fused_matmul.py`), and its fully sharded
+step (`fsdp.FSDPTrainer`).  The model takes the JAX package's memory
+levers: the chunked head (`head="hidden"` with `lm_loss_chunked`,
+`ops/chunked_ce.py`), dropout and remat "dots".  The kernel sources are in
+`ops/csrc/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; on
 the CPU every kernel wrapper runs its plain PyTorch version instead.

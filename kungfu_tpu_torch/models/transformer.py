@@ -23,21 +23,37 @@ its chunk's absolute offset, and attention is `parallel.ring_attention`
 over the sp group.  Its loss is `lm_loss_shard`: this rank's share of the
 global mean.
 
-Decode and generate, MoE, ulysses attention, head="hidden" with its
-chunked loss, dropout and remat_policy="dots" wait for later slices and
+head="hidden" returns ln_f's hidden states (f32) instead of logits, with
+the same parameters as head="dense", and `lm_loss_chunked` streams the
+head product and its log-softmax over vocab blocks (`ops.chunked_ce`): no
+[B, L, V] logits.  Dropout (`dropout` > 0) applies after the embedding
+and on each residual branch, as in the flax model, only under
+`forward(tokens, train=True, generator=g)`, and draws its masks from the
+explicit torch.Generator g (never from `nn.Module.training`, which is
+True by default where the flax model defaults to train=False).  `remat`
+checkpoints each block: remat_policy "none"/"full" recomputes the whole
+block in the backward, "dots" keeps the outputs of its matrix products
+(aten mm, addmm, bmm) and recomputes the rest, the counterpart of
+jax.checkpoint_policies.dots_saveable; a block under dropout recomputes
+the same masks from the generator state it started with.
+
+Decode and generate, MoE and ulysses attention wait for later slices and
 raise NotImplementedError when configured.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..compat import kernel_mode, resolve_device
+from ..ops.chunked_ce import chunked_lm_head_ll
 from ..ops.flash import flash_attention
 from ..parallel.ring_attention import full_attention, ring_attention
 from ..plan.mesh import Mesh
@@ -80,8 +96,11 @@ class TransformerConfig:
     dropout: float = 0.0
     tie_embeddings: bool = False
     # checkpoint each block (torch.utils.checkpoint); policy "none"/"full"
+    # recomputes it all, "dots" keeps the matrix products' outputs
     remat: bool = False
     remat_policy: str = "none"
+    # "dense": forward returns [B, L, V] logits; "hidden": ln_f's hidden
+    # states, for lm_loss_chunked (the same parameters either way)
     head: str = "dense"
     n_experts: int = 0
     # the rank mesh attention="ring" splits the sequence over (its sp_axis)
@@ -111,15 +130,14 @@ class TransformerConfig:
         ):
             if value not in allowed:
                 raise ValueError(f"{name}={value!r}, expected one of {allowed}")
+        if not 0.0 <= self.dropout <= 1.0:
+            raise ValueError(f"dropout={self.dropout} is not a rate in [0, 1]")
         if self.attention == "ulysses":
             raise NotImplementedError(
                 "attention='ulysses' is not ported yet (see ROADMAP.md A.6)")
         later = [
             (self.decode, "decode"),
             (self.n_experts > 0, "MoE (n_experts)"),
-            (self.head == "hidden", 'head="hidden"'),
-            (self.dropout > 0, "dropout"),
-            (self.remat_policy == "dots", 'remat_policy="dots"'),
         ]
         for configured, what in later:
             if configured:
@@ -251,17 +269,52 @@ class MLP(nn.Module):
         return self.out(h)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else zero (all zero at rate 1); the mask is
+    drawn from `generator` (None: no dropout)."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
+        self.rate = cfg.dropout
         self.ln1 = Norm(cfg, device)
         self.attn = Attention(cfg, device)
         self.ln2 = Norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """`generator`: dropout on both residual branches from it (None:
+        no dropout)."""
+        x = x + dropout(self.attn(self.ln1(x)), self.rate, generator)
+        return x + dropout(self.mlp(self.ln2(x)), self.rate, generator)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """remat_policy="dots": keep what the matrix products return,
+    recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_from_state(block: Block, x: torch.Tensor, rng_state: Optional[torch.Tensor]):
+    """The block under a checkpoint: its dropout generator made from
+    `rng_state`, so that the recompute draws the masks the forward drew;
+    returns (output, the generator's state after the block)."""
+    if rng_state is None:
+        return block(x), None
+    gen = torch.Generator(device=x.device)
+    gen.set_state(rng_state)
+    return block(x, gen), gen.get_state()
 
 
 class Embed(nn.Module):
@@ -322,16 +375,43 @@ class TransformerLM(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def head_weight(self) -> torch.Tensor:
+        """The head's [vocab, d_model] weight: the embedding when tied."""
+        return self.embed.embedding if self.cfg.tie_embeddings else self.lm_head.weight
+
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits [B, L, vocab] f32 (head="hidden": ln_f's hidden states
+        [B, L, d_model] f32).  Dropout runs only with train=True, drawing
+        from `generator`, which it then requires."""
         cfg = self.cfg
+        if not (train and cfg.dropout > 0):
+            generator = None
+        elif generator is None:
+            raise ValueError("dropout under train=True draws from an explicit torch.Generator: "
+                             "pass generator=")
         L = tokens.shape[1]
         x = self.embed(tokens, cfg.dtype)
         if not cfg.rope:
             off = cfg.position_offset(L)
             x = x + self.pos_embed[None, off:off + L].to(cfg.dtype)
+        x = dropout(x, cfg.dropout, generator)
+        context = {}
+        if cfg.remat and cfg.remat_policy == "dots":
+            context["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                      _dots_saveable)
         for block in self.blocks():
-            x = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
+            if not cfg.remat:
+                x = block(x, generator)
+                continue
+            state = None if generator is None else generator.get_state()
+            x, state = checkpoint(_block_from_state, block, x, state, use_reentrant=False,
+                                  **context)
+            if generator is not None:
+                generator.set_state(state)
         x = self.ln_f(x)
+        if cfg.head == "hidden":
+            return x
         if cfg.tie_embeddings:
             return F.linear(x.float(), self.embed.embedding.float())
         return self.lm_head(x)
@@ -349,6 +429,27 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> 
     """Next-token cross entropy, mean over all positions; `z_loss` adds
     z_loss * mean(log Z^2)."""
     ll, log_z = _token_ll(logits[:, :-1], tokens[:, 1:])
+    loss = -ll.mean()
+    if z_loss:
+        loss = loss + z_loss * (log_z ** 2).mean()
+    return loss
+
+
+def lm_loss_chunked(model: TransformerLM, tokens: torch.Tensor, block: Optional[int] = None,
+                    z_loss: float = 0.0, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """`lm_loss` without [B, L, V] logits, for a model with head="hidden":
+    its hidden states h[:, :-1] against targets tokens[:, 1:] through
+    `ops.chunked_ce.chunked_lm_head_ll` over the (tied or untied) head
+    weight; `block=None` resolves the vocab block there (KFT_CE_BLOCK, then
+    the footprint default).  `train`/`generator` pass to the forward
+    (dropout)."""
+    if model.cfg.head != "hidden":
+        raise ValueError('lm_loss_chunked needs TransformerConfig(head="hidden")')
+    h = model(tokens, train=train, generator=generator)
+    d = h.shape[-1]
+    ll, log_z = chunked_lm_head_ll(h[:, :-1].reshape(-1, d), model.head_weight(),
+                                   tokens[:, 1:].reshape(-1), block)
     loss = -ll.mean()
     if z_loss:
         loss = loss + z_loss * (log_z ** 2).mean()

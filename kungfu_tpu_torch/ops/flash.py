@@ -1,12 +1,16 @@
 """Flash attention on hand-written CUDA kernels for Hopper.
 
 Counterpart of kungfu_tpu/ops/flash.py.  Four kernels carry it on a card
-(sources in csrc/, built by _build.py on first use):
+at head dims up to 128, and a wide family of three above (sources in
+csrc/, built by _build.py on first use):
 
-  flash_fwd          csrc/flash_fwd.cu  replaces `_fwd_kernel`          (B1)
-  flash_bwd_dq       csrc/flash_bwd.cu  replaces `_bwd_dq_kernel`       (B2)
-  flash_bwd_dkv      csrc/flash_bwd.cu  replaces `_bwd_dkv_kernel`      (B3, MHA)
-  flash_bwd_dkv_gqa  csrc/flash_bwd.cu  replaces `_bwd_dkv_gqa_kernel`  (B4, GQA)
+  flash_fwd          csrc/flash_fwd.cu   replaces `_fwd_kernel`          (B1)
+  flash_bwd_dq       csrc/flash_bwd.cu   replaces `_bwd_dq_kernel`       (B2)
+  flash_bwd_dkv      csrc/flash_bwd.cu   replaces `_bwd_dkv_kernel`      (B3, MHA)
+  flash_bwd_dkv_gqa  csrc/flash_bwd.cu   replaces `_bwd_dkv_gqa_kernel`  (B4, GQA)
+  flash_wide_fwd     csrc/flash_wide.cu  B1 at head dims over 128
+  flash_wide_dq      csrc/flash_wide.cu  B2 at head dims over 128
+  flash_wide_dkv     csrc/flash_wide.cu  B3 and B4 at head dims over 128
 
 `flash_bwd_dkv` launches B3 when k and v carry as many heads as q and B4
 when they carry fewer (grouped-query attention).  B3 and B4 are one CUDA
@@ -20,17 +24,23 @@ version.  The plain versions are ports of `_fwd_reference` and
 holds the kernels against them.  Each kernel's `launches` count says how
 often the wrapper launched it.
 
-Head dims: the kernels take 8 to 128 in steps of 8 in place (`HEAD_DIMS`:
-rows of whole 16-byte chunks; a head narrower than the 64- or 128-column
-tile is padded with zero columns in shared memory).  Any other head dim up
-to 128 goes through the same kernels on copies of the operands padded with
-zero columns to the next multiple of 8 (`pad_head`), with the caller's
-scale, and the outputs are cut back (`cut_head`): the zero columns add
-exact zeros to every q.k sum and to rowsum(dO * O), so this is exact; the
-copy is what an odd head costs.  A head dim over 128 raises
-NotImplementedError naming ROADMAP C.1, where the Pallas kernels take any.
-In bf16 and fp16 all four run on wgmma (the forward with TMA loads); f32
-runs on float FMA loops.
+A wide launch counts for its kernel and for the row of the TPU kernel it
+replaces (B1, B2, B3 or B4), so a path's B-row counts hold whatever its
+head dim.
+
+Head dims: the four kernels take 8 to 128 in steps of 8 in place
+(`HEAD_DIMS`: rows of whole 16-byte chunks; a head narrower than the 64-
+or 128-column tile is padded with zero columns in shared memory), and the
+wide family every multiple of 8 above 128 (`wide_head`): each block owns
+an output slab of 128 columns and sums S and dP over the head dim in
+64-column chunks (`WIDE_SLAB`; csrc/flash_wide.cu).  Any other head dim
+goes through the same kernels on copies of the operands padded with zero
+columns to the next multiple of 8 (`pad_head`), with the caller's scale,
+and the outputs are cut back (`cut_head`): the zero columns add exact
+zeros to every q.k sum and to rowsum(dO * O), so this is exact; the copy
+is what an odd head costs.  In bf16 and fp16 the four
+run on wgmma (the forward with TMA loads) and the wide family on WMMA;
+f32 runs on float FMA loops.
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.
@@ -46,8 +56,8 @@ from ..compat import kernel_mode
 NEG_INF = -1e30
 _PLAIN_BLOCK_K = 128  # key block of the wrappers' plain backward on the CPU
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-HEAD_DIMS = tuple(range(8, 129, 8))  # what the kernels take in place
-MAX_HEAD_DIM = 128  # past it, ROADMAP C.1
+HEAD_DIMS = tuple(range(8, 129, 8))  # what the four kernels take in place
+WIDE_SLAB = 128  # output columns of a wide block (and the widest head of the four)
 
 
 class Kernel:
@@ -70,6 +80,12 @@ FLASH_BWD_DKV = Kernel("flash_bwd_dkv", "kungfu_tpu_torch/ops/csrc/flash_bwd.cu"
 FLASH_BWD_DKV_GQA = Kernel("flash_bwd_dkv_gqa", "kungfu_tpu_torch/ops/csrc/flash_bwd.cu",
                            "kungfu_tpu/ops/flash.py:442")  # _bwd_dkv_gqa_kernel
 KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_DKV_GQA)
+_WIDE = "kungfu_tpu_torch/ops/csrc/flash_wide.cu"
+FLASH_WIDE_FWD = Kernel("flash_wide_fwd", _WIDE, "kungfu_tpu/ops/flash.py:98")
+FLASH_WIDE_DQ = Kernel("flash_wide_dq", _WIDE, "kungfu_tpu/ops/flash.py:272")
+# B3's body, and B4's (`_bwd_dkv_gqa_kernel`, flash.py:442) when Hkv < H
+FLASH_WIDE_DKV = Kernel("flash_wide_dkv", _WIDE, "kungfu_tpu/ops/flash.py:429")
+WIDE_KERNELS = (FLASH_WIDE_FWD, FLASH_WIDE_DQ, FLASH_WIDE_DKV)
 
 
 # ------------------------------------------------------ plain versions ----
@@ -144,6 +160,12 @@ def _bwd_blocked(q, k, v, g, lse, delta, scale: float, causal: bool,
             torch.cat(dvs, 1).to(v.dtype))
 
 
+def wide_head(d: int) -> bool:
+    """Whether a head of d runs on the wide family (its kernel head dim is
+    over WIDE_SLAB columns)."""
+    return kernel_head_dim(d) > WIDE_SLAB
+
+
 def _plain_fwd_blhd(q, k, v, scale, causal, window):
     """The plain forward on [B, L, H, D] tensors: (o, lse [B, H, L])."""
     b, l, h, _ = q.shape
@@ -175,17 +197,6 @@ def _plain_bwd_blhd(q, k, v, g, lse, delta, scale, causal, block_k, window):
 # q, o, dq, do: [B, L, H, D]; k, v, dk, dv: [B, L, Hkv, D]; lse, delta:
 # [B, H, L] f32.
 
-def check_head_dim(name: str, d: int) -> None:
-    """Head dims 1 to 128 run on the kernels (those not a multiple of 8
-    padded to one); a wider head raises."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head dim {d}: the CUDA flash kernels take head dims up to "
-            f"{MAX_HEAD_DIM}; a wider head needs another tile plan (the backward's dK and dV "
-            f"accumulators at D = 256 would take 256 registers a thread of one warpgroup) "
-            f"(ROADMAP C.1)")
-
-
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head of d on: d rounded up to a
     multiple of 8."""
@@ -207,7 +218,6 @@ def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
     q = tensors[0]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (bf16, fp16 or f32)")
-    check_head_dim(name, q.shape[-1])
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"{name}: B*H = {q.shape[0] * q.shape[2]} exceeds the grid")
     for t in tensors:
@@ -225,7 +235,9 @@ def _check_cuda(name: str, tensors, f32_tensors=()) -> None:
             raise ValueError(f"{name}: lse/delta must be contiguous f32 on {q.device}")
 
 
-def _launch(kernel: Kernel, device, *args) -> None:
+def _launch(kernel: Kernel, device, *args, row: Optional[Kernel] = None) -> None:
+    """Launch `kernel` on the current stream; a wide kernel also counts for
+    `row`, the B-row kernel whose work it does at a wide head."""
     from . import _build
 
     fn = _build.function(f"kft_{kernel.name}")
@@ -234,6 +246,8 @@ def _launch(kernel: Kernel, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel.name}: kernel launch failed with CUDA error {err}")
     kernel.launches += 1
+    if row is not None:
+        row.launches += 1
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool, window: int = 0
@@ -250,9 +264,12 @@ def flash_fwd(q, k, v, scale: float, causal: bool, window: int = 0
         return cut_head(o, d), lse
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    _launch(FLASH_FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, hkv, l, d,
-            float(scale), int(causal), int(window))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, hkv, l, d, float(scale), int(causal), int(window))
+    if wide_head(d):
+        _launch(FLASH_WIDE_FWD, q.device, *args, row=FLASH_FWD)
+    else:
+        _launch(FLASH_FWD, q.device, *args)
     return o, lse
 
 
@@ -270,10 +287,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
         return cut_head(flash_bwd_dq(*(pad_head(x, dp) for x in (q, k, v, do)), lse, delta,
                                      scale, causal, window), d)
     dq = torch.empty_like(q)
-    _launch(FLASH_BWD_DQ, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, hkv, l, d, float(scale), int(causal),
-            int(window))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, h, hkv, l, d,
+            float(scale), int(causal), int(window))
+    if wide_head(d):
+        _launch(FLASH_WIDE_DQ, q.device, *args, row=FLASH_BWD_DQ)
+    else:
+        _launch(FLASH_BWD_DQ, q.device, *args)
     return dq
 
 
@@ -297,10 +317,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h)
     tail = (l, d, float(scale), int(causal), int(window))
-    if hkv == h:
-        _launch(FLASH_BWD_DKV, q.device, *ptrs, *tail)
+    row = FLASH_BWD_DKV if hkv == h else FLASH_BWD_DKV_GQA
+    if wide_head(d):
+        _launch(FLASH_WIDE_DKV, q.device, *ptrs, hkv, *tail, row=row)
+    elif hkv == h:
+        _launch(row, q.device, *ptrs, *tail)
     else:
-        _launch(FLASH_BWD_DKV_GQA, q.device, *ptrs, hkv, *tail)
+        _launch(row, q.device, *ptrs, hkv, *tail)
     return dk, dv
 
 

@@ -1,6 +1,7 @@
 """Where the time of one training step goes on the card.
 
     python -m kungfu_tpu_torch.tools.step_profile [--batch 8] [--steps 2]
+    python -m kungfu_tpu_torch.tools.step_profile --n-heads 8 --head hidden
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
         --impl pallas_ring --bucket-mib 256 [--compression int8] [--n-kv-heads 8]
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.step_profile \
@@ -9,7 +10,9 @@
         --fsdp 4 --batch 8
 
 Trains the flagship GPT (models.transformer.FLAGSHIP_GPT, bf16, flash
-attention; `--n-kv-heads 8` its GQA variant) with DataParallelTrainer +
+attention; `--n-kv-heads 8` its GQA variant; `--n-heads 8` its row of 8
+heads of 128; `--head hidden` the chunked head, `lm_loss_chunked`, in
+place of the dense head's logits and `lm_loss`) with DataParallelTrainer +
 synchronous_sgd(adamw(3e-4), impl, bucket_bytes, compression), as
 chip_smoke.py's main, ranks and gqa phases do (all build it with
 flagship_step), warms up for two steps, times `--steps` steps, then
@@ -55,7 +58,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import distributed
 from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
-                                  lm_loss_shard)
+                                  lm_loss_chunked, lm_loss_shard)
 from ..compression import error_feedback as EF
 from ..fsdp import FSDPTrainer
 from ..ops import flash
@@ -119,15 +122,24 @@ def flagship_tokens(cfg: TransformerConfig, batch: int, seed: int, device="cuda"
     return torch.randint(0, cfg.vocab_size, (batch, cfg.max_len), generator=gen, device=device)
 
 
+def lm_step_loss(model, tokens):
+    """The next-token loss of a training step: `lm_loss` of the logits, or
+    `lm_loss_chunked` for a model with head="hidden"."""
+    if model.cfg.head == "hidden":
+        return lm_loss_chunked(model, tokens)
+    return lm_loss(model(tokens), tokens)
+
+
 def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
-                  bucket_bytes=None, compression=None, n_kv_heads: int = 0):
+                  bucket_bytes=None, compression=None, n_kv_heads: int = 0, **overrides):
     """The flagship GPT training step that chip_smoke.py drives and main()
-    profiles: `flagship_model`, DataParallelTrainer +
+    profiles: `flagship_model` (`overrides` replace config fields, e.g.
+    n_heads=8, head="hidden"), DataParallelTrainer(`lm_step_loss`,
     synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes,
-    compression), and `flagship_tokens`.  Returns (cfg, trainer, state,
+    compression)), and `flagship_tokens`.  Returns (cfg, trainer, state,
     tokens)."""
-    cfg, model = flagship_model(seed, device, n_kv_heads)
-    trainer = DataParallelTrainer(lambda m, b: lm_loss(m(b), b),
+    cfg, model = flagship_model(seed, device, n_kv_heads, **overrides)
+    trainer = DataParallelTrainer(lm_step_loss,
                                   synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl=impl,
                                                   bucket_bytes=bucket_bytes,
                                                   compression=compression), device=device)
@@ -178,6 +190,10 @@ def main() -> int:
                     help="synchronous_sgd's gradient wire format (int8, fp8, bf16; none if unset)")
     ap.add_argument("--n-kv-heads", type=int, default=0,
                     help="kv heads of the flagship (8: its GQA variant; 0: MHA)")
+    ap.add_argument("--n-heads", type=int, default=FLAGSHIP_GPT["n_heads"],
+                    help="query heads of the flagship (16 of 64; 8: its row of heads of 128)")
+    ap.add_argument("--head", default="dense", choices=("dense", "hidden"),
+                    help="hidden: the chunked head and lm_loss_chunked (data parallel only)")
     ap.add_argument("--sp", type=int, default=1,
                     help="ranks of a sequence-parallel group (ring attention, MeshTrainer)")
     ap.add_argument("--seq-len", type=int, default=2048, help="positions of a sequence (--sp)")
@@ -208,7 +224,8 @@ def main() -> int:
         cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
                                                     bucket_bytes=bucket_bytes,
                                                     compression=args.compression,
-                                                    n_kv_heads=args.n_kv_heads)
+                                                    n_kv_heads=args.n_kv_heads,
+                                                    n_heads=args.n_heads, head=args.head)
         per = args.batch // world
         tokens = tokens[rank * per:(rank + 1) * per]
         shard = f"batch {per}"
@@ -255,7 +272,8 @@ def main() -> int:
     step_ms = wall_us / steps / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[profile] {torch.cuda.get_device_name(0)}, flagship GPT batch {args.batch} x "
-          f"{cfg.max_len}, {cfg.kv_heads} kv heads (rank {rank} of {world}, {shard}, "
+          f"{cfg.max_len}, {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, {cfg.kv_heads} "
+          f"kv heads, head={cfg.head} (rank {rank} of {world}, {shard}, "
           f"impl={args.impl}, compression={args.compression}): step "
           f"{step_ms:.1f} ms on the host clock ({plain_step_ms:.1f} ms without the profiler), "
           f"peak memory {peak_gib:.2f} GiB, this process's device busy "

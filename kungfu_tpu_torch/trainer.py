@@ -28,8 +28,9 @@ params -> optimizer), so the replicas stay identical.  The reported loss
 is the sum of the shares over the ranks.
 
 The JAX trainer's other axes (tp, ep, pp), its rules table and its
-per-step loss rng are not ported (ROADMAP.md A.6); a mesh with an fsdp
-axis trains with `fsdp.FSDPTrainer`.
+per-step loss rng are not ported (ROADMAP.md A.6), nor a chunked loss over
+a sequence shard: a model with head="hidden" raises at `init`.  A mesh
+with an fsdp axis trains with `fsdp.FSDPTrainer`.
 """
 from __future__ import annotations
 
@@ -95,6 +96,14 @@ class MeshTrainer(DataParallelTrainer):
                              "trains with fsdp.FSDPTrainer")
         if self.mesh.size != self.world:
             raise ValueError(f"mesh {self.mesh.shape} does not cover the {self.world} ranks")
+
+    def init(self, model: nn.Module, model_state=None) -> TrainState:
+        cfg = getattr(model, "cfg", None)
+        if getattr(cfg, "head", "dense") == "hidden":
+            raise NotImplementedError(
+                'MeshTrainer: head="hidden" needs a chunked loss over a sequence shard '
+                "(lm_loss_shard takes logits), not ported yet (ROADMAP A.6)")
+        return super().init(model, model_state)
 
     def shard_batch(self, tokens: torch.Tensor) -> SeqShard:
         """This rank's `SeqShard` of the global [B, L] token batch, on the

@@ -166,27 +166,160 @@ def test_plain_forward_matches_pallas_fwd_kernel(kflash, block_k, l, h, hkv, d, 
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref).reshape(1, h, l), atol=ATOL)
 
 
+# Head dims over 128 (fault C.1): the port's flash path on the CPU (the
+# plain versions, which take any head dim whole) against the interpreted
+# Pallas kernels, which take the whole head dim as one block; f32, 2e-5 as
+# above.  264 ends in a slab of 8.  Beside them, a plain version that
+# splits the work as the wide kernels' blocks do (csrc/flash_wide.cu: an
+# output slab of WIDE_SLAB columns at a time, S and dP summed over
+# 64-column chunks) is held against the same Pallas results, which checks
+# that decomposition here.
+WIDE_CHUNK = 64  # head-dim columns a wide block sums S and dP over at a time
+WIDE_CASES = [
+    # (L, H, Hkv, causal, window, D)
+    (72, 2, 2, True, 0, 192),
+    (72, 4, 2, True, 24, 192),
+    (72, 2, 2, False, 0, 256),
+    (72, 4, 1, True, 0, 256),
+    (72, 2, 2, True, 24, 264),
+    (72, 4, 2, False, 0, 264),
+]
+
+
+def _chunked_scores(a, b):
+    """a [N, M, D] . b [N, K, D]^T -> [N, M, K] f32, summed over the head
+    dim WIDE_CHUNK columns at a time, in order, as a wide block sums S and
+    dP."""
+    s = None
+    for c in range(0, a.shape[-1], WIDE_CHUNK):
+        part = torch.einsum("bqd,bkd->bqk", a[..., c:c + WIDE_CHUNK].float(),
+                            b[..., c:c + WIDE_CHUNK].float())
+        s = part if s is None else s + part
+    return s
+
+
+def _split_fwd(q, k, v, scale, causal, window):
+    """The wide forward's work split as its blocks split it, [B*H, L, D]:
+    an output slab of WIDE_SLAB columns at a time, each from its own S
+    summed over WIDE_CHUNK-column chunks; (o, lse) as `_fwd_reference`
+    returns them."""
+    seq_len = q.shape[1]
+    pos = torch.arange(seq_len)
+    valid = tflash._valid(pos, pos, seq_len, causal, window)[None]
+    slabs = []
+    for c0 in range(0, q.shape[-1], tflash.WIDE_SLAB):
+        s = torch.where(valid, _chunked_scores(q, k) * scale, tflash.NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        slabs.append(torch.einsum("bqk,bkd->bqd", p, v[..., c0:c0 + tflash.WIDE_SLAB].float())
+                     / l)
+    lse = (m + torch.log(l))[..., 0]
+    return torch.cat(slabs, -1).to(q.dtype), lse
+
+
+def _split_bwd(q, k, v, g, lse, delta, scale, causal, window):
+    """The wide backward's work split as its blocks split it, [B*H, L, D]:
+    dq, dk, dv a WIDE_SLAB-column slab at a time, each slab from its own P
+    and dS, with S and dP summed over WIDE_CHUNK-column chunks (whole rows
+    of keys: the key blocking is `_bwd_blocked`'s, tested above)."""
+    seq_len = q.shape[1]
+    pos = torch.arange(seq_len)
+    valid = tflash._valid(pos, pos, seq_len, causal, window)[None]
+    dqs, dks, dvs = [], [], []
+    for c0 in range(0, q.shape[-1], tflash.WIDE_SLAB):
+        cols = slice(c0, c0 + tflash.WIDE_SLAB)
+        p = torch.where(valid, torch.exp(_chunked_scores(q, k) * scale - lse[:, :, None]), 0.0)
+        ds = p * (_chunked_scores(g, v) - delta[:, :, None])
+        dvs.append(torch.einsum("bqk,bqd->bkd", p, g[..., cols].float()))
+        dqs.append(torch.einsum("bqk,bkd->bqd", ds, k[..., cols].float()) * scale)
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, q[..., cols].float()) * scale)
+    return tuple(torch.cat(x, -1) for x in (dqs, dks, dvs))
+
+
+def _split_blhd(q, k, v, g_o, g_lse, scale, causal, window):
+    """(o, lse, dq, dk, dv) of the split plain version on [B, L, H, D]
+    inputs, GQA through repeated kv heads and a group sum."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    qb, gb = tflash._to_bhld(q), tflash._to_bhld(g_o)
+    kb, vb = (tflash._expand_kv(tflash._to_bhld(x), h, hkv) for x in (k, v))
+    o, lse = _split_fwd(qb, kb, vb, scale, causal, window)
+    delta = (o * gb).sum(-1) - g_lse.reshape(b * h, l)
+    dq, dk, dv = _split_bwd(qb, kb, vb, gb, lse, delta, scale, causal, window)
+    dk, dv = (x.reshape(b, hkv, h // hkv, l, d).sum(2).reshape(b * hkv, l, d) for x in (dk, dv))
+    return (tflash._from_bhld(o, b), lse.reshape(b, h, l),
+            *(tflash._from_bhld(x, b) for x in (dq, dk, dv)))
+
+
+@pytest.mark.parametrize("l,h,hkv,causal,window,d", WIDE_CASES)
+def test_wide_head_dims_match_pallas(kflash, l, h, hkv, causal, window, d):
+    assert tflash.wide_head(d)
+    q, k, v, g_o, g_lse = _inputs(l, h, hkv, d=d, seed=d + window)
+    kw = dict(causal=causal, window=window or None, block_q=64, block_k=64)
+
+    def jax_fn(q, k, v):
+        return kflash.flash_attention_with_lse(q, k, v, interpret=True,
+                                               backward="pallas", **kw)
+
+    (o_ref, lse_ref), vjp = jax.vjp(jax_fn, *map(jnp.asarray, (q, k, v)))
+    grads_ref = vjp((jnp.asarray(g_o), jnp.asarray(g_lse)))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tflash.flash_attention_with_lse(tq, tk, tv, **kw)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv),
+                                (torch.from_numpy(g_o), torch.from_numpy(g_lse)))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_ref), atol=ATOL)
+    for name, got, want in zip("qkv", grads, grads_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   err_msg=f"d{name}")
+
+    split = _split_blhd(*(torch.from_numpy(x) for x in (q, k, v, g_o, g_lse)), d ** -0.5,
+                        causal, window)
+    for name, got, want in zip(("o", "lse", "dq", "dk", "dv"), split,
+                               (o_ref, lse_ref, *grads_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   err_msg=f"split plain version, {name}")
+
+
+@pytest.mark.parametrize("d", [192, 256, 264])
+def test_wide_plain_wrappers_split_as_the_kernels(d):
+    """The split plain version equals the CPU wrappers' whole-width one
+    (with the blocked backward's key blocks) up to the order of the f32
+    sums, 2e-5 as above."""
+    q, k, v, g_o, g_lse = (torch.from_numpy(x) for x in _inputs(136, 4, 2, d=d, seed=d))
+    scale, window = d ** -0.5, 40
+    o, lse = tflash.flash_fwd(q, k, v, scale, True, window)
+    delta = ((o * g_o).sum(-1).transpose(1, 2) - g_lse).contiguous()
+    want = (o, lse, tflash.flash_bwd_dq(q, k, v, g_o, lse, delta, scale, True, window),
+            *tflash.flash_bwd_dkv(q, k, v, g_o, lse, delta, scale, True, window))
+    got = _split_blhd(q, k, v, g_o, g_lse, scale, True, window)
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL, msg=name)
+
+
 @pytest.mark.parametrize("d", list(range(16, 129, 16)))
 def test_kernels_take_head_dims_16_to_128(d):
     assert d in tflash.HEAD_DIMS
-    tflash.check_head_dim("flash_fwd", d)
+    assert tflash.kernel_head_dim(d) == d and not tflash.wide_head(d)
 
 
 @pytest.mark.parametrize("d", [129, 144, 256])
 def test_other_head_dims_name_roadmap_c1(d):
-    """Only a head wider than 128 is refused (fault C.1, narrowed)."""
+    """A head wider than 128 takes the wide plan: the wide family, at a
+    multiple of 8 in place or padded to one."""
     assert d not in tflash.HEAD_DIMS
-    with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
-        tflash.check_head_dim("flash_fwd", d)
+    dp = tflash.kernel_head_dim(d)
+    assert tflash.wide_head(d) and dp % 8 == 0 and d <= dp < d + 8
 
 
 @pytest.mark.parametrize("d", list(range(1, 129)))
 def test_check_head_dim_takes_1_to_128(d):
     """Every head dim up to 128 runs on the kernels: in place at a multiple
     of 8, else padded to the next one."""
-    tflash.check_head_dim("flash_fwd", d)
     dp = tflash.kernel_head_dim(d)
-    assert dp in tflash.HEAD_DIMS and d <= dp < d + 8
+    assert dp in tflash.HEAD_DIMS and d <= dp < d + 8 and not tflash.wide_head(d)
     assert (dp == d) == (d % 8 == 0)
 
 

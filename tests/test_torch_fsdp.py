@@ -453,3 +453,35 @@ def test_one_rank_trains_like_one_process():
     got = trainer.eval_params(state)
     for k, v in ref.named_parameters():
         assert torch.equal(got[k], v.detach()), k
+
+
+def test_one_rank_trains_the_chunked_head_like_one_process():
+    """head="hidden" + lm_loss_chunked with dropout from a generator under
+    FSDPTrainer (the loss reads the head weight through the module, which
+    the trainer swaps for the gathered one) equals torch.optim.Adam on the
+    module itself with a generator of the same seed, bit for bit."""
+    import dataclasses
+
+    cfg = dataclasses.replace(_cfg(), head="hidden", dropout=0.1)
+    tokens = torch.from_numpy(_tokens()).long()
+
+    def model():
+        return tt.TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+
+    def loss_fn(gen):
+        return lambda m, b: tt.lm_loss_chunked(m, b, block=100, train=True, generator=gen)
+
+    trainer = FSDPTrainer(loss_fn(torch.Generator().manual_seed(9)),
+                          lambda ps: torch.optim.Adam(ps, lr=LR), device="cpu")
+    state, m = trainer.train_steps(trainer.init(model()), trainer.shard_batch(tokens), STEPS)
+    ref, ref_loss = model(), loss_fn(torch.Generator().manual_seed(9))
+    opt = torch.optim.Adam(ref.parameters(), lr=LR)
+    for _ in range(STEPS):
+        opt.zero_grad()
+        loss = ref_loss(ref, tokens)
+        loss.backward()
+        opt.step()
+    assert m["loss"].item() == loss.item()
+    got = trainer.eval_params(state)
+    for k, v in ref.named_parameters():
+        assert torch.equal(got[k], v.detach()), k

@@ -12,7 +12,9 @@ not have; this file imports none of it).
 Each output is judged by its normwise relative error over 64-row blocks,
 worst block against kungfu_tpu_torch.utils.compare.REL_LIMIT (f32 1e-5,
 fp16 2e-3, bf16 1e-2, set and explained there), and lse by LSE_ATOL.
-The readings are printed (`-s` shows them).  Two tests plant faults, a
+The wide family (head dims over 128) is held to its own plain versions,
+which split the work as its blocks do.  The readings are printed (`-s`
+shows them).  Two tests plant faults, a
 key or query block left out at L=2048 (MHA, and GQA for B4), and show the
 check rejects them.  The error-feedback residual kernel is held to its
 plain version bit for bit.
@@ -287,16 +289,67 @@ def test_xla_backward_takes_the_plain_arm(card):
         _close(got, want, torch.float32, f"d{name}")
 
 
+# The wide family (csrc/flash_wide.cu): head dims over 128, each block an
+# output slab of 128 columns with S and dP summed over 64-column chunks;
+# 136 and 264 end in a narrow slab, 512 has four.  Against the wide plain
+# versions, which split the work the same way, in every dtype, causal or
+# not, windowed, MHA (Hkv = H) and a group of all heads (Hkv = 1).
+WIDE_CASES = [
+    # (B, L, H, Hkv, D, causal, window)
+    (1, 200, 2, 2, 136, True, 0),
+    (1, 200, 4, 1, 136, False, 0),
+    (2, 256, 2, 2, 192, True, 96),
+    (1, 333, 4, 1, 192, True, 0),
+    (1, 257, 2, 2, 256, False, 0),
+    (1, 300, 4, 1, 256, True, 65),
+    (1, 129, 2, 2, 264, True, 0),
+    (1, 200, 4, 1, 264, True, 50),
+    (1, 130, 2, 2, 512, True, 0),
+    (1, 200, 4, 1, 512, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "f32"])
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window", WIDE_CASES)
+def test_wide_kernels_match_plain(card, dtype, b, l, h, hkv, d, causal, window):
+    q, k, v, do = _inputs(card, b, l, h, hkv, d, dtype, seed=d)
+    scale = d ** -0.5
+    assert flash.wide_head(d)
+    before = [kern.launches for kern in flash.WIDE_KERNELS]
+    rows = [kern.launches for kern in flash.KERNELS]
+    o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
+    _close(o, o_ref, dtype, "o")
+    _lse_close(lse, lse_ref)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
+    refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, 128, window)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        _close(got, want, dtype, name)
+    # each wide kernel launched once, and counted for its B row
+    assert [kern.launches - n for kern, n in zip(flash.WIDE_KERNELS, before)] == [1, 1, 1]
+    assert [kern.launches - n for kern, n in zip(flash.KERNELS, rows)] == (
+        [1, 1, 1, 0] if hkv == h else [1, 1, 0, 1])
+
+
+@pytest.mark.parametrize("d,wide", [(8, False), (64, False), (128, False), (120, False),
+                                    (100, False), (129, True), (136, True), (256, True)])
+def test_head_dim_takes_its_kernels(card, d, wide):
+    """D <= 128 (padded to a multiple of 8 or not) keeps the four wgmma
+    bodies; a wider head runs on the wide family, each kernel once a call."""
+    q, k, v, do = (x.requires_grad_() for x in _inputs(card, 1, 128, 2, 1, d, torch.bfloat16))
+    before = [kern.launches for kern in flash.WIDE_KERNELS + flash.KERNELS]
+    o = flash.flash_attention(q, k, v, causal=True)
+    o.backward(do)
+    assert o.shape == q.shape and all(x.grad.shape == x.shape for x in (q, k, v))
+    launched = [kern.launches - n for kern, n in zip(flash.WIDE_KERNELS + flash.KERNELS, before)]
+    assert launched == ([1, 1, 1] if wide else [0, 0, 0]) + [1, 1, 0, 1]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    for d in (129, 144):
-        q, k, v, do = _inputs(card, 1, 64, 2, 2, d, torch.bfloat16)
-        lse = torch.zeros(1, 2, 64, device=card)
-        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
-            flash.flash_fwd(q, k, v, 0.1, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
-            flash.flash_bwd_dq(q, k, v, do, lse, lse, 0.1, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP C.1"):
-            flash.flash_bwd_dkv(q, k, v, do, lse, lse, 0.1, True)
     q, k, v, _ = _inputs(card, 1, 64, 2, 2, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 0.1, True)

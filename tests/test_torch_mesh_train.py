@@ -181,6 +181,14 @@ def test_config_refusals():
         pm.make_mesh(xp=1)
 
 
+def test_hidden_head_refused():
+    """head="hidden" has no chunked loss over a sequence shard yet (A.6)."""
+    cfg = tt.TransformerConfig(head="hidden", **COMMON)
+    trainer = MeshTrainer(None, None, pm.make_mesh(dp=1, sp=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        trainer.init(tt.TransformerLM(cfg, device="cpu"))
+
+
 def test_mesh_of_one_process():
     mesh = pm.make_mesh(dp=1, sp=-1)
     assert mesh.shape == {"dp": 1, "sp": 1} and mesh.coords == {"dp": 0, "sp": 0}

@@ -55,20 +55,26 @@ def _data(seed=0, ranks=1):
                         ).astype(np.int32)
 
 
-def _jax_run(ref, tokens, n_devices, impl="pmean", compression=None, first=None):
+def _jax_run(ref, tokens, n_devices, impl="pmean", compression=None, first=None,
+             ce_block=None):
     """(initial params, losses, final params) of the JAX trainer.  A dict
     `first` receives, after step 1, the reduced gradients ("g"), rank 0's
-    EF residuals ("e", with compression) and the parameters ("p")."""
+    EF residuals ("e", with compression) and the parameters ("p").  With
+    `ce_block` the model has head="hidden" and the loss is lm_loss_chunked
+    over vocab blocks of that size."""
     jt, nn, optax, jsync, JTrainer = ref
     from jax.sharding import Mesh
 
-    cfg = jt.TransformerConfig(dtype=jnp.float32, **COMMON)
+    head = "hidden" if ce_block else "dense"
+    cfg = jt.TransformerConfig(dtype=jnp.float32, head=head, **COMMON)
     model = jt.TransformerLM(cfg)
     params = nn.meta.unbox(
         jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(tokens[:1]))["params"])
     init = jax.tree.map(np.asarray, params)
 
     def loss_fn(p, batch):
+        if ce_block:
+            return jt.lm_loss_chunked(model, p, batch, block=ce_block)
         return jt.lm_loss(model.apply({"params": p}, batch), batch)
 
     # the inner optimizer keeps the reduced gradients it was given
@@ -120,6 +126,30 @@ def test_single_rank_steps_match_jax(ref):
         state, m = trainer.train_step(state, batch)
         losses.append(m["loss"].item())
     assert state.step == STEPS
+    np.testing.assert_allclose(losses, losses_ref, atol=2e-5)
+    assert losses[-1] < losses[0]
+    _assert_params_close(trainer.eval_params(state), final_ref, cfg)
+
+
+def test_chunked_steps_match_jax(ref):
+    """head="hidden" + lm_loss_chunked (vocab blocks of 16 over 61: a
+    ragged last block) under DataParallelTrainer + synchronous_sgd(adamw),
+    three steps against the JAX trainer with its lm_loss_chunked; the
+    tolerances of the dense steps above."""
+    tokens = _data(2)
+    init, losses_ref, final_ref = _jax_run(ref, tokens, 1, ce_block=16)
+    cfg = tt.TransformerConfig(dtype=torch.float32, head="hidden", **COMMON)
+    model = tt.TransformerLM(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_flax(init, cfg))
+    trainer = DataParallelTrainer(
+        lambda m, b: tt.lm_loss_chunked(m, b, block=16),
+        synchronous_sgd(adamw(LR, b1=0.9, b2=0.95)), device="cpu")
+    state = trainer.init(model)
+    batch = trainer.shard_batch(torch.from_numpy(tokens).long())
+    losses = []
+    for _ in range(STEPS):
+        state, m = trainer.train_step(state, batch)
+        losses.append(m["loss"].item())
     np.testing.assert_allclose(losses, losses_ref, atol=2e-5)
     assert losses[-1] < losses[0]
     _assert_params_close(trainer.eval_params(state), final_ref, cfg)
@@ -183,8 +213,8 @@ WORKER = textwrap.dedent("""
     from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
     from kungfu_tpu_torch.train import DataParallelTrainer
 
-    common, lr, steps, per_rank, world, impl, bucket_bytes, *rest = eval(sys.argv[3])
-    compression = rest[0] if rest else None
+    common, lr, steps, per_rank, world, impl, bucket_bytes, compression, ce_block = eval(
+        sys.argv[3])
     data = np.load(sys.argv[1])
     tree = {}
     for key in data.files:
@@ -197,11 +227,18 @@ WORKER = textwrap.dedent("""
         node[leaf] = data[key]
     assert distributed.init_distributed(device="cpu") == world
     rank = dist.get_rank()
-    cfg = tt.TransformerConfig(dtype=torch.float32, **common)
+    head = "hidden" if ce_block else "dense"
+    cfg = tt.TransformerConfig(dtype=torch.float32, head=head, **common)
     model = tt.TransformerLM(cfg, device="cpu")
     model.load_state_dict(convert.params_from_flax(tree, cfg))
+
+    def loss_fn(m, b):
+        if ce_block:
+            return tt.lm_loss_chunked(m, b, block=ce_block)
+        return tt.lm_loss(m(b), b)
+
     trainer = DataParallelTrainer(
-        lambda m, b: tt.lm_loss(m(b), b),
+        loss_fn,
         synchronous_sgd(adamw(lr, b1=0.9, b2=0.95), impl=impl, bucket_bytes=bucket_bytes,
                         compression=compression),
         device="cpu")
@@ -226,20 +263,24 @@ WORKER = textwrap.dedent("""
 """)
 
 
-def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=None):
+def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=None,
+              ce_block=None):
     """(losses, final params) of every one of `world` gloo ranks, beside
     the JAX trainer's (initial params, losses, final params).  A dict
     `first` receives the step-1 values of both, "g", "e", "p" from the JAX
-    trainer and "torch/g", "torch/e", "torch/p" from rank 0 (state dicts)."""
+    trainer and "torch/g", "torch/e", "torch/p" from rank 0 (state dicts).
+    With `ce_block` both train head="hidden" on lm_loss_chunked."""
     tokens = _data(seed=1, ranks=world)
-    init, losses_ref, final_ref = _jax_run(ref, tokens, world, impl, compression, first)
+    init, losses_ref, final_ref = _jax_run(ref, tokens, world, impl, compression, first,
+                                           ce_block)
     flat = {jax.tree_util.keystr(p, simple=True, separator="/"): v
             for p, v in jax.tree_util.tree_flatten_with_path(init)[0]}
     data = tmp_path / "in.npz"
     np.savez(data, tokens=tokens, **flat)
     wait_ranks(start_ranks(WORKER, world, [
         data, tmp_path / "out",
-        repr((COMMON, LR, STEPS, PER_RANK, world, impl, bucket_bytes, compression))]))
+        repr((COMMON, LR, STEPS, PER_RANK, world, impl, bucket_bytes, compression,
+              ce_block))]))
     results = [np.load(tmp_path / f"out.{r}.npz") for r in range(world)]
     # S-SGD: every replica holds the same parameters and gradients, bit for bit
     for res in results[1:]:
@@ -255,17 +296,27 @@ def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=
     return [res["losses"] for res in results], params, losses_ref, final_ref
 
 
-# (impl, ranks, bucket_bytes): the JAX trainer reduces per leaf; pmean's
-# mean is element-wise, so bucketing it changes nothing, while a ring's
-# chunks follow the buffer, so the ring cases reduce per leaf as JAX does
-@pytest.mark.parametrize("impl,world,bucket_bytes",
-                         [("pmean", 2, 4096), ("pallas_ring", 2, None), ("pallas_ring", 3, None)])
-def test_two_rank_gloo_steps_match_jax(ref, tmp_path, monkeypatch, impl, world, bucket_bytes):
+# (impl, ranks, bucket_bytes, ce_block): the JAX trainer reduces per leaf;
+# pmean's mean is element-wise, so bucketing it changes nothing, while a
+# ring's chunks follow the buffer, so the ring cases reduce per leaf as JAX
+# does.  The last case trains head="hidden" on lm_loss_chunked (vocab
+# blocks of 16 over 61) on four ranks, as `run -np 4` brings them up.
+@pytest.mark.parametrize("impl,world,bucket_bytes,ce_block", [
+    pytest.param("pmean", 2, 4096, None, id="pmean-2-4096"),
+    pytest.param("pallas_ring", 2, None, None, id="pallas_ring-2-None"),
+    pytest.param("pallas_ring", 3, None, None, id="pallas_ring-3-None"),
+    pytest.param("pmean", 4, 4096, 16, id="pmean-4-4096-chunked"),
+])
+def test_two_rank_gloo_steps_match_jax(ref, tmp_path, monkeypatch, impl, world, bucket_bytes,
+                                       ce_block):
     monkeypatch.setenv("KFT_PALLAS", "interpret")  # the JAX ring runs the Pallas kernels
-    losses, params, losses_ref, final_ref = _gloo_run(ref, tmp_path, impl, world, bucket_bytes)
+    losses, params, losses_ref, final_ref = _gloo_run(ref, tmp_path, impl, world, bucket_bytes,
+                                                      ce_block=ce_block)
     for rank_losses in losses:
         np.testing.assert_allclose(rank_losses, losses_ref, atol=2e-5)
-    _assert_params_close(params, final_ref, tt.TransformerConfig(dtype=torch.float32, **COMMON))
+    head = "hidden" if ce_block else "dense"
+    _assert_params_close(params, final_ref,
+                         tt.TransformerConfig(dtype=torch.float32, head=head, **COMMON))
 
 
 # int8 with error feedback, the whole step against the JAX trainer.  The

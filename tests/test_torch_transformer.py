@@ -8,6 +8,8 @@ entries are near zero.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +45,8 @@ CONFIGS = {
     "rope-window-flash": dict(rope=True, window=6, attention="flash",
                               flash_block_q=8, flash_block_k=8),
     "auto-remat": dict(attention="auto", rope=True, remat=True),
+    "dots-remat-flash": dict(attention="flash", rope=True, remat=True, remat_policy="dots",
+                             flash_block_q=8, flash_block_k=8),
 }
 
 
@@ -145,9 +149,75 @@ def test_bf16_forward_close_to_flax(kft):
 
 
 def test_later_slices_raise():
-    for kw in (dict(decode=True), dict(n_experts=4), dict(head="hidden"),
-               dict(attention="ulysses"), dict(dropout=0.1), dict(remat_policy="dots")):
+    for kw in (dict(decode=True), dict(n_experts=4), dict(attention="ulysses")):
         with pytest.raises(NotImplementedError):
             tt.TransformerConfig(**kw)
-    with pytest.raises(ValueError):
-        tt.TransformerConfig(ffn="relu")
+    for kw in (dict(ffn="relu"), dict(dropout=1.5), dict(head="logits")):
+        with pytest.raises(ValueError):
+            tt.TransformerConfig(**kw)
+
+
+# -- dropout: after the embedding and on each residual branch, only under
+# train=True, from an explicit torch.Generator.  The two packages draw
+# other bits, so against flax: train=False (no dropout at all) and rate 1.0
+# (every branch zero); the port's masks alone: the keep share, the
+# 1 / (1 - rate) scale and a seed's repeatability.
+
+def _dropout_pair(kft, rate):
+    jcfg, tcfg = _configs(kft, "gqa-rope-full")
+    jcfg = dataclasses.replace(jcfg, dropout=rate)
+    tcfg = dataclasses.replace(tcfg, dropout=rate)
+    tokens = _tokens(6)
+    model, params = _jax_params(kft, jcfg, tokens)
+    return model, params, _port_model(params, tcfg), tokens
+
+
+@pytest.mark.parametrize("rate", [0.1, 1.0])
+def test_dropout_matches_flax_where_it_must(kft, rate):
+    """train=False equals the flax model's default (no dropout); at rate
+    1.0 with train=True both zero every branch, so logits and loss agree
+    (2e-5, as above) whatever the bits."""
+    jt, _ = kft
+    model, params, tmodel, tokens = _dropout_pair(kft, rate)
+    ttokens = torch.from_numpy(tokens).long()
+    jtokens = jnp.asarray(tokens)
+    want_eval = model.apply({"params": params}, jtokens)
+    np.testing.assert_allclose(tmodel(ttokens).detach().numpy(), np.asarray(want_eval),
+                               atol=2e-5)
+    if rate == 1.0:
+        want = model.apply({"params": params}, jtokens, train=True,
+                           rngs={"dropout": jax.random.PRNGKey(1)})
+        got = tmodel(ttokens, train=True, generator=torch.Generator().manual_seed(1))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-5)
+        np.testing.assert_allclose(tt.lm_loss(got, ttokens).item(),
+                                   float(jt.lm_loss(want, jtokens)), atol=2e-5)
+
+
+def test_dropout_keep_share_and_scale():
+    """Each element kept with probability 1 - rate (100,000 draws: the
+    share within 5 standard deviations, 0.0047), kept ones scaled by
+    exactly 1 / (1 - rate) in the input's dtype, the rest zero."""
+    rate, n = 0.1, 100_000
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((n,), 3.0, dtype=dtype)
+        y = tt.dropout(x, rate, torch.Generator().manual_seed(0))
+        kept = y != 0
+        assert abs(kept.float().mean().item() - (1 - rate)) < 0.0047
+        assert torch.equal(y[kept], (x / (1 - rate))[kept]) and y.dtype == dtype
+    assert tt.dropout(x, rate, None) is x  # no generator: no dropout
+
+
+def test_dropout_follows_the_generator(kft):
+    """One seed gives one output, another seed another; train=True
+    without a generator raises."""
+    _, _, tmodel, tokens = _dropout_pair(kft, 0.1)
+    ttokens = torch.from_numpy(tokens).long()
+
+    def run(seed):
+        return tmodel(ttokens, train=True, generator=torch.Generator().manual_seed(seed))
+
+    torch.testing.assert_close(run(3), run(3), rtol=0, atol=0)
+    assert not torch.equal(run(3), run(4))
+    assert not torch.equal(run(3), tmodel(ttokens))
+    with pytest.raises(ValueError, match="generator"):
+        tmodel(ttokens, train=True)
