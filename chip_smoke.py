@@ -34,10 +34,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              dq and the GQA dk/dv), the same with Hkv=8 (dk/dv without a
              group), D=192 causal, windowed and not; the three kernels'
              times at the Gemma-2B shape, the plain versions', SDPA's
-             (a yardstick) and the bound; then a Gemma-2B-shaped model
-             (d_model 2048, 8 heads of 256, one kv head, 2 layers) trains
-             a step on 8192 tokens: each wide kernel (and its B row)
-             launched once per layer
+             (a yardstick) and the bound; the Gemma shape in fp16 too;
+             then a Gemma-2B-shaped model (d_model 2048, 8 heads of 256,
+             one kv head, 2 layers) trains 3 steps on 8192 tokens: each
+             wide kernel (and its B row) launched once per layer and
+             step; the steady step (median of steps 2-3) beside the wide
+             kernels' share of it
  4. check    a small f32 model: flash kernels against full attention on the
              same weights (loss and every gradient); then with dropout 0.1:
              train=False equals the model without dropout, train=True from
@@ -254,6 +256,7 @@ TOL_CHUNKED_LOSS = 1e-3
 CHUNKED_SAVING = int(1.95 * 2**30)
 TOL_REMAT = 1e-6
 CHUNKED_STEPS = 3
+WIDE_STEPS = 3  # phase wide: the Gemma-2B-shaped model's steps (steady: 2 and 3)
 # Phase check's dropout: two forwards from generators of one seed, and
 # train=False against the model without dropout, repeat the same kernels
 # on the same inputs (bit-equal expected; the limit is 1e-6 absolute on a
@@ -622,38 +625,34 @@ def phase_wide(seed: int):
     """The wide flash family (head dims over 128, csrc/flash_wide.cu)
     against its plain versions at the Gemma-2B attention shape and others;
     its times, the plain versions', SDPA's and the bound; then a Gemma-2B-
-    shaped model's training step through the entry points, which must run
+    shaped model's training steps through the entry points, which must run
     on the wide kernels."""
-    from kungfu_tpu_torch.models import TransformerConfig, TransformerLM
     from kungfu_tpu_torch.ops import flash
-    from kungfu_tpu_torch.tools.step_profile import lm_step_loss
-    from kungfu_tpu_torch.train import DataParallelTrainer
-    from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
+    from kungfu_tpu_torch.tools.flash_time import WIDE_MODEL, wide_steps
     from kungfu_tpu_torch.utils.compare import REL_LIMIT
 
     dtype = torch.bfloat16
-    limit = REL_LIMIT[dtype]
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     errs = {kern.name: 0.0 for kern in flash.WIDE_KERNELS}
 
-    def inputs(nb, L, h, hkv, d):
+    def inputs(nb, L, h, hkv, d, dt=dtype):
         def rnd(heads):
-            return torch.randn(nb, L, heads, d, generator=gen, device="cuda").to(dtype)
+            return torch.randn(nb, L, heads, d, generator=gen, device="cuda").to(dt)
 
         return rnd(h), rnd(hkv), rnd(hkv), rnd(h)
 
-    # (B, L, H, Hkv, D, causal, window): Gemma 2B's attention (arXiv
-    # 2403.08295: 8 heads of 256, one kv head) at 8192 positions, the same
-    # without a group (B3's path), then D = 192 causal, windowed and not
-    for nb, L, h, hkv, d, causal, window in ((1, 8192, 8, 1, 256, True, 0),
-                                             (1, 8192, 8, 8, 256, True, 0),
-                                             (2, 2048, 8, 2, 192, True, 0),
-                                             (2, 2000, 8, 8, 192, True, 256),
-                                             (1, 2048, 8, 1, 192, False, 0)):
+    # (B, L, H, Hkv, D, causal, window, dtype): Gemma 2B's attention (arXiv
+    # 2403.08295: 8 heads of 256, one kv head) at 8192 positions, in bf16
+    # and fp16, the same without a group (B3's path), then D = 192 causal,
+    # windowed and not
+    for nb, L, h, hkv, d, causal, window, dt in (
+            (1, 8192, 8, 1, 256, True, 0, dtype), (1, 8192, 8, 1, 256, True, 0, torch.float16),
+            (1, 8192, 8, 8, 256, True, 0, dtype), (2, 2048, 8, 2, 192, True, 0, dtype),
+            (2, 2000, 8, 8, 192, True, 256, dtype), (1, 2048, 8, 1, 192, False, 0, dtype)):
         case = (f"B={nb} L={L} H={h} Hkv={hkv} D={d} window={window}"
-                + ("" if causal else " non-causal") + " bf16")
-        for name, e in _flash_check(flash, case, *inputs(nb, L, h, hkv, d), d ** -0.5, causal,
-                                    window, limit).items():
+                + ("" if causal else " non-causal") + f" {str(dt)[6:]}")
+        for name, e in _flash_check(flash, case, *inputs(nb, L, h, hkv, d, dt), d ** -0.5,
+                                    causal, window, REL_LIMIT[dt]).items():
             errs[name] = max(errs[name], e)
         torch.cuda.empty_cache()
 
@@ -666,9 +665,9 @@ def phase_wide(seed: int):
     ms = {
         flash.FLASH_WIDE_FWD.name: time_ms(lambda: flash.flash_fwd(q, k, v, scale, True), 3, 1),
         flash.FLASH_WIDE_DQ.name: time_ms(
-            lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True), 3, 1),
+            lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True), 10),
         flash.FLASH_WIDE_DKV.name: time_ms(
-            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True), 3, 1),
+            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True), 10),
     }
     plain_fwd = time_ms(lambda: flash._plain_fwd_blhd(q, k, v, scale, True, 0), 1, 1)
     plain_bwd = time_ms(lambda: flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, True,
@@ -703,34 +702,27 @@ def phase_wide(seed: int):
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg, out
     torch.cuda.empty_cache()
 
-    # the path: a Gemma-2B-shaped model (d_model 2048, 8 heads of 256, one
-    # kv head; depth cut to 2 layers, vocab to 32000, GELU in place of
-    # GeGLU) trains a step on one sequence of 8192 tokens
-    cfg = TransformerConfig(vocab_size=32000, d_model=2048, n_layers=2, n_heads=8, n_kv_heads=1,
-                            d_ff=16384, max_len=8192, rope=True, attention="flash",
-                            dtype=dtype)
-    model = TransformerLM(cfg, device="cuda",
-                          generator=torch.Generator(device="cuda").manual_seed(seed))
-    trainer = DataParallelTrainer(lm_step_loss, synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95)),
-                                  device="cuda")
-    state = trainer.init(model)
-    tokens = torch.randint(0, cfg.vocab_size, (1, cfg.max_len), generator=gen, device="cuda")
+    # the path: the Gemma-2B-shaped model (flash_time.WIDE_MODEL: Gemma 2B's
+    # widths, 2 layers) trains WIDE_STEPS steps on one sequence of 8192 tokens
     for kern in flash.WIDE_KERNELS + flash.KERNELS:
         kern.launches = 0
-    t0 = time.perf_counter()
-    state, metrics = trainer.train_step(state, tokens)
-    loss = metrics["loss"].item()
-    step_ms = (time.perf_counter() - t0) * 1e3
+    steps_ms, losses = wide_steps(WIDE_STEPS, seed)
     launches = {kern.name: kern.launches for kern in flash.WIDE_KERNELS + flash.KERNELS}
-    check(math.isfinite(loss), f"wide: non-finite loss {loss}")
-    want = dict.fromkeys(launches, cfg.n_layers)
+    check(all(map(math.isfinite, losses)), f"wide: non-finite loss {losses}")
+    layers = WIDE_MODEL["n_layers"]
+    want = dict.fromkeys(launches, layers * WIDE_STEPS)
     want[flash.FLASH_BWD_DKV.name] = 0  # one kv head: the dk/dv launches count for B4
     check(launches == want, f"wide: kernel launches {launches}, expected {want}")
-    print(f"[wide] Gemma-2B-shaped model ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, {cfg.kv_heads} kv head), one "
-          f"step on 1 x {cfg.max_len} tokens: loss {loss:.4f}, {step_ms:.1f} ms with the first "
-          f"call's setup; launches {json.dumps(launches)}")
-    del state, model, trainer
+    steady = statistics.median(steps_ms[1:])
+    bwd = layers * (ms[flash.FLASH_WIDE_DQ.name] + ms[flash.FLASH_WIDE_DKV.name])
+    fwd = layers * ms[flash.FLASH_WIDE_FWD.name]
+    print(f"[wide] Gemma-2B-shaped model ({json.dumps(WIDE_MODEL)}, bf16), "
+          f"{WIDE_STEPS} steps on 1 x {WIDE_MODEL['max_len']} tokens: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step times "
+          f"{', '.join(f'{x:.1f}' for x in steps_ms)} ms (the first with its setup); steady step "
+          f"{steady:.1f} ms (median of steps 2-{WIDE_STEPS}), of it the wide backward's two "
+          f"kernels {bwd:.1f} ms ({100 * bwd / steady:.1f}%) and the wide forward {fwd:.1f} ms "
+          f"({100 * fwd / steady:.1f}%) by their own timings; launches {json.dumps(launches)}")
     torch.cuda.empty_cache()
     path = {kern.name: launches[kern.name] for kern in flash.WIDE_KERNELS}
     return (errs, ms, plain, library, bounds), path

@@ -55,7 +55,7 @@ SIGNATURES = {
     "kft_flash_wide_dq": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_wide"),
     "kft_flash_wide_dkv": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_wide"),
+        [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], "flash_wide"),
     "kft_ring_rs": ([_LP, _I, _I] + _RING, "ring"),
     "kft_ring_ag": ([_LP, _I, _I] + _RING, "ring"),
     "kft_ring_frs": ([_P, _L, _P, _I, _I, _F] + _RING, "ring"),

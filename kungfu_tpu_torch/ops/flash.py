@@ -31,16 +31,26 @@ head dim.
 Head dims: the four kernels take 8 to 128 in steps of 8 in place
 (`HEAD_DIMS`: rows of whole 16-byte chunks; a head narrower than the 64-
 or 128-column tile is padded with zero columns in shared memory), and the
-wide family every multiple of 8 above 128 (`wide_head`): each block owns
-an output slab of 128 columns and sums S and dP over the head dim in
-64-column chunks (`WIDE_SLAB`; csrc/flash_wide.cu).  Any other head dim
-goes through the same kernels on copies of the operands padded with zero
-columns to the next multiple of 8 (`pad_head`), with the caller's scale,
-and the outputs are cut back (`cut_head`): the zero columns add exact
-zeros to every q.k sum and to rowsum(dO * O), so this is exact; the copy
-is what an odd head costs.  In bf16 and fp16 the four
-run on wgmma (the forward with TMA loads) and the wide family on WMMA;
-f32 runs on float FMA loops.
+wide family every multiple of 8 above 128 (`wide_head`).  Any other head
+dim goes through the same kernels on copies of the operands padded with
+zero columns to the next multiple of 8 (`pad_head`), with the caller's
+scale, and the outputs are cut back (`cut_head`): the zero columns add
+exact zeros to every q.k sum and to rowsum(dO * O), so this is exact; the
+copy is what an odd head costs.  In bf16 and fp16 the four run on wgmma
+(the forward with TMA loads); f32 runs on float FMA loops.
+
+The wide family has two bodies (csrc/flash_wide.cu).  The backward in
+bf16 and fp16 at head dims up to 256 (`wide_wgmma`) runs on wgmma: a
+block of two warpgroups owns 64 output rows, each warpgroup a 128-column
+slab of them in registers; S and dP are computed once a tile over the
+whole head dim, one by each warpgroup, and shared through shared memory.
+The dk/dv kernel splits each kv head's query-head group over `parts`
+blocks where the kv heads alone give the card too few blocks
+(`wide_dkv_parts`); the parts' f32 partials meet in scratch this module
+allocates (`wide_dkv_scratch`) and the last block of a key tile sums them
+in a fixed order.  The forward, f32, and head dims over 256 run on the
+first, slab body: an output slab of `WIDE_SLAB` columns a block, S and dP
+summed over 64-column chunks (WMMA through shared memory; FMA in f32).
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.
@@ -58,6 +68,11 @@ _PLAIN_BLOCK_K = 128  # key block of the wrappers' plain backward on the CPU
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = tuple(range(8, 129, 8))  # what the four kernels take in place
 WIDE_SLAB = 128  # output columns of a wide block (and the widest head of the four)
+WIDE_MMA_MAX = 256  # the widest head the wide family's wgmma backward takes
+WIDE_ROWS = 64  # rows of a wide block's output tile (and of a streamed tile)
+WIDE_THREADS = 256  # threads of a wgmma block: two warpgroups
+WIDE_PARTIAL_SLOTS = 128  # f32 values of a thread's dK and dV slabs
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 class Kernel:
@@ -164,6 +179,36 @@ def wide_head(d: int) -> bool:
     """Whether a head of d runs on the wide family (its kernel head dim is
     over WIDE_SLAB columns)."""
     return kernel_head_dim(d) > WIDE_SLAB
+
+
+def wide_wgmma(d: int, dtype: torch.dtype) -> bool:
+    """Whether a wide head of kernel head dim d in `dtype` takes the wgmma
+    backward (bf16 and fp16 up to WIDE_MMA_MAX columns) rather than the
+    slab body (f32, and heads over WIDE_MMA_MAX)."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and WIDE_SLAB < kernel_head_dim(d) <= WIDE_MMA_MAX)
+
+
+def wide_dkv_parts(b: int, hkv: int, group: int, l: int) -> int:
+    """How many blocks the wgmma dk/dv kernel splits each kv head's group
+    of `group` query heads over: the least divisor of the group that gives
+    an H100 three waves of blocks (b * hkv * ceil(l / 64) key tiles times
+    parts; one block an SM), else the whole group (a head a block)."""
+    tiles = b * hkv * -(-l // WIDE_ROWS)
+    for parts in range(1, group + 1):
+        if group % parts == 0 and tiles * parts >= 3 * H100_SMS:
+            return parts
+    return group
+
+
+def wide_dkv_scratch(b: int, hkv: int, l: int, parts: int):
+    """(partial sums, counters) shapes the wgmma dk/dv kernel needs at
+    `parts` > 1: f32 [key tiles, parts, 128, 256] (each thread's dK and dV
+    slabs in register order) and int32 [key tiles], zeroed; None at 1."""
+    if parts == 1:
+        return None
+    tiles = b * hkv * -(-l // WIDE_ROWS)
+    return (tiles, parts, WIDE_PARTIAL_SLOTS, WIDE_THREADS), (tiles,)
 
 
 def _plain_fwd_blhd(q, k, v, scale, causal, window):
@@ -315,15 +360,24 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h)
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    code = _DTYPE_CODES[q.dtype]
     tail = (l, d, float(scale), int(causal), int(window))
     row = FLASH_BWD_DKV if hkv == h else FLASH_BWD_DKV_GQA
     if wide_head(d):
-        _launch(FLASH_WIDE_DKV, q.device, *ptrs, hkv, *tail, row=row)
+        parts = wide_dkv_parts(b, hkv, h // hkv, l) if wide_wgmma(d, q.dtype) else 1
+        shapes = wide_dkv_scratch(b, hkv, l, parts)
+        scratch = (0, 0)
+        if shapes is not None:
+            partial = torch.empty(shapes[0], dtype=torch.float32, device=q.device)
+            done = torch.zeros(shapes[1], dtype=torch.int32, device=q.device)
+            scratch = (partial.data_ptr(), done.data_ptr())
+        _launch(FLASH_WIDE_DKV, q.device, *ptrs, *scratch, parts, code, b, h, hkv, *tail,
+                row=row)
     elif hkv == h:
-        _launch(row, q.device, *ptrs, *tail)
+        _launch(row, q.device, *ptrs, code, b, h, *tail)
     else:
-        _launch(row, q.device, *ptrs, hkv, *tail)
+        _launch(row, q.device, *ptrs, code, b, h, hkv, *tail)
     return dk, dv
 
 

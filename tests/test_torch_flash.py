@@ -169,16 +169,21 @@ def test_plain_forward_matches_pallas_fwd_kernel(kflash, block_k, l, h, hkv, d, 
 # Head dims over 128 (fault C.1): the port's flash path on the CPU (the
 # plain versions, which take any head dim whole) against the interpreted
 # Pallas kernels, which take the whole head dim as one block; f32, 2e-5 as
-# above.  264 ends in a slab of 8.  Beside them, a plain version that
-# splits the work as the wide kernels' blocks do (csrc/flash_wide.cu: an
-# output slab of WIDE_SLAB columns at a time, S and dP summed over
-# 64-column chunks) is held against the same Pallas results, which checks
-# that decomposition here.
+# above.  264 ends in a slab of 8.  Beside them, plain versions that split
+# the work as the wide kernels' blocks do (csrc/flash_wide.cu) are held
+# against the same Pallas results, which checks those decompositions here:
+# the slab body's (an output slab of WIDE_SLAB columns at a time, S and dP
+# summed over 64-column chunks), at every D, and the wgmma backward's (S
+# and dP once over the whole head dim, 16 columns at a time; P and dS
+# shared by the 128-column slabs; dk/dv over the group in `parts`
+# partials), at D <= 256.
 WIDE_CHUNK = 64  # head-dim columns a wide block sums S and dP over at a time
+MMA_K = 16  # head-dim columns of one wgmma k-step
 WIDE_CASES = [
     # (L, H, Hkv, causal, window, D)
     (72, 2, 2, True, 0, 192),
     (72, 4, 2, True, 24, 192),
+    (72, 4, 1, True, 24, 192),
     (72, 2, 2, False, 0, 256),
     (72, 4, 1, True, 0, 256),
     (72, 2, 2, True, 24, 264),
@@ -237,6 +242,66 @@ def _split_bwd(q, k, v, g, lse, delta, scale, causal, window):
     return tuple(torch.cat(x, -1) for x in (dqs, dks, dvs))
 
 
+def _kstep_scores(a, b):
+    """a [N, M, D] . b [N, K, D]^T -> [N, M, K] f32, summed over the head
+    dim MMA_K columns at a time, in order, as the wgmma k-steps sum S and
+    dP."""
+    s = None
+    for c in range(0, a.shape[-1], MMA_K):
+        part = torch.einsum("bqd,bkd->bqk", a[..., c:c + MMA_K].float(),
+                            b[..., c:c + MMA_K].float())
+        s = part if s is None else s + part
+    return s
+
+
+def _mma_split_bwd(q, k, v, g, lse, delta, scale, causal, window, h, hkv, parts):
+    """The wgmma backward's work split as its blocks split it, [B*H, L, D]
+    with k, v repeated over the group: S and dP once over the whole head
+    dim (`_kstep_scores`), P and dS once, shared by every WIDE_SLAB-column
+    slab of dq, dk and dv; then dk and dv summed over each kv head's group
+    of query heads in `parts` partials of G / parts heads each, the
+    partials added in order 0 .. parts - 1.  (dq, dk [B*Hkv, L, D],
+    dv)."""
+    seq_len = q.shape[1]
+    pos = torch.arange(seq_len)
+    valid = tflash._valid(pos, pos, seq_len, causal, window)[None]
+    p = torch.where(valid, torch.exp(_kstep_scores(q, k) * scale - lse[:, :, None]), 0.0)
+    ds = p * (_kstep_scores(g, v) - delta[:, :, None])
+    dqs, dks, dvs = [], [], []
+    for c0 in range(0, q.shape[-1], tflash.WIDE_SLAB):
+        cols = slice(c0, c0 + tflash.WIDE_SLAB)
+        dqs.append(torch.einsum("bqk,bkd->bqd", ds, k[..., cols].float()) * scale)
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, q[..., cols].float()) * scale)
+        dvs.append(torch.einsum("bqk,bqd->bkd", p, g[..., cols].float()))
+    group = h // hkv
+    assert group % parts == 0
+
+    def group_sum(x):
+        x = x.reshape(-1, hkv, parts, group // parts, seq_len, x.shape[-1]).sum(3)
+        total = x[:, :, 0]
+        for i in range(1, parts):
+            total = total + x[:, :, i]
+        return total.reshape(-1, seq_len, x.shape[-1])
+
+    return (torch.cat(dqs, -1), group_sum(torch.cat(dks, -1)),
+            group_sum(torch.cat(dvs, -1)))
+
+
+def _mma_split_blhd(q, k, v, g_o, g_lse, scale, causal, window, parts=None):
+    """(dq, dk, dv) of the wgmma split on [B, L, H, D] inputs (the forward
+    from the plain version; parts from the wrapper's rule unless given)."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    if parts is None:
+        parts = tflash.wide_dkv_parts(b, hkv, h // hkv, l)
+    qb, gb = tflash._to_bhld(q), tflash._to_bhld(g_o)
+    kb, vb = (tflash._expand_kv(tflash._to_bhld(x), h, hkv) for x in (k, v))
+    o, lse = tflash._fwd_reference(qb, kb, vb, scale, causal, window)
+    delta = (o * gb).sum(-1) - g_lse.reshape(b * h, l)
+    grads = _mma_split_bwd(qb, kb, vb, gb, lse, delta, scale, causal, window, h, hkv, parts)
+    return tuple(tflash._from_bhld(x, b) for x in grads)
+
+
 def _split_blhd(q, k, v, g_o, g_lse, scale, causal, window):
     """(o, lse, dq, dk, dv) of the split plain version on [B, L, H, D]
     inputs, GQA through repeated kv heads and a group sum."""
@@ -275,12 +340,18 @@ def test_wide_head_dims_match_pallas(kflash, l, h, hkv, causal, window, d):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                    err_msg=f"d{name}")
 
-    split = _split_blhd(*(torch.from_numpy(x) for x in (q, k, v, g_o, g_lse)), d ** -0.5,
-                        causal, window)
+    inputs = [torch.from_numpy(x) for x in (q, k, v, g_o, g_lse)]
+    split = _split_blhd(*inputs, d ** -0.5, causal, window)
     for name, got, want in zip(("o", "lse", "dq", "dk", "dv"), split,
                                (o_ref, lse_ref, *grads_ref)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                    err_msg=f"split plain version, {name}")
+    if d <= tflash.WIDE_MMA_MAX:  # the wgmma backward's split, parts as the wrapper picks
+        for name, got, want in zip(("dq", "dk", "dv"),
+                                   _mma_split_blhd(*inputs, d ** -0.5, causal, window),
+                                   grads_ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                       err_msg=f"wgmma split plain version, {name}")
 
 
 @pytest.mark.parametrize("d", [192, 256, 264])
@@ -297,6 +368,87 @@ def test_wide_plain_wrappers_split_as_the_kernels(d):
     got = _split_blhd(q, k, v, g_o, g_lse, scale, True, window)
     for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL, msg=name)
+    if d <= tflash.WIDE_MMA_MAX:
+        for parts in (1, 2):  # the group of 2 whole, and a part a head
+            got = _mma_split_blhd(q, k, v, g_o, g_lse, scale, True, window, parts)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want[2:]):
+                torch.testing.assert_close(g, w, rtol=0, atol=ATOL,
+                                           msg=f"wgmma split, parts {parts}, {name}")
+
+
+def _dkv_walk(b, h, hkv, l, causal, window, parts):
+    """{(batch, query head, query tile, key tile): count} of the tiles the
+    wgmma dk/dv blocks compute, and {key tile counter: blocks}: the loops
+    of csrc/flash_wide.cu `mma::dkv_kernel` over its grid (B * Hkv * parts,
+    ceil(L / 64)), with its whole-tile skip (`act`)."""
+    rows = tflash.WIDE_ROWS
+    group, nkt = h // hkv, -(-l // rows)
+    heads = group // parts
+    seen, counters = {}, {}
+    for x in range(b * hkv * parts):
+        part, bhk = x % parts, x // parts
+        bb, hk = bhk // hkv, bhk % hkv
+        for y in range(nkt):
+            k0 = y * rows
+            counters[bhk * nkt + y] = counters.get(bhk * nkt + y, 0) + 1
+            q_begin = k0 if causal else 0
+            q_end = min(l, k0 + rows - 1 + window) if causal and window else l
+            nt = -(-(q_end - q_begin) // rows)
+            for it in range(heads * nt):
+                hq = hk * group + part * heads + it // nt
+                i0 = q_begin + (it % nt) * rows
+                act = (k0 < l and (not causal or i0 + rows - 1 >= k0)
+                       and (window <= 0 or i0 - (k0 + rows - 1) < window))
+                if act:
+                    key = (bb, hq, i0 // rows, y)
+                    seen[key] = seen.get(key, 0) + 1
+    return seen, counters
+
+
+@pytest.mark.parametrize("b,h,hkv,l,causal,window,parts", [
+    (1, 8, 1, 8192, True, 0, 4),  # Gemma 2B's attention: 4 parts of 2 heads, 512 blocks
+    (1, 8, 1, 1000, True, 100, 8),  # ragged, windowed: a part a head
+    (2, 8, 2, 333, False, 0, 4),
+    (1, 4, 4, 200, True, 0, 1),  # MHA: one head a block
+    (4, 16, 2, 8192, True, 0, 1),  # enough key tiles: no split
+])
+def test_wide_dkv_parts_cover_each_tile_once(b, h, hkv, l, causal, window, parts):
+    """The wrapper's parts and scratch for the wgmma dk/dv kernel: every
+    (query head, query tile, key tile) the mask lets through is computed
+    by exactly one block, each key tile's counter is reached by `parts`
+    blocks, and the scratch holds a 64 x 256 dK and dV partial of each."""
+    assert tflash.wide_dkv_parts(b, hkv, h // hkv, l) == parts
+    rows, nkt = tflash.WIDE_ROWS, -(-l // tflash.WIDE_ROWS)
+    seen, counters = _dkv_walk(b, h, hkv, l, causal, window, parts)
+    pos = torch.arange(nkt * rows)
+    mask = tflash._valid(pos, pos, l, causal, window)
+    needed = mask.reshape(nkt, rows, nkt, rows).any(3).any(1)  # [query tile, key tile]
+    want = {(bb, hq, qt, kt) for bb in range(b) for hq in range(h)
+            for qt, kt in needed.nonzero().tolist()}
+    assert want <= set(seen) and max(seen.values()) == 1
+    assert all(not needed[qt, kt] for (_, _, qt, kt) in set(seen) - want)  # skipped-mask tiles only
+    assert sorted(counters) == list(range(b * hkv * nkt))
+    assert set(counters.values()) == {parts}
+    shapes = tflash.wide_dkv_scratch(b, hkv, l, parts)
+    if parts == 1:
+        assert shapes is None
+    else:
+        (tiles, n, slots, threads), (n_done,) = shapes
+        assert tiles == n_done == len(counters) and n == parts
+        assert slots * threads == 2 * rows * tflash.WIDE_MMA_MAX  # dK and dV, 64 x 256 each f32
+        # three waves of blocks on an H100, or the group a head a block
+        assert tiles * parts >= 3 * tflash.H100_SMS or parts == h // hkv
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (129, torch.bfloat16, True), (136, torch.float16, True), (192, torch.bfloat16, True),
+    (256, torch.float16, True), (256, torch.float32, False), (264, torch.bfloat16, False),
+    (512, torch.float16, False), (128, torch.bfloat16, False),
+])
+def test_wide_backward_body_by_shape(d, dtype, want):
+    """bf16 and fp16 wide heads up to 256 take the wgmma backward; f32 and
+    heads over 256 keep the slab body; D <= 128 is not wide."""
+    assert tflash.wide_wgmma(d, dtype) is want
 
 
 @pytest.mark.parametrize("d", list(range(16, 129, 16)))

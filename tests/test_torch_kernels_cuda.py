@@ -12,11 +12,12 @@ not have; this file imports none of it).
 Each output is judged by its normwise relative error over 64-row blocks,
 worst block against kungfu_tpu_torch.utils.compare.REL_LIMIT (f32 1e-5,
 fp16 2e-3, bf16 1e-2, set and explained there), and lse by LSE_ATOL.
-The wide family (head dims over 128) is held to its own plain versions,
-which split the work as its blocks do.  The readings are printed (`-s`
-shows them).  Two tests plant faults, a
-key or query block left out at L=2048 (MHA, and GQA for B4), and show the
-check rejects them.  The error-feedback residual kernel is held to its
+The wide family (head dims over 128) is held to the same plain versions;
+its wgmma backward (bf16, fp16, D <= 256) also to itself, bit for bit,
+across two calls.  The readings are printed (`-s` shows them).  Three
+tests plant faults, a key or query block left out at L=2048 (MHA, and GQA
+for B4), and a wide dk/dv partial left out of a key tile's sum, and show
+the check rejects them.  The error-feedback residual kernel is held to its
 plain version bit for bit.
 """
 from __future__ import annotations
@@ -289,11 +290,12 @@ def test_xla_backward_takes_the_plain_arm(card):
         _close(got, want, torch.float32, f"d{name}")
 
 
-# The wide family (csrc/flash_wide.cu): head dims over 128, each block an
-# output slab of 128 columns with S and dP summed over 64-column chunks;
-# 136 and 264 end in a narrow slab, 512 has four.  Against the wide plain
-# versions, which split the work the same way, in every dtype, causal or
-# not, windowed, MHA (Hkv = H) and a group of all heads (Hkv = 1).
+# The wide family (csrc/flash_wide.cu): head dims over 128; the forward,
+# f32 and D > 256 on the slab body (an output slab of 128 columns a block,
+# S and dP summed over 64-column chunks; 136 and 264 end in a narrow slab,
+# 512 has four), bf16 and fp16 at D <= 256 on the wgmma backward.  Against
+# the plain versions in every dtype, causal or not, windowed, MHA
+# (Hkv = H) and a group of all heads (Hkv = 1).
 WIDE_CASES = [
     # (B, L, H, Hkv, D, causal, window)
     (1, 200, 2, 2, 136, True, 0),
@@ -333,6 +335,90 @@ def test_wide_kernels_match_plain(card, dtype, b, l, h, hkv, d, causal, window):
     assert [kern.launches - n for kern, n in zip(flash.WIDE_KERNELS, before)] == [1, 1, 1]
     assert [kern.launches - n for kern, n in zip(flash.KERNELS, rows)] == (
         [1, 1, 1, 0] if hkv == h else [1, 1, 0, 1])
+
+
+# The wgmma backward of the wide family (bf16 and fp16 at head dims
+# 136-256): a padded panel (136 in a 192-column tile), 192 (warpgroup 1
+# owns one panel), 256; L not a multiple of 64; a window; non-causal; and
+# Hkv = 1 under H = 8 at L >= 1024, where the dk/dv kernel splits the
+# group over `parts` blocks whose partials meet in scratch.
+WGMMA_CASES = [
+    # (B, L, H, Hkv, D, causal, window)
+    (1, 200, 2, 2, 136, True, 0),
+    (1, 1000, 8, 1, 136, True, 100),
+    (2, 333, 4, 4, 192, False, 0),
+    (1, 1024, 8, 1, 192, True, 0),
+    (1, 1090, 8, 2, 192, True, 257),
+    (1, 257, 2, 2, 256, True, 65),
+    (1, 1024, 8, 1, 256, True, 0),
+    (1, 2000, 8, 1, 256, False, 0),
+]
+
+
+def _wide_backward(q, k, v, do, causal, window):
+    """(lse, delta, dq, dk, dv) of the wide kernels on these inputs, and
+    the plain backward's (dq, dk, dv) from the same lse and delta."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, window)
+    refs = flash._plain_bwd_blhd(q, k, v, do, lse, delta, scale, causal, 128, window)
+    torch.cuda.synchronize()
+    return lse, delta, (dq, dk, dv), refs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window", WGMMA_CASES)
+def test_wide_wgmma_backward_matches_plain(card, dtype, b, l, h, hkv, d, causal, window):
+    assert flash.wide_wgmma(d, dtype)
+    q, k, v, do = _inputs(card, b, l, h, hkv, d, dtype, seed=d + l)
+    print(f"parts {flash.wide_dkv_parts(b, hkv, h // hkv, l)}")
+    before = [kern.launches for kern in flash.WIDE_KERNELS]
+    _, _, grads, refs = _wide_backward(q, k, v, do, causal, window)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        _close(got, want, dtype, name)
+    assert [kern.launches - n for kern, n in zip(flash.WIDE_KERNELS, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("b,l,h,hkv,d", [(1, 1024, 8, 1, 256), (1, 1000, 8, 2, 136),
+                                         (2, 333, 4, 4, 192)])
+def test_wide_wgmma_backward_is_deterministic(card, b, l, h, hkv, d):
+    """Two calls give the same bits: no atomics on an output, and the
+    parts of a key tile summed in a fixed order whichever block is last."""
+    q, k, v, do = _inputs(card, b, l, h, hkv, d, torch.bfloat16, seed=3)
+    scale = d ** -0.5
+    _, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = torch.randn(lse.shape, device=card)
+    runs = [(flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True),
+             *flash.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b_), f"{name} differs between two calls"
+
+
+def test_wide_check_rejects_a_missing_partial(card):
+    """A dk/dv that left one part's partial (here a query head: 8 parts of
+    one at Hkv = 1, L = 1024) out of key tile 0's sum fails the blockwise
+    check."""
+    b, l, h, hkv, d, dtype = 1, 1024, 8, 1, 256, torch.bfloat16
+    parts = flash.wide_dkv_parts(b, hkv, h // hkv, l)
+    assert parts > 1
+    q, k, v, do = _inputs(card, b, l, h, hkv, d, dtype, seed=5)
+    lse, delta, (_, dk, dv), refs = _wide_backward(q, k, v, do, True, 0)
+    for name, got, want in (("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        _close(got, want, dtype, name)
+    part0 = slice(0, h // hkv // parts)  # the query heads of part 0
+    do0, delta0 = do.clone(), delta.clone()
+    do0[:, :, part0] = 0
+    delta0[:, part0] = 0
+    without = flash._plain_bwd_blhd(q, k, v, do0, lse, delta0, d ** -0.5, True, 128, 0)[1:]
+    for name, want, rest in zip(("dk", "dv"), refs[1:], without):
+        bad = want.float().clone()
+        bad[:, :64] = rest[:, :64].float()
+        worst = rel_errs(bad, want)[1]
+        print(f"planted fault, {name} of key tile 0 without part 0: worst block {worst:.3g}")
+        assert worst > REL_LIMIT[dtype], f"the check passed a missing partial ({worst:.3g})"
 
 
 @pytest.mark.parametrize("d,wide", [(8, False), (64, False), (128, False), (120, False),
