@@ -360,6 +360,19 @@ def phase_build():
         if regs:
             print(f"[build] {stem}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
                   f"spill stores up to {max(spills or [0])} bytes")
+        # the wide family's wgmma forward, kernel by kernel: it holds O across
+        # the whole head dim in registers and must not spill
+        for entry in log.split("Compiling entry function")[1:]:
+            name = re.match(r" '(\S+)'", entry).group(1)
+            if "mma10fwd_kernel" not in name:
+                continue
+            reg = int(re.search(r"Used (\d+) registers", entry).group(1))
+            spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+            dtype = "bf16" if "bfloat16" in name else "fp16"
+            dp = re.search(r"fwd_kernelI\w+?Li(\d+)E", name).group(1)
+            print(f"[build] {stem}: wgmma forward {dtype} DP={dp}: registers {reg}, "
+                  f"spill stores {spill} bytes")
+            check(spill == 0, f"the wgmma wide forward spills ({name}: {spill} bytes)")
 
 
 def _pairs(L: int, causal: bool, window: int) -> int:
@@ -663,7 +676,7 @@ def phase_wide(seed: int):
     o, lse = flash.flash_fwd(q, k, v, scale, True)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     ms = {
-        flash.FLASH_WIDE_FWD.name: time_ms(lambda: flash.flash_fwd(q, k, v, scale, True), 3, 1),
+        flash.FLASH_WIDE_FWD.name: time_ms(lambda: flash.flash_fwd(q, k, v, scale, True), 10),
         flash.FLASH_WIDE_DQ.name: time_ms(
             lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, True), 10),
         flash.FLASH_WIDE_DKV.name: time_ms(

@@ -50,9 +50,6 @@
 //
 // float inputs keep the first version's FMA loops (TF32 would miss the f32
 // limit of 1e-5 in utils/compare.py).
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include <algorithm>
 
 #include "flash_sm90.cuh"
@@ -182,7 +179,6 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace sm90 {
 
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kFwdStages = 2;  // K/V stages: one tile in flight while one computes
 
 // Shared memory of a block, bytes: the Q tile, the K and V tiles of each
@@ -196,12 +192,6 @@ struct FwdSmem {
   static constexpr int kTiles = kQ + kFwdStages * 2 * kKV;
   static constexpr int kBytes = kTiles + 8 * (kFwdStages + 1) + 1024;
   static_assert(kQ % 1024 == 0 && kKV % 1024 == 0, "tiles start on swizzle atoms");
-};
-
-// The TMA views of q, k, v: [B, L, heads, D] as 4-d tensors, boxes of 64
-// columns (one 128-byte swizzled panel) by a tile's rows.
-struct FwdMaps {
-  CUtensorMap q, k, v;
 };
 
 // grid (ceil(L / 64) * B * H).  A block owns query rows q0 .. q0 + 63 of
@@ -399,47 +389,6 @@ __global__ void __launch_bounds__(kWgThreads)
 
 // ------------------------------------------------------------ launch ----
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// cuTensorMapEncodeTiled from the driver, found at run time (no link to libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [B, L, heads, D] tensor of 16-bit values as a TMA view with boxes of 64
-// columns x `rows` rows of one (batch, head), 128-byte swizzled; columns
-// past D and rows past L read as zeros.
-template <typename T>
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int L, int heads,
-                int D, int rows) {
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                           (cuuint64_t)L * heads * D * 2};  // bytes, dims 1..3
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                int Hkv, int L, int D, float scale, int causal, int window, cudaStream_t stream) {
@@ -455,14 +404,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                                            Hkv, L, D, scale, causal, window);
   } else {
     using S = sm90::FwdSmem<DP>;
-    // the tensor maps, encoded on the host for every call (they hold the
-    // operands' addresses)
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorNotSupported;
-    sm90::FwdMaps maps;
-    if (!encode_map<T>(encode, &maps.q, q, B, L, H, D, 64) ||
-        !encode_map<T>(encode, &maps.k, k, B, L, Hkv, D, S::kKeys) ||
-        !encode_map<T>(encode, &maps.v, v, B, L, Hkv, D, S::kKeys))
+    FwdMaps maps;  // encoded for every call: they hold the operands' addresses
+    if (!encode_fwd_maps<T>(&maps, q, k, v, B, H, Hkv, L, D, S::kKeys))
       return (int)cudaErrorInvalidValue;
     auto kern = sm90::flash_fwd_kernel<T, DP>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);

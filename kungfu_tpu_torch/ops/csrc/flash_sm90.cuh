@@ -32,6 +32,9 @@
 // shuffles.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "flash_common.cuh"
 
 namespace kft {
@@ -39,6 +42,7 @@ namespace sm90 {
 
 constexpr int kWgThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x by the special-function unit (relative error below 2^-22).
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -362,4 +366,64 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
 }
 
 }  // namespace sm90
+
+// ---- the forward's TMA views of q, k, v (host side) ----
+
+// [B, L, heads, D] as 4-d tensors, boxes of 64 columns (one 128-byte
+// swizzled panel) by a tile's rows.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no link to libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [B, L, heads, D] tensor of 16-bit values as a TMA view with boxes of 64
+// columns x `rows` rows of one (batch, head), 128-byte swizzled; columns
+// past D and rows past L read as zeros.
+template <typename T>
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int L, int heads,
+                int D, int rows) {
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                           (cuuint64_t)L * heads * D * 2};  // bytes, dims 1..3
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Encode the forward's three views for a call (they hold the operands'
+// addresses): q in boxes of 64 rows, k and v in boxes of `keys` rows.
+template <typename T>
+bool encode_fwd_maps(FwdMaps* maps, const void* q, const void* k, const void* v, int B, int H,
+                     int Hkv, int L, int D, int keys) {
+  const EncodeTiled encode = encode_tiled();
+  return encode != nullptr && encode_map<T>(encode, &maps->q, q, B, L, H, D, 64) &&
+         encode_map<T>(encode, &maps->k, k, B, L, Hkv, D, keys) &&
+         encode_map<T>(encode, &maps->v, v, B, L, Hkv, D, keys);
+}
 }  // namespace kft

@@ -4,9 +4,10 @@
 // Replace the TPU kernels kungfu_tpu/ops/flash.py `_fwd_kernel`,
 // `_bwd_dq_kernel`, `_bwd_dkv_kernel` and `_bwd_dkv_gqa_kernel` (body
 // `_dkv_accum`) at the head dims their Hopper counterparts in flash_fwd.cu
-// and flash_bwd.cu do not take: those keep a whole row of the output (O,
-// dQ, or dK and dV) in one warpgroup's registers, which past 128 columns
-// does not fit (dK and dV at D = 256 would take 256 registers a thread).
+// and flash_bwd.cu do not take: those are built for tiles of 64 and 128
+// columns, and keep a whole row of the output in one warpgroup's registers,
+// which past 128 columns the backward cannot (dK and dV at D = 256 would
+// take 256 registers a thread).
 // The Pallas kernels take the whole head dim as one block.  The arithmetic
 // is theirs and the other kernels': float statistics, the scale applied to
 // the float scores, P and dS rounded to the operand type before they
@@ -14,13 +15,31 @@
 // dS = P * (dP - delta) with P in float, delta = rowsum(dO * O) - g_lse
 // from outside.  No atomics on an output: results are the same run to run.
 //
-// Two bodies; one shape goes to exactly one of them (`mma_dim`):
+// Two bodies; one shape goes to exactly one of them (`mma_dim`), and a
+// launch that fails raises in the wrapper: a dispatch, not a fallback.
 //
-// The backward in bf16 and fp16 at head dims 136-256 (namespace `mma`,
-// wgmma; pieces from flash_sm90.cuh).  Tiles are padded to DP = 192 or 256
-// columns with zeros in shared memory, never in device memory, and the
-// padded columns are not stored.
-//  - A block is two consumer warpgroups (256 threads) owning 64 output
+// The wgmma body (namespace `mma`; pieces from flash_sm90.cuh): the
+// forward and the backward in bf16 and fp16 at head dims 136-256.  Tiles
+// are padded to DP = 192 or 256 columns with zeros in shared memory, never
+// in device memory, and the padded columns are not stored.
+//  - The forward: a block is two consumer warpgroups (256 threads) owning
+//    128 query rows of one (batch, head), 64 a warpgroup, with their O
+//    across the whole head dim in registers (128 floats a thread at
+//    DP = 256), written once; no slab axis on the grid.  Q arrives once,
+//    and K and V tile by tile, by TMA (64-column boxes; the tensor map's
+//    inner extent D makes the copy engine fill columns D..DP-1 and rows past
+//    L with zeros) on one barrier a stage, two stages: the next tile in
+//    flight while one computes.  Both warpgroups read each tile from the
+//    same stage; each computes its own S (m64n64k16, 12 or 16 k-steps in
+//    order), runs its own online softmax (flash_fwd.cu's, on registers,
+//    with exp2) and packs P straight into the A operand of O += P V, V read
+//    MN-major.  No exchange: a count a stage lets the last warpgroup done
+//    with a stage issue the next copy into it, so neither waits for the
+//    other.  A tile wholly masked for one warpgroup is computed in full
+//    with P = 0 (no branch around a wgmma).  Heads run in groups of whole
+//    kv-head groups, the heaviest query blocks first.  Shared memory at
+//    DP = 256: 64 KB of Q and 2 x 64 KB of K and V, 193 KB.
+//  - The backward: a block is two consumer warpgroups owning 64 output
 //    rows: query rows for dq, key rows for dk/dv.  Warpgroup w keeps its
 //    128-column slab (64-column panels 2w, 2w + 1) of the output
 //    accumulators in registers for the whole block and stores it once:
@@ -36,29 +55,32 @@
 //    shared tile read MN-major.  At DP = 192 warpgroup 1 has one panel and
 //    repeats it into an accumulator that is never stored (no branch
 //    around a wgmma).
-//  - Shared memory at DP = 256: the resident tiles (Q and dO for dq, K and
-//    V for dk/dv) 64 KB, a ring of two 64 KB stages of the streamed side
-//    (K and V; Q, dO, lse and delta), filled by cp.async one tile ahead,
-//    and the 24 KB exchange: 217-218 KB of the 227 KB a block may take.
+//  - Shared memory of the backward at DP = 256: the resident tiles (Q and
+//    dO for dq, K and V for dk/dv) 64 KB, a ring of two 64 KB stages of the
+//    streamed side (K and V; Q, dO, lse and delta), filled by cp.async one
+//    tile ahead, and the 24 KB exchange: 217-218 KB of the 227 KB a block
+//    may take.
 //  - Balance for a small group count: the query-head group of each key
 //    tile is split over `parts` blocks (chosen by ops/flash.py
 //    `wide_dkv_parts`).  Each part stores its f32 partial dK and dV to
 //    scratch the wrapper allocates; the last block of a key tile to finish
 //    (a per-tile counter the wrapper zeroes) sums the parts in their fixed
 //    order and stores dK and dV, so the sum is the same run to run.
-//  - The heaviest blocks start first: high query blocks for dq, low key
-//    blocks for dk/dv.
+//  - The heaviest blocks start first: high query blocks for the forward
+//    and dq, low key blocks for dk/dv.
 //
-// The slab body, the first design (namespace `wide`): the forward at every head dim over
-// 128, and the backward in f32 and at head dims over 256 (at D > 256 even
-// the resident 64-row tiles with one stage of the streamed side pass the
-// 227 KB of shared memory).  128 threads, 64-row blocks, an output slab of
+// The slab body, the first design (namespace `wide`): f32 and head dims
+// over 256, forward and backward, by choice (f32 runs FMA loops, TF32
+// would miss the f32 limit of 1e-5 in utils/compare.py; at D > 256 the
+// backward's resident 64-row tiles with one stage of the streamed side pass
+// the 227 KB of shared memory, and the forward's O no longer fits a
+// warpgroup's registers).  128 threads, 64-row blocks, an output slab of
 // 128 columns a block on a grid axis of ceil(D / 128) slabs, S and dP
 // recomputed a slab and summed over 64-column chunks through shared
 // memory; WMMA 16x16x16 in bf16 and fp16 with float accumulators in
-// shared memory, float FMA loops in f32 (TF32 would miss the f32 limit of
-// 1e-5 in utils/compare.py).  Rows past L and columns past D read as zeros
-// and are not stored.  Causal and windowed masks skip whole tiles.
+// shared memory, float FMA loops in f32.  Rows past L and columns past D
+// read as zeros and are not stored.  Causal and windowed masks skip whole
+// tiles.
 //
 // What bounds it on the card: at the Gemma-2B attention shape (B = 1,
 // H = 8, Hkv = 1, L = 8192, D = 256, causal) the forward does ~275 GFLOP,
@@ -66,6 +88,8 @@
 // cores bound all three (0.28, 0.42, 0.56 ms at 989 TFLOP/s).  PERF.md has
 // both bodies' times.
 #include <mma.h>
+
+#include <algorithm>
 
 #include "flash_sm90.cuh"
 
@@ -116,7 +140,8 @@ __device__ __forceinline__ void tile_mma(float* c, int ldc, const T* a, int lda,
 }
 
 // ----------------------------------------------------------- forward ----
-// Grid (ceil(L / 64), B * H, slabs).  Warp w owns rows 16w..16w+15.
+// The slab body's (f32, D > 256).  Grid (ceil(L / 64), B * H, slabs).
+// Warp w owns rows 16w..16w+15.
 
 template <typename T>
 constexpr size_t fwd_smem_bytes() {
@@ -530,6 +555,223 @@ __device__ __forceinline__ void fence_slab(float (&acc)[2][kSlots]) {
   reg_fence(acc[1]);
 }
 
+// ------------------------------------------------------------ forward ----
+// Grid (B * H * ceil(L / kFwdRows)).  A block owns query rows q0 ..
+// q0 + kFwdRows - 1 of one (batch, head); warpgroup w owns its 64 rows
+// q0 + 64w .. q0 + 64w + 63 and keeps their O across the whole padded head
+// dim in registers (acc[DP / 64][32]: 128 floats a thread at DP = 256),
+// written once.  Both warpgroups walk the block's key tiles [lo, hi) in
+// order, reading each K/V tile from the same stage; each computes its own
+// S and runs its own softmax, with no exchange.  A tile wholly masked for
+// one warpgroup (the causal diagonal's last tile for warpgroup 0, a
+// window's first for warpgroup 1) is computed in full with P = 0 there:
+// the running max starts finite (kNegInf), so its correction is 1.
+// Blocks run in groups of `group` heads (whole kv-head groups), each
+// group's query blocks the latest (heaviest) first.
+constexpr int kFwdGroups = 2;                   // consumer warpgroups a block
+constexpr int kFwdThreads = kFwdGroups * kWgThreads;
+constexpr int kFwdRows = kFwdGroups * kRows;    // query rows of a block
+
+// Shared memory, bytes: a 64-row Q tile a warpgroup, then the K and V
+// tiles of each stage, a barrier a stage and one for Q, and a count a stage
+// of the warpgroups done with it (+1024 to align the tiles to the swizzle
+// atom).
+template <int DP>
+struct FwdSmem {
+  static constexpr int kTileB = 64 * DP * 2;
+  static constexpr int kStage = kFwdGroups * kTileB;  // stage s: K at +2s kTileB, V after
+  static constexpr int kBarOff = kStage + kStages * 2 * kTileB;
+  static constexpr int kFreeOff = kBarOff + 8 * (kStages + 1);
+  static constexpr int kBytes = kFreeOff + 4 * kStages + 1024;
+  static_assert(kTileB % 1024 == 0, "tiles start on swizzle atoms");
+  static_assert(kBytes <= 232448, "one block's shared memory");
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_kernel(float* __restrict__ lse, T* __restrict__ o, int H, int Hkv, int L, int D,
+               float scale, int causal, int window, int group,
+               const __grid_constant__ FwdMaps maps) {
+  using S = FwdSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sKV = sQ + S::kStage;
+  const uint32_t sBar = sQ + S::kBarOff;  // stage s: sBar + 8s; Q: sBar + 8 kStages
+  int* freed = reinterpret_cast<int*>(smem + S::kFreeOff);
+
+  const int tid = threadIdx.x;
+  const int wg = warpgroup();
+  const int wt = tid % kWgThreads;
+  const int nq = (L + kFwdRows - 1) / kFwdRows;
+  const int g0 = blockIdx.x / (group * nq) * group;  // the group's first (batch, head)
+  const int heads = min(group, (int)gridDim.x / nq - g0);
+  const int r = blockIdx.x - g0 * nq;
+  const int q0 = (nq - 1 - r / heads) * kFwdRows;
+  const int bh = g0 + r % heads;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(sBar + 8 * i, 1);
+    for (int i = 0; i < kStages; ++i) freed[i] = 0;
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // key tiles [lo, hi): causal stops after the block's last row, the
+  // window starts at the first key its first row still sees
+  const int nk = (L + kTile - 1) / kTile;
+  const int hi = causal ? min(nk, (q0 + kFwdRows + kTile - 1) / kTile) : nk;
+  const int lo = (causal && window > 0) ? max(0, (q0 - window + 1) / kTile) : 0;
+
+  // tile j lives in stage (j - lo) % kStages; its barrier completes phase
+  // (j - lo) / kStages when both copies are in
+  auto stage = [&](int j) { return sKV + ((j - lo) % kStages) * 2 * S::kTileB; };
+  auto bar = [&](int j) { return sBar + 8 * ((j - lo) % kStages); };
+  auto load_kv = [&](int j) {  // one thread
+    if (j >= hi) return;
+    mbar_expect_tx(bar(j), 2 * S::kTileB);
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p) {
+      tma_load(stage(j) + p * kTile * 128, &maps.k, bar(j), 64 * p, hk, j * kTile, b);
+      tma_load(stage(j) + S::kTileB + p * kTile * 128, &maps.v, bar(j), 64 * p, hk, j * kTile,
+               b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(sBar + 8 * kStages, kFwdGroups * S::kTileB);
+#pragma unroll
+    for (int w = 0; w < kFwdGroups; ++w)
+#pragma unroll
+      for (int p = 0; p < DP / 64; ++p)
+        tma_load(sQ + w * S::kTileB + p * kRows * 128, &maps.q, sBar + 8 * kStages, 64 * p, h,
+                 q0 + kRows * w, b);
+    load_kv(lo);
+  }
+  mbar_wait(sBar + 8 * kStages, 0);  // Q is in
+
+  const uint32_t sQw = sQ + wg * S::kTileB;  // this warpgroup's rows
+  const int q0w = q0 + kRows * wg;
+  const int row_lo = q0w + (wt >> 5) * 16 + ((wt & 31) >> 2);  // and row_lo + 8
+  const int t = wt & 3;
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[DP / 64][kSlots];
+#pragma unroll
+  for (int n = 0; n < DP / 64; ++n)
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running row max of scale * log2(e) * S
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sum
+  uint32_t a[kTile / 16][4];
+  float s[kSlots];
+
+  // P = exp2(x - m) of tile j on s in registers, x = scale * log2(e) * S,
+  // -inf where masked; the row max moves, l is rescaled and takes P's row
+  // sums, and corr is what acc must be rescaled by.  For scale > 0 the max
+  // is taken over S and the scale folded into the exp's multiply-add.
+  auto softmax = [&](int j, float(&corr)[2]) {
+    const int k0 = j * kTile;
+    const bool mask = (causal && k0 + kTile - 1 > q0w) ||
+                      (window > 0 && q0w + kRows - 1 - k0 >= window) || k0 + kTile > L;
+    auto dropped = [&](int i) {
+      return mask && !attend(row_lo + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t + (i & 1), L,
+                             causal, window);
+    };
+    const float kInf = __int_as_float(0x7f800000);
+    float mx[2] = {-kInf, -kInf};
+    float mul = scale_log2;  // x = mul * s
+    if (scale_log2 > 0.f) {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        if (dropped(i)) s[i] = -kInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        s[i] = dropped(i) ? -kInf : s[i] * scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      mul = 1.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_new = fmaxf(m[e], mx[e] * mul);  // finite: m starts at kNegInf
+      corr[e] = fast_exp2(m[e] - m_new);
+      m[e] = m_new;
+      l[e] *= corr[e];
+    }
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int e = (i >> 1) & 1;
+      s[i] = fast_exp2(fmaf(s[i], mul, -m[e]));
+      l[e] += s[i];
+    }
+  };
+  auto rescale = [&](const float(&c)[2]) {
+#pragma unroll
+    for (int n = 0; n < DP / 64; ++n)
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) acc[n][i] *= c[(i >> 1) & 1];
+  };
+
+  for (int j = lo; j < hi; ++j) {
+    mbar_wait(bar(j), ((j - lo) / kStages) & 1);  // tile j is in
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks)  // S = Q K^T, [64 x 64], k-steps in order
+      mma_ss<T>(s, desc_k<kRows>(sQw, 0, ks), desc_k<kTile>(stage(j), 0, ks), ks > 0);
+    wg_commit();
+    // wait for S, and for the previous tile's PV product, which ran
+    // meanwhile: this warpgroup's reads of tile j - 1 are done.  The last
+    // warpgroup to get here loads tile j + 1 into that stage.
+    wg_wait<0>();
+    fence_acc<DP>(acc);
+    fence_frag(a);
+    if (wt == 0 && atomicAdd(freed + (j + 1 - lo) % kStages, 1) % kFwdGroups == kFwdGroups - 1)
+      load_kv(j + 1);
+    reg_fence(s);
+    float corr[2];
+    softmax(j, corr);
+    rescale(corr);
+    to_frag<T>(a, s);
+    // O += P V: V read transposed from the same tile
+    const uint32_t sV = stage(j) + S::kTileB;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < DP / 64; ++n) mma_rs<T>(acc[n], a[kk], desc_mn<kTile>(sV, n, kk), 1);
+    wg_commit();  // waited for with the next tile's S
+  }
+  wg_wait<0>();
+  fence_acc<DP>(acc);
+
+  // the row sums over the quad, then O / l and lse = (m + log2 l) ln 2;
+  // rows past L (l = 0 where no key is seen) are not stored
+  float inv[2], lse_row[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    const float l_safe = l[e] == 0.f ? 1.f : l[e];
+    inv[e] = 1.f / l_safe;
+    lse_row[e] = m[e] * kLn2 + logf(l_safe);
+  }
+  rescale(inv);
+  store_acc<T, DP>(o + ((int64_t)b * L * H + h) * D, (int64_t)H * D, row_lo, L, D, acc, 1.f);
+  if (t == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (row_lo + 8 * e < L) lse[(int64_t)bh * L + row_lo + 8 * e] = lse_row[e];
+  }
+}
+
 // dq: grid (B * H, ceil(L / 64)).  A block owns query rows q0 .. q0 + 63
 // of one (batch, head) and walks the key tiles that can see them.
 template <typename T, int DP>
@@ -908,9 +1150,38 @@ inline dim3 grid(int L, int heads, int D) {
   return dim3((L + kRows - 1) / kRows, heads, (D + kSlab - 1) / kSlab);
 }
 
+template <typename T, int DP>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int Hkv, int L, int D, float scale, int causal, int window,
+                   cudaStream_t s) {
+  using S = mma::FwdSmem<DP>;
+  FwdMaps maps;  // encoded for every call: they hold the operands' addresses
+  if (!encode_fwd_maps<T>(&maps, q, k, v, B, H, Hkv, L, D, mma::kTile))
+    return (int)cudaErrorInvalidValue;
+  auto kern = mma::fwd_kernel<T, DP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  // heads a group: whole kv-head groups whose K and V take at most 8 MB of
+  // the 50 MB L2 (at least one)
+  const int64_t kv_head = (int64_t)L * DP * 2 * 2;
+  const int64_t kv_heads = std::max<int64_t>(1, (8 << 20) / kv_head);
+  const int group = (int)std::min<int64_t>((int64_t)B * H, kv_heads * (H / Hkv));
+  const int nq = (L + mma::kFwdRows - 1) / mma::kFwdRows;
+  kern<<<nq * B * H, mma::kFwdThreads, S::kBytes, s>>>(lse, static_cast<T*>(o), H, Hkv, L, D,
+                                                       scale, causal, window, group, maps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                int Hkv, int L, int D, float scale, int causal, int window, cudaStream_t s) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (mma_dim(D) == 192)
+      return launch_fwd_mma<T, 192>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, s);
+    if (mma_dim(D) == 256)
+      return launch_fwd_mma<T, 256>(q, k, v, o, lse, B, H, Hkv, L, D, scale, causal, window, s);
+  }
   const size_t smem = fwd_smem_bytes<T>();
   auto kern = fwd_kernel<T>;
   cudaError_t err =

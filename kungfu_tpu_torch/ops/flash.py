@@ -39,18 +39,23 @@ exact zeros to every q.k sum and to rowsum(dO * O), so this is exact; the
 copy is what an odd head costs.  In bf16 and fp16 the four run on wgmma
 (the forward with TMA loads); f32 runs on float FMA loops.
 
-The wide family has two bodies (csrc/flash_wide.cu).  The backward in
-bf16 and fp16 at head dims up to 256 (`wide_wgmma`) runs on wgmma: a
-block of two warpgroups owns 64 output rows, each warpgroup a 128-column
+The wide family has two bodies (csrc/flash_wide.cu); one shape goes to
+exactly one.  In bf16 and fp16 at head dims up to 256 (`wide_wgmma`) the
+forward and the backward run on wgmma.  The forward's block is two
+warpgroups owning `WIDE_FWD_ROWS` query rows, each warpgroup 64 of them
+with their O across the whole head dim in registers; K and V arrive by
+TMA and both warpgroups read each tile, each with its own S and softmax.
+The backward's block owns 64 output rows, each warpgroup a 128-column
 slab of them in registers; S and dP are computed once a tile over the
 whole head dim, one by each warpgroup, and shared through shared memory.
 The dk/dv kernel splits each kv head's query-head group over `parts`
 blocks where the kv heads alone give the card too few blocks
 (`wide_dkv_parts`); the parts' f32 partials meet in scratch this module
 allocates (`wide_dkv_scratch`) and the last block of a key tile sums them
-in a fixed order.  The forward, f32, and head dims over 256 run on the
-first, slab body: an output slab of `WIDE_SLAB` columns a block, S and dP
-summed over 64-column chunks (WMMA through shared memory; FMA in f32).
+in a fixed order.  f32 and head dims over 256 run on the first, slab
+body, forward and backward: an output slab of `WIDE_SLAB` columns a
+block, S and dP summed over 64-column chunks (WMMA through shared memory;
+FMA in f32).
 
 The public functions keep the JAX signatures and the [B, L, H, D] layout;
 `interpret` has no counterpart here.
@@ -68,8 +73,9 @@ _PLAIN_BLOCK_K = 128  # key block of the wrappers' plain backward on the CPU
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = tuple(range(8, 129, 8))  # what the four kernels take in place
 WIDE_SLAB = 128  # output columns of a wide block (and the widest head of the four)
-WIDE_MMA_MAX = 256  # the widest head the wide family's wgmma backward takes
+WIDE_MMA_MAX = 256  # the widest head the wide family's wgmma bodies take
 WIDE_ROWS = 64  # rows of a wide block's output tile (and of a streamed tile)
+WIDE_FWD_ROWS = 128  # query rows of a wgmma forward block: WIDE_ROWS a warpgroup
 WIDE_THREADS = 256  # threads of a wgmma block: two warpgroups
 WIDE_PARTIAL_SLOTS = 128  # f32 values of a thread's dK and dV slabs
 H100_SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -183,8 +189,9 @@ def wide_head(d: int) -> bool:
 
 def wide_wgmma(d: int, dtype: torch.dtype) -> bool:
     """Whether a wide head of kernel head dim d in `dtype` takes the wgmma
-    backward (bf16 and fp16 up to WIDE_MMA_MAX columns) rather than the
-    slab body (f32, and heads over WIDE_MMA_MAX)."""
+    bodies, forward and backward (bf16 and fp16 up to WIDE_MMA_MAX
+    columns), rather than the slab body (f32, and heads over
+    WIDE_MMA_MAX); csrc/flash_wide.cu `mma_dim` makes the same choice."""
     return (dtype in (torch.bfloat16, torch.float16)
             and WIDE_SLAB < kernel_head_dim(d) <= WIDE_MMA_MAX)
 

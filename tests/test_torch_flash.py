@@ -176,7 +176,9 @@ def test_plain_forward_matches_pallas_fwd_kernel(kflash, block_k, l, h, hkv, d, 
 # summed over 64-column chunks), at every D, and the wgmma backward's (S
 # and dP once over the whole head dim, 16 columns at a time; P and dS
 # shared by the 128-column slabs; dk/dv over the group in `parts`
-# partials), at D <= 256.
+# partials), at D <= 256; the wgmma forward's (128-row blocks of two
+# 64-row halves, each its own online softmax over the block's key tiles)
+# at D = 192 and 256 below.
 WIDE_CHUNK = 64  # head-dim columns a wide block sums S and dP over at a time
 MMA_K = 16  # head-dim columns of one wgmma k-step
 WIDE_CASES = [
@@ -376,6 +378,153 @@ def test_wide_plain_wrappers_split_as_the_kernels(d):
                                            msg=f"wgmma split, parts {parts}, {name}")
 
 
+def _mma_split_fwd(q, k, v, scale, causal, window):
+    """The wgmma forward's work split as its blocks split it, [B*H, L, D]:
+    blocks of WIDE_FWD_ROWS query rows, each two WIDE_ROWS-row halves (a
+    warpgroup each) walking the block's key tiles [lo, hi) in order; S over
+    the whole head dim MMA_K columns at a time (`_kstep_scores`); an online
+    softmax per half, the running max started at NEG_INF and masked scores
+    at -inf (a tile wholly masked for a half adds nothing and leaves the max
+    finite); P rounded to the operand type before PV; O and l in f32.  (o,
+    lse) as `_fwd_reference` returns them."""
+    n, seq_len, d = q.shape
+    rows, block = tflash.WIDE_ROWS, tflash.WIDE_FWD_ROWS
+    nk = -(-seq_len // rows)
+    pos = torch.arange(seq_len)
+    o = torch.zeros(n, seq_len, d)
+    lse = torch.zeros(n, seq_len)
+    for q0 in range(0, seq_len, block):
+        hi = min(nk, -(-(q0 + block) // rows)) if causal else nk
+        lo = max(0, (q0 - window + 1) // rows) if causal and window else 0
+        for r0 in range(q0, min(q0 + block, seq_len), rows):  # a half past L stores nothing
+            qr = slice(r0, min(r0 + rows, seq_len))
+            m = torch.full((n, qr.stop - r0), tflash.NEG_INF)
+            l = torch.zeros(n, qr.stop - r0)
+            acc = torch.zeros(n, qr.stop - r0, d)
+            for j in range(lo, hi):
+                kr = slice(j * rows, min((j + 1) * rows, seq_len))
+                s = _kstep_scores(q[:, qr], k[:, kr]) * scale
+                s = torch.where(tflash._valid(pos[qr], pos[kr], seq_len, causal, window)[None],
+                                s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bqk,bkd->bqd", p.to(q.dtype).float(), v[:, kr].float())
+                m = m_new
+            l_safe = torch.where(l == 0, 1.0, l)
+            o[:, qr] = acc / l_safe[..., None]
+            lse[:, qr] = m + torch.log(l_safe)
+    return o.to(q.dtype), lse
+
+
+# (L, H, Hkv, D, causal, window): MHA and a group of all heads; a ragged
+# last block; L = 130, whose last block's second half lies wholly past L;
+# and windows of 24 and 65, under which block q0 = 128's second half meets
+# a first key tile wholly masked for its rows
+MMA_FWD_CASES = [
+    (200, 2, 2, 192, True, 0),
+    (200, 4, 1, 192, False, 0),
+    (130, 2, 2, 256, True, 0),
+    (256, 2, 2, 256, True, 24),
+    (300, 4, 1, 256, True, 65),
+    (333, 4, 1, 192, True, 24),
+]
+
+
+@pytest.mark.parametrize("l,h,hkv,d,causal,window", MMA_FWD_CASES)
+def test_wide_wgmma_forward_split_matches_pallas(kflash, l, h, hkv, d, causal, window):
+    """The wgmma forward's split (`_mma_split_fwd`) against the JAX
+    `_fwd_kernel` under the Pallas interpreter, which takes the whole head
+    dim as one block; f32, 2e-5 as above.  Where a half's first key tile
+    is wholly masked, o and lse stay finite."""
+    assert tflash.wide_wgmma(d, torch.bfloat16) and not tflash.wide_wgmma(d, torch.float32)
+    q, k, v, _, _ = _inputs(l, h, hkv, d=d, seed=l + d + window)
+    scale = d ** -0.5
+
+    def bhld(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])
+
+    o_ref, lse_ref = kflash._flash_fwd(bhld(q), bhld(k), bhld(v), scale, causal, 64, 64,
+                                       True, h=h, hkv=hkv, window=window)
+    qb = tflash._to_bhld(torch.from_numpy(q))
+    kb, vb = (tflash._expand_kv(tflash._to_bhld(torch.from_numpy(x)), h, hkv) for x in (k, v))
+    o, lse = _mma_split_fwd(qb, kb, vb, scale, causal, window)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
+    if window in (24, 65):  # block q0 = 128: its second half sees no key of tile lo
+        rows, q0 = tflash.WIDE_ROWS, tflash.WIDE_FWD_ROWS
+        lo = (q0 - window + 1) // rows
+        pos = torch.arange(l)
+        seen = tflash._valid(pos[q0 + rows:q0 + 2 * rows], pos[lo * rows:(lo + 1) * rows], l,
+                             causal, window)
+        assert not seen.any()
+
+
+def _fwd_walk(b, h, hkv, l, dp, causal, window):
+    """[(batch, head, q0, key tiles)] of the wgmma forward's blocks in
+    launch order, and {(batch, head, query tile, key tile): count} of the
+    tiles its warpgroups compute: the loops of csrc/flash_wide.cu
+    `mma::fwd_kernel` over its grid (B * H * ceil(L / WIDE_FWD_ROWS)),
+    with the launch's head groups (`launch_fwd_mma`: whole kv-head groups
+    whose K and V take at most 8 MB)."""
+    rows, block = tflash.WIDE_ROWS, tflash.WIDE_FWD_ROWS
+    nq, nk = -(-l // block), -(-l // rows)
+    kv_heads = max(1, (8 << 20) // (l * dp * 2 * 2))
+    group = min(b * h, kv_heads * (h // hkv))
+    blocks, seen = [], {}
+    for x in range(nq * b * h):
+        g0 = x // (group * nq) * group
+        heads = min(group, b * h - g0)
+        r = x - g0 * nq
+        q0 = (nq - 1 - r // heads) * block
+        bh = g0 + r % heads
+        hi = min(nk, (q0 + block + rows - 1) // rows) if causal else nk
+        lo = max(0, (q0 - window + 1) // rows) if causal and window else 0
+        blocks.append((bh // h, bh % h, q0, hi - lo, g0))
+        for w in range(block // rows):  # every warpgroup walks every tile
+            for j in range(lo, hi):
+                key = (bh // h, bh % h, q0 // rows + w, j)
+                seen[key] = seen.get(key, 0) + 1
+    return blocks, seen
+
+
+@pytest.mark.parametrize("b,h,hkv,l,dp,causal,window", [
+    (1, 8, 1, 8192, 256, True, 0),  # Gemma 2B's attention: one group of 8 heads, 512 blocks
+    (2, 8, 2, 8192, 256, True, 0),  # a kv head's K and V fill the 8 MB: groups of 4 heads
+    (1, 8, 1, 1000, 192, True, 100),  # ragged, windowed
+    (2, 4, 4, 333, 192, False, 0),
+    (1, 4, 4, 130, 256, True, 0),  # the last block's second half wholly past L
+])
+def test_wide_wgmma_forward_walk_covers_each_tile_once(b, h, hkv, l, dp, causal, window):
+    """Every block of the wgmma forward's grid is a distinct (batch, head,
+    128-row query block), all of them reached; within a head group the
+    latest (heaviest) query blocks come first; every (batch, head, query
+    tile, key tile) the mask keeps is computed by exactly one warpgroup of
+    one block, and the only other tiles computed are wholly masked ones
+    the same block's other warpgroup needs (computed in full with P = 0)."""
+    rows, block = tflash.WIDE_ROWS, tflash.WIDE_FWD_ROWS
+    nq, nk = -(-l // block), -(-l // rows)
+    blocks, seen = _fwd_walk(b, h, hkv, l, dp, causal, window)
+    assert sorted((bb, hh, q0) for bb, hh, q0, _, _ in blocks) == [
+        (bb, hh, i * block) for bb in range(b) for hh in range(h) for i in range(nq)]
+    for g0 in {g for *_, g in blocks}:
+        mine = [(q0, tiles) for _, _, q0, tiles, g in blocks if g == g0]
+        assert all(x[0] >= y[0] for x, y in zip(mine, mine[1:]))  # latest first
+        if causal and not window:
+            assert all(x[1] >= y[1] for x, y in zip(mine, mine[1:]))  # heaviest first
+    pos = torch.arange(nq * block)
+    needed = tflash._valid(pos, pos, l, causal, window).reshape(
+        2 * nq, rows, 2 * nq, rows).any(3).any(1)[:, :nk]  # [query tile, key tile]
+    want = {(bb, hh, qt, kt) for bb in range(b) for hh in range(h)
+            for qt, kt in needed.nonzero().tolist()}
+    assert want <= set(seen) and max(seen.values()) == 1
+    for _, _, qt, kt in set(seen) - want:
+        assert not needed[qt, kt] and needed[qt ^ 1, kt]
+
+
 def _dkv_walk(b, h, hkv, l, causal, window, parts):
     """{(batch, query head, query tile, key tile): count} of the tiles the
     wgmma dk/dv blocks compute, and {key tile counter: blocks}: the loops
@@ -446,9 +595,21 @@ def test_wide_dkv_parts_cover_each_tile_once(b, h, hkv, l, causal, window, parts
     (512, torch.float16, False), (128, torch.bfloat16, False),
 ])
 def test_wide_backward_body_by_shape(d, dtype, want):
-    """bf16 and fp16 wide heads up to 256 take the wgmma backward; f32 and
-    heads over 256 keep the slab body; D <= 128 is not wide."""
+    """bf16 and fp16 wide heads up to 256 take the wgmma bodies, backward
+    and forward; f32 and heads over 256 keep the slab body; D <= 128 is
+    not wide.  That is where the wgmma forward's shared memory fits a
+    block's 227 KB: a 64-row Q tile a warpgroup and two stages of 64-row
+    K and V tiles, padded to 192 or 256 columns (193 KB at 256 in 16
+    bits; an f32 tile, or a 16-bit one padded to 320 columns, would not
+    fit)."""
     assert tflash.wide_wgmma(d, dtype) is want
+    if not tflash.wide_head(d):
+        return
+    dp = 192 if tflash.kernel_head_dim(d) <= 192 else -(-tflash.kernel_head_dim(d) // 64) * 64
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    barriers = 8 * 3 + 4 * 2 + 1024  # three barriers, two counts, the swizzle atom's alignment
+    smem = (tflash.WIDE_FWD_ROWS + 2 * 2 * tflash.WIDE_ROWS) * dp * itemsize + barriers
+    assert (smem <= 232448) is want
 
 
 @pytest.mark.parametrize("d", list(range(16, 129, 16)))

@@ -13,11 +13,12 @@ Each output is judged by its normwise relative error over 64-row blocks,
 worst block against kungfu_tpu_torch.utils.compare.REL_LIMIT (f32 1e-5,
 fp16 2e-3, bf16 1e-2, set and explained there), and lse by LSE_ATOL.
 The wide family (head dims over 128) is held to the same plain versions;
-its wgmma backward (bf16, fp16, D <= 256) also to itself, bit for bit,
-across two calls.  The readings are printed (`-s` shows them).  Three
-tests plant faults, a key or query block left out at L=2048 (MHA, and GQA
-for B4), and a wide dk/dv partial left out of a key tile's sum, and show
-the check rejects them.  The error-feedback residual kernel is held to its
+its wgmma forward and backward (bf16, fp16, D <= 256) also to themselves,
+bit for bit, across two calls.  The readings are printed (`-s` shows
+them).  Four tests plant faults, a key or query block left out at L=2048
+(MHA, and GQA for B4), a wide dk/dv partial left out of a key tile's sum,
+and a wide forward warpgroup's rows left unwritten, and show the check
+rejects them.  The error-feedback residual kernel is held to its
 plain version bit for bit.
 """
 from __future__ import annotations
@@ -290,10 +291,10 @@ def test_xla_backward_takes_the_plain_arm(card):
         _close(got, want, torch.float32, f"d{name}")
 
 
-# The wide family (csrc/flash_wide.cu): head dims over 128; the forward,
-# f32 and D > 256 on the slab body (an output slab of 128 columns a block,
-# S and dP summed over 64-column chunks; 136 and 264 end in a narrow slab,
-# 512 has four), bf16 and fp16 at D <= 256 on the wgmma backward.  Against
+# The wide family (csrc/flash_wide.cu): head dims over 128; f32 and
+# D > 256 on the slab body (an output slab of 128 columns a block, S and
+# dP summed over 64-column chunks; 136 in f32 and 264 end in a narrow
+# slab, 512 has four), bf16 and fp16 at D <= 256 on the wgmma forward and backward.  Against
 # the plain versions in every dtype, causal or not, windowed, MHA
 # (Hkv = H) and a group of all heads (Hkv = 1).
 WIDE_CASES = [
@@ -353,6 +354,56 @@ WGMMA_CASES = [
     (1, 1024, 8, 1, 256, True, 0),
     (1, 2000, 8, 1, 256, False, 0),
 ]
+
+
+# The wgmma forward of the wide family (bf16 and fp16 at head dims
+# 136-256: 128-row blocks, a warpgroup a 64-row half with its O across the
+# head dim in registers, K/V by TMA) over the same cases.  L = 257 and 300
+# with a window of 65 hold a block (q0 = 128) whose second warpgroup meets
+# a first key tile wholly masked for its rows; L = 200, 333, 1090 end in a
+# block whose second warpgroup's rows lie partly or wholly past L.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window", WGMMA_CASES)
+def test_wide_wgmma_forward_matches_plain(card, dtype, b, l, h, hkv, d, causal, window):
+    assert flash.wide_wgmma(d, dtype)
+    q, k, v, _ = _inputs(card, b, l, h, hkv, d, dtype, seed=d + l + 1)
+    scale = d ** -0.5
+    before = [kern.launches for kern in flash.WIDE_KERNELS + flash.KERNELS]
+    o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
+    o_ref, lse_ref = flash._plain_fwd_blhd(q, k, v, scale, causal, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _close(o, o_ref, dtype, "o")
+    _lse_close(lse, lse_ref)
+    launched = [kern.launches - n for kern, n in zip(flash.WIDE_KERNELS + flash.KERNELS, before)]
+    assert launched == [1, 0, 0, 1, 0, 0, 0]  # flash_wide_fwd, counted for B1
+
+
+@pytest.mark.parametrize("b,l,h,hkv,d,window", [(1, 1024, 8, 1, 256, 0), (1, 300, 4, 1, 256, 65),
+                                                (2, 333, 4, 4, 192, 0)])
+def test_wide_wgmma_forward_is_deterministic(card, b, l, h, hkv, d, window):
+    """Two calls give the same bits: each block owns its rows, no atomics."""
+    q, k, v, _ = _inputs(card, b, l, h, hkv, d, torch.bfloat16, seed=7)
+    runs = [flash.flash_fwd(q, k, v, d ** -0.5, True, window) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("o", "lse"), *runs):
+        assert torch.equal(a, b_), f"{name} differs between two calls"
+
+
+def test_wide_forward_check_rejects_a_missing_warpgroup(card):
+    """A forward whose second warpgroup left its 64 rows of one block
+    unwritten (zeros) fails the blockwise check."""
+    b, l, h, hkv, d, dtype = 1, 1024, 8, 1, 256, torch.bfloat16
+    q, k, v, _ = _inputs(card, b, l, h, hkv, d, dtype, seed=9)
+    o, _ = flash.flash_fwd(q, k, v, d ** -0.5, True)
+    o_ref, _ = flash._plain_fwd_blhd(q, k, v, d ** -0.5, True, 0)
+    _close(o, o_ref, dtype, "o")
+    for q0 in (0, 512, 896):  # the first, a middle and the last 128-row block
+        bad = o.clone()
+        bad[:, q0 + 64:q0 + 128] = 0
+        worst = rel_errs(bad, o_ref)[1]
+        print(f"planted fault, rows {q0 + 64}-{q0 + 127} unwritten: worst block {worst:.3g}")
+        assert worst > REL_LIMIT[dtype], f"the check passed a missing warpgroup ({worst:.3g})"
 
 
 def _wide_backward(q, k, v, do, causal, window):
