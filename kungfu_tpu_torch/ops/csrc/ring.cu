@@ -70,9 +70,10 @@
 //                   codes and scales unchanged hop by hop, and decodes every
 //                   chunk into the f32 output.
 //
-// The fused reduce-scatter runs its hops as a wavefront of stages, each
-// stage's codes and scales one bulk copy with a flag that counts stages
-// (its section below); the fused all-gather keeps a flag per (hop, block).
+// Both run their hops as a wavefront of stages, each stage's codes and
+// scales one record in a slot, with a flag that counts the stages landed
+// (their sections below): the fused reduce-scatter sends a record by one
+// bulk copy, the fused all-gather by its threads' stores.
 //
 // One warp quantizes 256 values at a time (8 a lane, 8 bytes of codes a
 // lane), the absmax of a block taken with __shfl_xor_sync across its lanes;
@@ -497,14 +498,6 @@ __device__ __forceinline__ void sub_decoded(const Codec& q, uint2 codes, float s
   }
 }
 
-__device__ __forceinline__ void decode8(const Codec& q, uint2 codes, float scale, float v[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const unsigned word = k < 4 ? codes.x : codes.y;
-    v[k] = __fmul_rn(decode(word >> (8 * (k % 4)), q.scheme), scale);
-  }
-}
-
 // f32 values at base[i ... i+8), those at or past `size` reading as zero.
 __device__ __forceinline__ void load8(const float* base, long long i, long long size,
                                       float v[8]) {
@@ -529,30 +522,6 @@ __device__ __forceinline__ void store8(float* base, long long i, long long size,
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     if (i + k < size) base[i + k] = v[k];
-}
-
-// A fused slot: `chunk` bytes of codes, then the chunk's scales.
-struct Payload {
-  char* codes;
-  float* scales;
-};
-
-__device__ __forceinline__ Payload payload(const Layout& l, int s, long long chunk) {
-  char* base = slot(l, s);
-  return Payload{base, reinterpret_cast<float*>(base + chunk)};
-}
-
-// One warp's payload step at value j of the chunk (lane's first value).
-__device__ __forceinline__ void store_payload(const Codec& q, const Payload& p, long long j,
-                                              uint2 codes, float scale) {
-  *reinterpret_cast<uint2*>(p.codes + j) = codes;
-  if ((threadIdx.x & 31) % (q.block / 8) == 0) p.scales[j / q.block] = scale;
-}
-
-__device__ __forceinline__ void load_payload(const Codec& q, const Payload& p, long long j,
-                                             uint2* codes, float* scale) {
-  *codes = __ldcg(reinterpret_cast<const uint2*>(p.codes + j));
-  *scale = __ldcg(p.scales + j / q.block);
 }
 
 // ------------------------------------------- fused reduce-scatter (B7) ----
@@ -687,27 +656,37 @@ struct FCursor {
   }
 };
 
-// Step (s, k) of a block whose first stage is t0: where its stage lies.
-struct FStep {
+// Stage t of a fused chunk (B7 and B8): its values, and its record (the
+// stage's codes, then its scales) in a slot.
+struct FStage {
   long long v0;    // first value of the stage in the chunk
   int nv;          // values of the stage (a multiple of 1024)
-  long long xoff;  // the stage's first value in x
-  int valid;       // values of the stage below x_size
   long long rec;   // byte offset of the stage's record in a slot
   int rec_bytes;   // bytes of its record
+};
+
+__device__ __forceinline__ FStage fstage(long long t, long long chunk, int block) {
+  FStage f;
+  f.v0 = t * kFStageVals;
+  f.nv = (int)min((long long)kFStageVals, chunk - f.v0);
+  f.rec = t * (kFStageVals + kFStageVals / block * 4);
+  f.rec_bytes = f.nv + f.nv / block * 4;
+  return f;
+}
+
+// Step (s, k) of a B7 block whose first stage is t0: where its stage lies.
+struct FStep : FStage {
+  long long xoff;  // the stage's first value in x
+  int valid;       // values of the stage below x_size
 };
 
 __device__ __forceinline__ FStep fstep(int s, int k, long long t0, int n, int d, long long chunk,
                                        long long x_size, int block) {
   FStep f;
-  const long long t = t0 + k;
-  f.v0 = t * kFStageVals;
-  f.nv = (int)min((long long)kFStageVals, chunk - f.v0);
+  static_cast<FStage&>(f) = fstage(t0 + k, chunk, block);
   const int ci = s < n - 1 ? (d - s - 1 + n) % n : d;
   f.xoff = (long long)ci * chunk + f.v0;
   f.valid = (int)max(0LL, min((long long)f.nv, x_size - f.xoff));
-  f.rec = t * (kFStageVals + kFStageVals / block * 4);
-  f.rec_bytes = f.nv + f.nv / block * 4;
   return f;
 }
 
@@ -895,53 +874,292 @@ __global__ void __launch_bounds__(kFThreads, 1)
   }
 }
 
-// x: this rank's reduced chunk (`chunk` f32 values); chunk c of the result
-// lands at out[c * chunk + j] for flat indices below out_size.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------- fused all-gather (B8) ----
+// A stage wavefront like B7's, each received record decoded and forwarded
+// by the threads that read it.  The chunk is cut into stages of
+// kFStageVals values, block b owns a range of whole stages (`block_range`)
+// and its peer's block b the same range, and stage t of a hop travels as
+// one record at t * (kFStageVals + its scales' bytes) in the hop's slot:
+// the stage's codes, then its scales (`fstage`, as B7 lays them out).  The
+// flag of (hop s, block b) counts the stages of the block that landed:
+// (call << kStageBits) + count.  A block runs its steps in order, hop 0
+// over its stages, then hop 1, ..., on 16 worker warps and a signal warp:
+//
+//   hop 0      this rank's chunk x comes by the workers' own 16-byte
+//              cp.async, two stages ahead, into a ring of kAgXBufs shared
+//              buffers, each thread copying just the values it reads (no
+//              barrier); a warp quantizes a 256-value segment at a time
+//              (quantize8: lane l holds values 8l..8l+7), stores the codes
+//              and scales into the right neighbour's slot 0, and the
+//              decoded values into its own chunk of the output as two
+//              stores of 512 contiguous bytes (codes and scales exchanged
+//              by shuffles)
+//   hop s > 0  once the left neighbour's count covers a group of kAgCount
+//              stages (lane 0 of each warp polls it; no barrier), each
+//              thread loads its 16 values of every stage of the group:
+//              warp w takes values [512w, 512w + 512) of a stage, lane l
+//              the 4 at 512w + 128m + 4l (m < 4), one 4-byte load of codes
+//              and one of their scale each, so every access of the warp
+//              covers contiguous bytes and 32 loads are in flight a
+//              thread; it stores the same registers on into the right
+//              neighbour's slot s (s < n - 1) and decodes them into output
+//              chunk (d - s) mod n, a 16-byte store each
+//   signal     warp 16: after every group of kAgCount stages of a hop that
+//              sends, a barrier with the workers (named barrier 1), then a
+//              system fence and a release of the count into the right
+//              neighbour's flag of the hop; the workers go on meanwhile
+//
+// So the right rank's hop s + 1 on a group starts as soon as that group of
+// hop s has landed: the hops become a wavefront, not n - 1 walls.  Records
+// are read with __ldcg (through L2, not L1) within microseconds of their
+// landing, and the f32 output is written with streaming stores, so it does
+// not push the slots out of the 50 MB L2 before they are read.  Slots stay
+// one per hop (no back-pressure), which keeps ranks that time-slice one
+// card progressing.
+//
+// What bounds it: bytes.  Between cards each rank sends (n - 1) chunks of
+// codes and scales over NVLink (450 GB/s each way); its card writes the n
+// f32 chunks of the output and reads its own chunk once, and the records
+// land in its memory and are read back.  Hence the counted flags (a flag a
+// (hop, block) that only says "done" would start block b's hop only once
+// the left rank's block b finished its whole share of the hop before: n - 1
+// walls), many loads in flight a thread, and output stores that each cover
+// a warp's 512 contiguous bytes: the f32 output is four fifths of the
+// bytes, and a lane storing its 16 values in turn (16 bytes in every 64 a
+// store) made the kernel 16-18% slower on 4 x H100 80GB HBM3 (PERF.md).
+//
+// The arithmetic: the absmax of a block by shuffles, scale = absmax *
+// recip, the code rintf(__fdiv_rn(v, s)) clamped, the decoded value one
+// __fmul_rn; so the result is bit-equal to the plain version.
+//
+// Acknowledgements: every thread passes the block's wait for the right
+// neighbour's acknowledgement (every block of the earlier calls) before
+// its first store into that neighbour's slots.  A count covers only
+// retired stores: its barrier follows every worker's stores of the group,
+// and the signal warp's system fence orders them before the release.
+//
+// Failure: every flag wait is bounded.  A warp that gave up raises
+// `failed` in shared memory and skips its loads and stores from then on,
+// but meets every barrier; the signal warp raises no count once `failed`
+// is up, and the block does not acknowledge its slots.
+constexpr int kAgWorkers = 512;              // 16 warps: the codec and every store
+constexpr int kAgThreads = kAgWorkers + 32;  // and the signal warp
+constexpr int kAgXBufs = 3;                  // x stages in shared memory: two loading, one read
+constexpr int kAgCount = 4;                  // stages a count covers (32 KB of codes)
+constexpr int kAgWarps = kAgWorkers / 32;
+constexpr int kAgSmem = kAgXBufs * kFStageVals * 4;
+static_assert(kFStageVals == 16 * kAgWorkers, "hops s > 0: 16 values a thread a stage");
+static_assert(kFStageVals == 2 * kSeg * kAgWarps, "hop 0: two segments a warp a stage");
+static_assert(kAgSmem <= 232448, "shared memory of one block");
+
+// The workers and the signal warp at the end of a group (named barrier 1).
+__device__ __forceinline__ void ag_count_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kAgThreads) : "memory");
+}
+
+// Lane 0 of a warp waits until `*flag` holds `want` (`*seen`: the last
+// value it read there); the warp returns whether it arrived.  The warp's
+// barrier orders every lane's later reads of the slot after lane 0's
+// acquire.
+__device__ __forceinline__ bool warp_wait(const Call& c, const u64* flag, u64 want, u64* claim,
+                                          int hop, u64* seen) {
+  int ok = 1;
+  if ((threadIdx.x & 31) == 0 && *seen < want) {
+    u64 v = ld_acquire(flag);
+    if (v < want) {
+      ok = thread_wait(c, flag, want, claim, err_data(kFusedAg), hop);
+      if (ok) v = ld_acquire(flag);
+    }
+    *seen = v;
+  }
+  ok = __shfl_sync(0xffffffffu, ok, 0);
+  __syncwarp();
+  return ok != 0;
+}
+
+// The 4 codes of `word` (little-endian) times `scale`, each one
+// __fmul_rn (the reference's dequantization as XLA compiles it).
+__device__ __forceinline__ float4 decode4(const Codec& q, unsigned word, float scale) {
+  return make_float4(__fmul_rn(decode(word, q.scheme), scale),
+                     __fmul_rn(decode(word >> 8, q.scheme), scale),
+                     __fmul_rn(decode(word >> 16, q.scheme), scale),
+                     __fmul_rn(decode(word >> 24, q.scheme), scale));
+}
+
+// v to base[i ... i+4), values at or past `size` not written, by a
+// streaming store (evict first): an output no kernel of the call reads.
+__device__ __forceinline__ void store4cs(float* base, long long i, long long size, float4 v) {
+  if (i + 4 <= size && (reinterpret_cast<uintptr_t>(base + i) & 15) == 0) {
+    __stcs(reinterpret_cast<float4*>(base + i), v);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (i + k < size) base[i + k] = e[k];
+}
+
+// Warps 0-15: every load, the codec and every store of the block.
+__device__ void fag_work(const Call& c, const Codec& q, const float* x, float* out,
+                         long long out_size, long long chunk, int T, long long t0,
+                         const Layout& own, const Layout& right, const float* xbufs,
+                         volatile int* failed) {
+  const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const u64 base = c.seq << kStageBits;
+  const uint32_t xaddr = smem_addr(xbufs);
+  // hop 0: stage k's values that this thread reads (16-byte pieces of its
+  // warp's two segments) into x buffer k % kAgXBufs, one cp.async group
+  auto load_x = [&](int k) {
+    if (k < T) {
+      const FStage f = fstage(t0 + k, chunk, q.block);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = (warp + h * kAgWarps) * kSeg + lane * 8;
+        if (e < f.nv) {
+          const uint32_t dst = xaddr + ((k % kAgXBufs) * kFStageVals + e) * 4;
+          cp_async16(dst, x + f.v0 + e, 16);
+          cp_async16(dst + 16, x + f.v0 + e + 4, 16);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < kAgXBufs - 1; ++k) load_x(k);
+  char* const send = slot(right, 0);
+  for (int k = 0; k < T; ++k) {
+    load_x(k + kAgXBufs - 1);  // into the buffer stage k - 1 read
+    cp_async_wait<kAgXBufs - 1>();  // this thread's values of stage k landed
+    const FStage f = fstage(t0 + k, chunk, q.block);
+    const float* xs = xbufs + (k % kAgXBufs) * kFStageVals;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = (warp + h * kAgWarps) * kSeg + lane * 8;
+      if (e < f.nv) {  // a whole segment: all lanes of the warp
+        const float4 a = *reinterpret_cast<const float4*>(xs + e);
+        const float4 b = *reinterpret_cast<const float4*>(xs + e + 4);
+        float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        float scale;
+        const uint2 codes = quantize8(q, v, &scale);
+        *reinterpret_cast<uint2*>(send + f.rec + e) = codes;
+        if (lane % (q.block / 8) == 0)
+          *reinterpret_cast<float*>(send + f.rec + f.nv + e / q.block * 4) = scale;
+        // the decoded segment to the output, each store 512 contiguous bytes
+        // of the warp: lane l takes values 4l.. of half i from lane 16i + l/2
+        const long long o = (long long)d * chunk + f.v0 + e - lane * 8;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int src = 16 * i + (lane >> 1);
+          const unsigned lo = __shfl_sync(0xffffffffu, codes.x, src);
+          const unsigned hi = __shfl_sync(0xffffffffu, codes.y, src);
+          const float s = __shfl_sync(0xffffffffu, scale, src);
+          store4cs(out, o + 128 * i + 4 * lane, out_size, decode4(q, lane & 1 ? hi : lo, s));
+        }
+      }
+    }
+    if ((k + 1) % kAgCount == 0 || k + 1 == T) ag_count_sync();  // the signal warp counts them
+  }
+  // hops 1 .. n - 1: a group of stages of chunk (d - s) mod n at a time;
+  // in a stage warp w takes values [512w, 512w + 512), lane l the 4 values
+  // at 512w + 128m + 4l (m < 4), so each load and store of the warp covers
+  // contiguous bytes
+  const int e0 = warp * 512 + lane * 4;  // this thread's first value of a stage
+  bool live = true;  // no wait of this warp gave up
+  for (int s = 1; s < n; ++s) {
+    const int ci = (d - s + n) % n;
+    const char* recv = slot(own, s - 1);
+    char* const fwd = s < n - 1 ? slot(right, s) : nullptr;
+    const u64* flag = own.flags + (long long)(s - 1) * mb + blockIdx.x;
+    u64 seen = 0;
+    for (int k0 = 0; k0 < T; k0 += kAgCount) {
+      const int k1 = min(T, k0 + kAgCount);
+      if (live && !warp_wait(c, flag, base + (u64)k1, own.claim, s - 1, &seen)) {
+        live = false;
+        if (lane == 0) *failed = 1;
+      }
+      if (live) {
+        unsigned codes[kAgCount][4];
+        float scales[kAgCount][4];
+#pragma unroll
+        for (int u = 0; u < kAgCount; ++u) {
+          const FStage f = fstage(t0 + k0 + u, chunk, q.block);
+          if (k0 + u < k1 && e0 < f.nv) {  // a whole warp's 512 values
+            const float* sp = reinterpret_cast<const float*>(recv + f.rec + f.nv);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int e = e0 + 128 * m;
+              codes[u][m] = __ldcg(reinterpret_cast<const unsigned*>(recv + f.rec + e));
+              scales[u][m] = __ldcg(sp + e / q.block);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kAgCount; ++u) {
+          const FStage f = fstage(t0 + k0 + u, chunk, q.block);
+          if (k0 + u < k1 && e0 < f.nv) {
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int e = e0 + 128 * m;
+              if (fwd) {
+                *reinterpret_cast<unsigned*>(fwd + f.rec + e) = codes[u][m];
+                if (e % q.block == 0)
+                  reinterpret_cast<float*>(fwd + f.rec + f.nv)[e / q.block] = scales[u][m];
+              }
+              store4cs(out, (long long)ci * chunk + f.v0 + e, out_size,
+                       decode4(q, codes[u][m], scales[u][m]));
+            }
+          }
+        }
+      }
+      if (fwd) ag_count_sync();
+    }
+  }
+}
+
+// Warp 16: the counts of every hop that sends, in the workers' order.
+__device__ void fag_signal(const Call& c, int T, const Layout& right, volatile int* failed) {
+  const int n = c.ws.n, mb = c.ws.max_blocks;
+  const u64 base = c.seq << kStageBits;
+  for (int s = 0; s < n - 1; ++s) {
+    u64* flag = right.flags + (long long)s * mb + blockIdx.x;
+    for (int k1 = 0; k1 < T;) {
+      k1 = min(T, k1 + kAgCount);
+      ag_count_sync();  // the workers' stores of stages [.., k1) were issued
+      if ((threadIdx.x & 31) == 0 && !*failed) {
+        __threadfence_system();
+        st_release(flag, base + (u64)k1);
+      }
+    }
+  }
+}
+
+// x: this rank's reduced chunk (`chunk` f32 values, 16-byte aligned);
+// chunk c of the result lands at out[c * chunk + j] for flat indices below
+// out_size.
+__global__ void __launch_bounds__(kAgThreads, 1)
     ring_fused_ag_kernel(Call c, Codec q, const float* __restrict__ x,
                          float* __restrict__ out, long long out_size, long long chunk) {
-  const int n = c.ws.n, d = c.ws.rank, mb = c.ws.max_blocks, b = blockIdx.x;
+  extern __shared__ __align__(128) unsigned char fag_smem[];
+  __shared__ int failed;
   const Layout own = layout(c.ws, c.ws.own, kFusedAg);
   const Layout right = layout(c.ws, c.ws.right, kFusedAg);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  long long g0, g1;
-  block_range(chunk / kSeg, &g0, &g1);  // this block's 256-value segments
+  long long t0, t1;
+  block_range((chunk + kFStageVals - 1) / kFStageVals, &t0, &t1);  // this block's stages
+  const int T = (int)(t1 - t0);
+  if (threadIdx.x == 0) failed = 0;
+  // no thread stores into the right neighbour's slots before it has read
+  // what the earlier calls sent it (every block of them acknowledged)
   if (!block_wait(c, right.ack, c.ack_want, own.claim, err_ack(kFusedAg), 0)) return;
-  // hop 0: quantize this rank's chunk once, decode it into the output,
-  // send its codes and scales to the right
-  const Payload send = payload(right, 0, chunk);
-  for (long long g = g0 + warp; g < g1; g += kWarps) {
-    const long long j = g * kSeg + lane * 8;
-    float v[8];
-    load8(x, j, chunk, v);
-    float scale;
-    const uint2 codes = quantize8(q, v, &scale);
-    store_payload(q, send, j, codes, scale);
-    decode8(q, codes, scale, v);
-    store8(out, (long long)d * chunk + j, out_size, v);
+  if (threadIdx.x < kAgWorkers)
+    fag_work(c, q, x, out, out_size, chunk, T, t0, own, right,
+             reinterpret_cast<const float*>(fag_smem), &failed);
+  else
+    fag_signal(c, T, right, &failed);
+  __syncthreads();
+  if (threadIdx.x == 0 && !failed) {  // slots read: the left may refill them
+    __threadfence_system();
+    atomicAdd_system(own.ack, 1ULL);
   }
-  block_signal(right.flags + b, c.seq);
-  // hop s: the codes of chunk (d-s) mod n arrived in slot s-1; decode them,
-  // forward them unchanged
-  for (int s = 1; s < n; ++s) {
-    const int ci = ((d - s) % n + n) % n;
-    if (!block_wait(c, own.flags + (long long)(s - 1) * mb + b, c.seq, own.claim,
-                    err_data(kFusedAg), s - 1))
-      return;
-    const Payload recv = payload(own, s - 1, chunk);
-    const Payload fwd = payload(right, s < n - 1 ? s : 0, chunk);
-    for (long long g = g0 + warp; g < g1; g += kWarps) {
-      const long long j = g * kSeg + lane * 8;
-      uint2 codes;
-      float scale, v[8];
-      load_payload(q, recv, j, &codes, &scale);
-      if (s < n - 1) store_payload(q, fwd, j, codes, scale);
-      decode8(q, codes, scale, v);
-      store8(out, (long long)ci * chunk + j, out_size, v);
-    }
-    if (s < n - 1) block_signal(right.flags + (long long)s * mb + b, c.seq);
-  }
-  block_ack(own.ack);
 }
 
 // ------------------------------------------------------------- shift ----
@@ -1355,18 +1573,25 @@ extern "C" int kft_ring_frs(void* x, long long x_size, void* out, int scheme, in
   return (int)cudaGetLastError();
 }
 
-// Fused-codec all-gather: x (chunk f32 values) is this rank's reduced
-// chunk; every rank's chunk c, quantized once by its owner, is decoded into
-// out[c * chunk + j] for flat indices below out_size.
+// Fused-codec all-gather: x (chunk f32 values, 16-byte aligned) is this
+// rank's reduced chunk; every rank's chunk c, quantized once by its owner,
+// is decoded into out[c * chunk + j] for flat indices below out_size.
+// `blocks` at most the stages of the chunk (kFStageVals values each).
 extern "C" int kft_ring_fag(void* x, void* out, long long out_size, int scheme, int block,
                             float recip, KFT_RING_PARAMS) {
+  using namespace kft_ring;
   Args a = KFT_RING_ARGS;
   Codec q{scheme, block, recip};
-  if (!kft_ring::fused_ok(a, q)) return (int)cudaErrorInvalidValue;
-  kft_ring::ring_fused_ag_kernel<<<blocks, kft_ring::kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      kft_ring::make_call(a), q, static_cast<const float*>(x), static_cast<float*>(out),
-      out_size, chunk);
+  const long long stages = (chunk + kFStageVals - 1) / kFStageVals;
+  if (!fused_ok(a, q) || (reinterpret_cast<uintptr_t>(x) & 15) || out_size < 0 ||
+      seq >= (1ULL << (64 - kStageBits)) ||
+      (stages + blocks - 1) / blocks >= (1LL << kStageBits) - 1)
+    return (int)cudaErrorInvalidValue;
+  static int smem_on = -1;  // above 48 KB needs the attribute, once a device
+  const cudaError_t e = allow_smem(ring_fused_ag_kernel, kAgSmem, &smem_on);
+  if (e != cudaSuccess) return (int)e;
+  ring_fused_ag_kernel<<<blocks, kAgThreads, kAgSmem, static_cast<cudaStream_t>(stream)>>>(
+      make_call(a), q, static_cast<const float*>(x), static_cast<float*>(out), out_size, chunk);
   return (int)cudaGetLastError();
 }
 

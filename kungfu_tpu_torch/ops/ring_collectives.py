@@ -54,10 +54,11 @@ all-reduce).
 semantics: "none" is `ring_all_reduce`; "bf16" casts, runs B5/B6 on bf16
 and casts back; int8/fp8 take x in f32, pad each chunk to a multiple of
 lcm(block, 1024) (`collective.fused_chunk_elems`), run B7, the mean (times
-1/n), then B8, and cast back to x's dtype.  B7 runs its hops as a
-wavefront of stages of FRS_STAGE_VALUES values (`fused_rs_plan`: whole
-stages a block on at most FRS_GRID blocks; `frs_counts`: the stage counts
-its flags carry).  Where the JAX wrapper hands a
+1/n), then B8, and cast back to x's dtype.  B7 and B8 run their hops as a
+wavefront of stages of FRS_STAGE_VALUES values (`fused_rs_plan`,
+`fused_ag_plan`: whole stages a block on at most FRS_GRID and FAG_GRID
+blocks; `frs_counts`, `fag_counts`: the stage counts their flags carry).
+Where the JAX wrapper hands a
 stochastic or sparse config, another op or an oversized payload to
 `compression.all_reduce`, this one raises for the first three (that path
 is `synchronous_sgd(impl="pmean", compression=...)`) and runs every
@@ -97,7 +98,7 @@ TILE = C.TILE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _THREADS, _VEC_BYTES, _UNROLL = 512, 16, 4  # csrc/ring.cu kThreads, 16-byte vectors, kUnroll
 MAX_SEGMENTS = 32  # csrc/ring.cu kMaxSegs: segments in one launch of B5/B6
-_SEG, _SEGS_PER_BLOCK = 256, 64  # fused kernels: values a warp quantizes at once; B8: 16 warps x 4
+_SEG = 256  # fused kernels: values a warp quantizes at once
 _SCHEMES = {"int8": 0, "fp8": 1}
 # B7 (csrc/ring.cu, the fused reduce-scatter's section): values of a stage
 # (kFStageVals), stages a count of its flag covers and the stores left in
@@ -105,6 +106,10 @@ _SCHEMES = {"int8": 0, "fp8": 1}
 # count (kStageBits)
 FRS_STAGE_VALUES, FRS_COUNT, FRS_COUNT_LAG, STAGE_BITS = 8192, 8, 5, 20
 FRS_GRID = 132  # B7's blocks at most (and at most one an SM); chosen by a grid sweep
+# B8 (csrc/ring.cu, the fused all-gather's section): B7's stages and
+# records; stages a count of its flag covers (kAgCount)
+FAG_COUNT = 4
+FAG_GRID = 132  # B8's blocks at most (and at most one an SM)
 _chunk_elems = C._chunk_elems
 _world = C._world
 
@@ -319,11 +324,12 @@ def require_fused_kernel(cfg: CompressionConfig, op: str) -> None:
             "(compression.all_reduce)")
 
 
-class FrsPlan(NamedTuple):
-    """B7's launch for one chunk: `stages` of FRS_STAGE_VALUES values (the
-    last one shorter), `per_block` of them a block over `blocks` blocks
-    (`block_range`, none empty); a stage's record (its codes, then its
-    scales) at `record` bytes a stage into a slot of `slot` bytes."""
+class FusedPlan(NamedTuple):
+    """B7's or B8's launch for one chunk: `stages` of FRS_STAGE_VALUES
+    values (the last one shorter), `per_block` of them a block over
+    `blocks` blocks (`block_range`, none empty); a stage's record (its
+    codes, then its scales) at `record` bytes a stage into a slot of
+    `slot` bytes."""
     stages: int
     blocks: int
     per_block: int
@@ -331,15 +337,25 @@ class FrsPlan(NamedTuple):
     slot: int
 
 
-def fused_rs_plan(chunk: int, block: int, max_blocks: int) -> FrsPlan:
+def _fused_plan(chunk: int, block: int, max_blocks: int, grid: int) -> FusedPlan:
+    stages = -(-chunk // FRS_STAGE_VALUES)
+    cap = max(1, min(max_blocks, grid, stages))
+    per = -(-stages // cap)
+    return FusedPlan(stages, -(-stages // per), per,
+                     FRS_STAGE_VALUES + FRS_STAGE_VALUES // block * 4, chunk + chunk // block * 4)
+
+
+def fused_rs_plan(chunk: int, block: int, max_blocks: int) -> FusedPlan:
     """B7's plan for a chunk of `chunk` values (a multiple of 1024) and
     quantization blocks of `block` values, on at most FRS_GRID and
     `max_blocks` blocks."""
-    stages = -(-chunk // FRS_STAGE_VALUES)
-    cap = max(1, min(max_blocks, FRS_GRID, stages))
-    per = -(-stages // cap)
-    return FrsPlan(stages, -(-stages // per), per,
-                   FRS_STAGE_VALUES + FRS_STAGE_VALUES // block * 4, chunk + chunk // block * 4)
+    return _fused_plan(chunk, block, max_blocks, FRS_GRID)
+
+
+def fused_ag_plan(chunk: int, block: int, max_blocks: int) -> FusedPlan:
+    """B8's plan: B7's stages and records, on at most FAG_GRID and
+    `max_blocks` blocks."""
+    return _fused_plan(chunk, block, max_blocks, FAG_GRID)
 
 
 def frs_counts(stages: int) -> List[int]:
@@ -355,6 +371,13 @@ def frs_counts(stages: int) -> List[int]:
         elif lag >= 0 and (lag + 1) % FRS_COUNT == 0:
             counts.append(lag + 1)
     return counts
+
+
+def fag_counts(stages: int) -> List[int]:
+    """The counts a block of B8 with `stages` stages raises in its flag of
+    a hop that sends, in order (csrc/ring.cu `fag_signal`): after every
+    FAG_COUNT stages and after the last."""
+    return [min(stages, k + FAG_COUNT) for k in range(0, stages, FAG_COUNT)]
 
 
 def _fused_launch(kernel: Kernel, fn_name: str, kind: str, x: torch.Tensor,
@@ -386,11 +409,12 @@ def _fused_rs(flat: torch.Tensor, cfg: CompressionConfig, chunk: int, group) -> 
 def _fused_ag(mine: torch.Tensor, cfg: CompressionConfig, chunk: int, size: int,
               group) -> torch.Tensor:
     """B8: every rank's chunk, quantized once by its owner, as `size` f32 values."""
+    if mine.data_ptr() % 16:  # its stages come in by 16-byte cp.async
+        mine = mine.clone()
     out = torch.empty(size, dtype=torch.float32, device=mine.device)
     _fused_launch(FUSED_AG, "kft_ring_fag", "fag", mine, cfg, chunk, group,
                   (mine.data_ptr(), out.data_ptr(), size),
-                  lambda max_blocks: max(1, min(max_blocks,
-                                                -(-(chunk // _SEG) // _SEGS_PER_BLOCK))))
+                  lambda max_blocks: fused_ag_plan(chunk, cfg.block, max_blocks).blocks)
     return out
 
 

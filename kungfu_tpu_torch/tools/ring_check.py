@@ -1,7 +1,7 @@
 """The ring kernels against their stacked plain versions, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.ring_check \\
-        [--cases f32:1000003,bf16:4099,int8:1000003] [--groups f32:256+262144+1000]
+        [--cases f32:1000003,bf16:4099,int8:1000003,fp8/8:36827] [--groups f32:256+262144+1000]
         [--grid 16,32]
         [--iters 5] [--seed 0] [--faults] [--device cpu]
 
@@ -14,7 +14,8 @@ needs no communication.  For dtype f32 or bf16 (the plain kernels B5/B6):
   ring_all_gather      rank r's x is its first size // n values
   ring_all_reduce      the whole input, op "sum" and op "mean"
 
-For int8 or fp8 (the fused-codec kernels B7/B8, f32 inputs):
+For int8 or fp8 (the fused-codec kernels B7/B8, f32 inputs; `int8/32`
+names quantization blocks of 32 values, 256 by default):
 
   fused_ring_all_reduce  the whole input, op "sum" and op "mean"
 
@@ -26,16 +27,20 @@ exact sum (the bound the JAX package's own tests put on its fused ring).
 `planted_fused_faults`) in the cases of at most 16M values and shows that
 the comparison rejects each.
 
-On a card a fused case also holds B7 alone (`_fused_rs`) against its
-plain version (`plain_fused_rs`), bit for bit, at its grid and at each
-`--grid` cap.  Each kernel is then timed: the median of `--iters` calls,
+On a card a fused case also holds B7 alone (`_fused_rs`) and B8 alone
+(`_fused_ag`, on every rank's chunk as B7's plain version leaves it)
+against their plain versions (`plain_fused_rs`, `plain_fused_ag`), bit
+for bit, at their grids and at each `--grid` cap; with `--faults` B8's
+comparison must reject a stage's record left out and a scale wrong.
+Each kernel is then timed: the median of `--iters` calls,
 each between two CUDA events, on every rank at once (`ms`, the host's issue
 in it), and the median host time of a call (the wrapper's work up to the
 launch, `host_ms`) (for a fused case "rs" is B7 alone on the payload, "ag"
 B8 alone on its result); with a card per rank a fused case also times B7
 and B8 primed (`device_ms`: each call queued behind a spin kernel after a
-barrier, so the host's issue is out of it), and B7 at each `--grid` cap
-(`grid_ms`, primed with a card per rank).  Rank 0 alone,
+barrier, so the host's issue is out of it), and B7 and B8 at each
+`--grid` cap (`grid_ms`, primed with a card per rank): a time that scales
+as 1/grid says a block's chain of steps bounds the kernel, not the bytes.  Rank 0 alone,
 while the others wait, times the stacked plain version (which computes
 every rank's result in one process).  Where every rank has a card of its
 own (an NCCL group), every rank also times NCCL's reduce_scatter_tensor,
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -98,10 +104,17 @@ def parse_cases(spec: str) -> List[Tuple[str, int]]:
     cases = []
     for item in spec.split(","):
         name, size = item.split(":")
-        if name not in DTYPES and name not in SCHEMES:
+        if name not in DTYPES and name.split("/")[0] not in SCHEMES:
             raise ValueError(f"unknown dtype {name!r} in case {item!r}")
         cases.append((name, int(size)))
     return cases
+
+
+def fused_config(name: str):
+    """`int8` or `fp8`, optionally `/block`: the fused case's config."""
+    scheme, _, block = name.partition("/")
+    cfg = comp_config.resolve(scheme)
+    return dataclasses.replace(cfg, block=int(block)) if block else cfg
 
 
 def make_inputs(n: int, size: int, dtype: torch.dtype, seed: int, device) -> List[torch.Tensor]:
@@ -312,23 +325,68 @@ def plain_fused_rs(xs: Sequence[torch.Tensor], cfg, d: int) -> torch.Tensor:
     return add_dequantized(parts[d], q)
 
 
-def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, iters: int,
+def plain_fused_ag(mines: Sequence[torch.Tensor], cfg, d: int,
+                   size: Optional[int] = None) -> torch.Tensor:
+    """Rank d's result of the fused all-gather (B8) of every rank's reduced
+    chunk (`mines[c]`, f32, owned by rank c), the same on every rank: each
+    chunk quantized once and decoded, as in the all-gather of
+    `collective._plain_fused_ring_all_reduce`, its first `size` values
+    (all n chunks by default)."""
+    n, chunk = len(mines), mines[0].numel()
+    assert 0 <= d < n and all(m.numel() == chunk for m in mines)
+    size = n * chunk if size is None else size
+    out = torch.empty(size, dtype=torch.float32, device=mines[0].device)
+    for c, m in enumerate(mines):
+        lo, hi = min(size, c * chunk), min(size, (c + 1) * chunk)
+        out[lo:hi] = dequantize(quantize(m.float(), cfg))[:hi - lo]
+    return out
+
+
+def planted_ag_faults(good: torch.Tensor, chunk: int, cfg, n: int, d: int
+                      ) -> List[Tuple[str, torch.Tensor]]:
+    """B8's plain result `good` on rank d with one fault each, in the
+    chunk that reached it last ((d + 1) mod n, or the first chunk the
+    payload reaches): the values of its last stage zeroed (that stage's
+    record left out) and its first quantization block doubled (a scale
+    wrong).  A check that accepts either is too weak."""
+    size = good.numel()
+    c = next(c for c in [(d + 1) % n, *range(n)] if c * chunk < size)
+    lo, hi = c * chunk, min(size, (c + 1) * chunk)
+    first = lo + (hi - lo - 1) // RC.FRS_STAGE_VALUES * RC.FRS_STAGE_VALUES
+    left_out = good.clone()
+    left_out[first:hi] = 0
+    scaled = good.clone()
+    scaled[lo:min(hi, lo + cfg.block)] *= 2
+    return [("a stage's record left out", left_out), ("a scale wrong", scaled)]
+
+
+def check_fused_case(name: str, size: int, n: int, d: int, seed: int, device, iters: int,
                      faults: bool, own_cards: bool, grids: Sequence[int] = ()) -> Dict:
-    cfg = comp_config.resolve(scheme)
+    cfg = fused_config(name)
+    scheme = cfg.scheme
     xs = make_inputs(n, size, torch.float32, seed, device)
     chunk = C.fused_chunk_elems(size, n, cfg)
-    res: Dict = {"dtype": scheme, "size": size, "chunk": chunk}
+    res: Dict = {"dtype": scheme, "block": cfg.block, "size": size, "chunk": chunk}
     ok, err = {}, {}
     tol = fused_tolerance(xs, scheme)
-    if device.type == "cuda":  # B7 alone against its plain version, every grid of `grids`
+    if device.type == "cuda":  # B7 and B8 alone against their plain versions, every grid
         rs_want = plain_fused_rs(xs, cfg, d)
+        mines = [rs_want if r == d else plain_fused_rs(xs, cfg, r) for r in range(n)]
+        ag_want = plain_fused_ag(mines, cfg, d, size)
         for g in [0, *grids]:
-            with fused_grid(g):
-                got = RC._fused_rs(xs[d], cfg, chunk, None)
-            key = f"rs grid {g}" if g else "rs"
-            ok[key] = bool(torch.equal(got, rs_want))
-            err[key] = (got - rs_want).abs().max().item()
-        del got, rs_want
+            for kind, call, want in (
+                    ("rs", lambda: RC._fused_rs(xs[d], cfg, chunk, None), rs_want),
+                    ("ag", lambda: RC._fused_ag(mines[d], cfg, chunk, size, None), ag_want)):
+                with fused_grid(g):
+                    got = call()
+                key = f"{kind} grid {g}" if g else kind
+                ok[key] = bool(torch.equal(got, want))
+                err[key] = (got - want).abs().max().item()
+                if kind == "ag" and not g and faults and size <= FAULT_CASE_MAX:
+                    for fault, bad in planted_ag_faults(want, chunk, cfg, n, d):
+                        ok[f"ag rejects {fault}"] = not torch.equal(got, bad)
+                del got
+        del rs_want, mines, ag_want
     for op in ("sum", "mean"):
         got = RC.fused_ring_all_reduce(xs[d], None, cfg, op)
         want = C._plain_fused_ring_all_reduce(xs, cfg, op)[d]
@@ -357,10 +415,11 @@ def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, 
         res["grid_ms"] = {}
         for g in grids:
             with fused_grid(g):
-                res["grid_ms"][str(g)] = (_primed_ms(calls["rs"], iters) if own_cards
-                                          else _median_ms(calls["rs"], iters))
-        res["grid_how"] = ("B7 primed (a spin kernel ahead, the host's issue out of it)"
-                           if own_cards else "B7, median of CUDA events around each call")
+                res["grid_ms"][str(g)] = {
+                    k: (_primed_ms(calls[k], iters) if own_cards else _median_ms(calls[k], iters))
+                    for k in ("rs", "ag")}
+        res["grid_how"] = ("B7 and B8 primed (a spin kernel ahead, the host's issue out of it)"
+                           if own_cards else "B7 and B8, median of CUDA events around each call")
         dist.barrier()
         if d == 0:
             res["plain_ms"] = {"ar": _median_ms(
@@ -385,20 +444,22 @@ def check_fused_case(scheme: str, size: int, n: int, d: int, seed: int, device, 
 
 @contextlib.contextmanager
 def fused_grid(blocks: int):
-    """B7's grid capped at `blocks` (every rank the same; 0 leaves it)."""
+    """B7's and B8's grids capped at `blocks` (every rank the same; 0
+    leaves them)."""
     if not blocks:
         yield
         return
-    old, RC.FRS_GRID = RC.FRS_GRID, blocks
+    old = RC.FRS_GRID, RC.FAG_GRID
+    RC.FRS_GRID = RC.FAG_GRID = blocks
     try:
         yield
     finally:
-        RC.FRS_GRID = old
+        RC.FRS_GRID, RC.FAG_GRID = old
 
 
 def check_case(name: str, size: int, n: int, d: int, seed: int, device, iters: int,
                faults: bool, own_cards: bool, grids: Sequence[int] = ()) -> Dict:
-    if name in SCHEMES:
+    if name.split("/")[0] in SCHEMES:
         return check_fused_case(name, size, n, d, seed, device, iters, faults, own_cards, grids)
     dtype = DTYPES[name]
     xs = make_inputs(n, size, dtype, seed, device)
@@ -589,9 +650,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--groups", default="",
                     help="groups through the grouped B5/B6: dtype:row+row+... separated by ;")
     ap.add_argument("--grid", default="",
-                    help="also time each group, and B7 in each fused case, with the grid "
-                    "capped at each of these block counts, comma-separated (a measurement; "
-                    "B7 is also checked bit for bit at each)")
+                    help="also time each group, and B7 and B8 in each fused case, with the "
+                    "grid capped at each of these block counts, comma-separated (a "
+                    "measurement; B7 and B8 are also checked bit for bit at each)")
     args = ap.parse_args(argv)
     n = distributed.init_distributed(device=args.device)
     if n < 2:

@@ -17,10 +17,13 @@ and must also lie within the JAX package's quantization tolerance of the
 exact sum.  The cases are f32 and bf16 of ragged sizes (not multiples of
 n * 1024, rows not multiples of 4 at n = 3), and the planted faults (a
 chunk misrouted, a hop left out; a hop's scales dropped, a block's codes
-zeroed) must be rejected; B7 alone is held to its plain version bit for
-bit, also at capped grids and at payloads that end mid-stage,
-mid-segment and mid-vector, and call after call with changing sizes and
-grids while one rank comes late to each.  Plain and fused calls of
+zeroed) must be rejected; B7 and B8 alone are each held to their plain
+versions bit for bit, also at capped grids, at quantization blocks of 8,
+32 and 256 values and at payloads that end mid-stage, mid-segment and
+mid-vector, and call after call with changing sizes and grids while one
+rank comes late to each (B8's check must reject a stage's record left
+out and a scale wrong); a peer that runs B7 but never B8 makes B8 raise.
+Plain and fused calls of
 different sizes, interleaved as the buckets of a step interleave them,
 stay bit-equal.
 Groups of tensors through the grouped calls (one launch of B5 or B6 for up
@@ -285,6 +288,147 @@ def test_b7_back_to_back_on_their_own_cards(cards):
     if cards < 4:
         pytest.skip("needs 4 cards")
     _b7_back_to_back(4, "0,1,2,3")
+
+
+# The fused all-gather B8 alone (ring_check holds it against
+# `plain_fused_ag` on every rank's chunk as B7 leaves it): a chunk of one
+# short stage, chunks that end mid-stage, payloads that end mid-segment and
+# mid-vector (the last chunk's tail past the payload unwritten), int8 and
+# fp8, quantization blocks of 8, 32 and 256 values, at its own grid and at
+# grids of 1, 3 and 7 blocks (more blocks than stages included).
+FUSED_AG_STAGE_CASES = ("int8:100,fp8/8:36827,int8/32:36827,fp8:131075,int8/8:1000003,"
+                        "fp8/32:8193,int8:3000001,f32:4099")
+
+
+def _check_fused_ag_stages(results):
+    for res in results.values():
+        fused = [c for c in res["cases"] if c["dtype"] in ring_check.SCHEMES]
+        assert len(fused) == 7, res
+        assert {c["block"] for c in fused} == {8, 32, 256}, res
+        for case in fused:
+            assert {"ag", "ag grid 1", "ag grid 3", "ag grid 7", "ag rejects a scale wrong",
+                    "ag rejects a stage's record left out", "fused_sum",
+                    "fused_mean"} <= set(case["ok"]), case
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_fused_ag_stages_share_one_card(cards, n):
+    _check_fused_ag_stages(_run(n, "0", FUSED_AG_STAGE_CASES, "--grid", "1,3,7"))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_ag_stages_on_their_own_cards(cards, n):
+    if cards < n:
+        pytest.skip(f"needs {n} cards")
+    _check_fused_ag_stages(_run(n, ",".join(str(i) for i in range(n)), FUSED_AG_STAGE_CASES,
+                                "--grid", "1,3,7"))
+
+
+B8_BACK_TO_BACK = textwrap.dedent("""
+    import json
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.tools.ring_check import (fused_config, fused_grid, make_inputs,
+                                                   plain_fused_ag)
+
+    n = distributed.init_distributed(device="cuda")
+    d = dist.get_rank()
+    dev = torch.device("cuda")
+    # B8 alone, call after call with no host sync between them, the sizes
+    # shrinking and growing and the grid changing; before call i rank i % n
+    # spins, so its left neighbour may finish call i - 1 and start call i
+    # while it still reads that call's slots
+    calls = [(3000001, "int8", 132), (100, "fp8", 1), (1000003, "int8/8", 7),
+             (5000000, "fp8", 132), (36827, "int8/32", 3), (2000003, "int8", 66),
+             (8193, "fp8/8", 132), (3000001, "fp8", 16), (1000003, "int8", 132)]
+    mines = []
+    for i, (size, name, _) in enumerate(calls):
+        chunk = C.fused_chunk_elems(size, n, fused_config(name))
+        mines.append(make_inputs(n, chunk, torch.float32, 40 + i, dev))
+    torch.cuda.synchronize()
+    dist.barrier()
+    got = []
+    for i, (size, name, grid) in enumerate(calls):
+        cfg = fused_config(name)
+        if d == i % n:
+            torch.cuda._sleep(4_000_000)  # about 2 ms of an H100's clock
+        with fused_grid(grid):
+            got.append(RC._fused_ag(mines[i][d], cfg, mines[i][d].numel(), size, None))
+    peer_memory.check_all()
+    ok = [bool(torch.equal(g, plain_fused_ag(m, fused_config(name), d, size)))
+          for g, m, (size, name, _) in zip(got, mines, calls)]
+    print("B8 " + json.dumps({"ok": ok}), flush=True)
+    distributed.shutdown_distributed()
+""")
+
+
+def _b8_back_to_back(n: int, visible: str):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible, KFT_RING_TIMEOUT_S="60")
+    rc, out, results = ring_check.launch(n, [sys.executable, "-c", B8_BACK_TO_BACK], env=env,
+                                         timeout=600, tag="B8 ")
+    assert rc == 0, out[-8000:]
+    assert sorted(results) == list(range(n)), out[-8000:]
+    for r, res in results.items():
+        assert len(res["ok"]) == 9 and all(res["ok"]), (r, res)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_b8_back_to_back_shares_one_card(cards, n):
+    """B8 alone, call after call: every thread stores into its right
+    neighbour's slots only after that neighbour acknowledged every block
+    of the earlier calls, whatever their sizes and grids."""
+    _b8_back_to_back(n, "0")
+
+
+def test_b8_back_to_back_on_their_own_cards(cards):
+    if cards < 4:
+        pytest.skip("needs 4 cards")
+    _b8_back_to_back(4, "0,1,2,3")
+
+
+B7_NOT_B8 = textwrap.dedent("""
+    import json, time
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.compression import resolve
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    n = distributed.init_distributed(device="cuda")
+    cfg = resolve("int8")
+    x = torch.ones(1 << 20, device="cuda")
+    chunk = C.fused_chunk_elems(x.numel(), n, cfg)
+    mine = RC._fused_rs(x, cfg, chunk, None)  # every rank: B7
+    peer_memory.check_all()
+    if dist.get_rank() == 0:  # rank 1 never runs B8
+        t0 = time.monotonic()
+        try:
+            RC._fused_ag(mine, cfg, chunk, x.numel(), None)
+            peer_memory.check_all()
+            out = {"raised": False}
+        except peer_memory.RingError as e:
+            out = {"raised": True, "seconds": time.monotonic() - t0, "message": str(e)}
+        print("STUCK " + json.dumps(out), flush=True)
+    dist.barrier()
+    distributed.shutdown_distributed()
+""")
+
+
+def test_a_peer_without_b8_makes_b8_raise(cards):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0", KFT_RING_TIMEOUT_S="3")
+    rc, out, results = ring_check.launch(2, [sys.executable, "-c", B7_NOT_B8], env=env,
+                                         timeout=300, tag="STUCK ")
+    assert rc == 0, out[-8000:]
+    got = results[0]
+    assert got["raised"], out[-8000:]
+    assert 3 <= got["seconds"] < 30
+    assert "rank 0/2" in got["message"] and "gave up after 3 s" in got["message"]
 
 
 # Groups through the grouped B5/B6 (ring_check --groups): one tensor, two,
