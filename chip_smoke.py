@@ -111,6 +111,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              checksum of every parameter's bits, gathered over the group),
              each flash kernel launched once per layer per step and each
              ring kernel once per bucket per step on every rank
+ 8b. adaptive KungFu's adaptive optimizers on the flagship, 4 ranks
+             x batch 2 of phase main's 8 sequences, one launch running
+             three runs in turn: (a) DataParallelTrainer(per_replica_params=
+             True) with adaptive_sgd(torch.optim.SGD lr ADAPTIVE_SGD_LR,
+             switch_step=2, alpha=0.1) under fit(steps=4, policies=[a
+             probe]): the ranks' parameter checksums apart after steps 1
+             and 2 and bit-identical after 3 and 4, loss finite and
+             falling, the first within 1e-2 of phase main's, the probe saw
+             4 before/after pairs, kungfu_trained_samples 4 x 8; (b)
+             gradient_noise_scale over phase ranks' S-SGD (impl=
+             "pallas_ring", --bucket-mib buckets), --rank-steps steps:
+             every loss bit-equal to phase ranks', the noise scale finite,
+             replicas bit-identical, B5/B6 once a bucket a step; (c)
+             noise_adaptive_compression(adamw, int8) for 3 steps
+             (compression.all_reduce over gloo on CUDA tensors): compressed
+             every step, the noise scale finite from step 2, replicas
+             bit-identical, the first loss within 1e-2 of phase main's;
+             B1-B3 once a layer a step in every run; each run's steady
+             step, tokens/s and peak memory per rank
  9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
@@ -271,6 +290,15 @@ SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a r
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
 SHIFT_GRIDS = "8,16,32,66"  # phase shift: B11's grids checked and timed
 RANKS_LINE = "RANKS_RESULT "
+ADAPTIVE_LINE = "ADAPTIVE_RESULT "
+# Phase adaptive: run (a)'s AdaptiveSGD, two SMA steps, the switch and one
+# S-SGD step, on torch.optim.SGD at a rate at which the flagship's loss
+# falls on each replica's rows before the switch and on the global batch
+# after it; run (c)'s steps.
+ADAPTIVE_STEPS = 4
+ADAPTIVE_SWITCH = 2
+ADAPTIVE_SGD_LR = 0.1
+NAC_STEPS = 3
 SP_LINE = "SP_RESULT "
 FSDP_LINE = "FSDP_RESULT "
 
@@ -1152,6 +1180,52 @@ def phase_ranks(steps: int, batch: int, seed: int, bucket_mib: int, ref_loss1: f
     return r0["launches"], r0["losses"]
 
 
+def phase_adaptive(card: str, steps: int, batch: int, seed: int, bucket_mib: int,
+                   main_loss1: float, ranks_losses):
+    """KungFu's adaptive optimizers on the flagship, N_RANKS ranks x batch 2:
+    (a) AdaptiveSGD per replica under fit with a policy, (b) the GNS monitor
+    over phase ranks' S-SGD, (c) noise-driven int8 compression."""
+    out, res = spawn_ranks(["adaptive", "--steps", str(steps), "--batch", str(batch), "--seed",
+                            str(seed), "--bucket-mib", str(bucket_mib)], ADAPTIVE_LINE, 900)
+    for line in out.splitlines():
+        if "[adaptive]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        for name, run in rr["runs"].items():
+            check(run["ok"], f"adaptive ({name}): rank {r} failed its checks: "
+                  f"{json.dumps(run['checks'])}; launches {json.dumps(run['launches'])}, "
+                  f"expected {json.dumps(run['expected_launches'])}")
+    runs = res[0]["runs"]
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    check(abs(a["losses"][0] - main_loss1) <= TOL_RANKS_LOSS,
+          f"adaptive (a): first-step loss {a['losses'][0]} vs phase main's {main_loss1}")
+    check(b["losses"] == ranks_losses,
+          f"adaptive (b): losses {b['losses']} vs phase ranks' {ranks_losses} (bit-equal)")
+    check(abs(c["losses"][0] - main_loss1) <= TOL_RANKS_LOSS,
+          f"adaptive (c): first-step loss {c['losses'][0]} vs phase main's {main_loss1}")
+    for name, what in (("a", f"AdaptiveSGD (SGD lr {ADAPTIVE_SGD_LR}, switch at step "
+                              f"{ADAPTIVE_SWITCH}) per replica under fit"),
+                       ("b", "gradient_noise_scale over phase ranks' S-SGD"),
+                       ("c", "noise_adaptive_compression(adamw, int8)")):
+        run = runs[name]
+        step_s = max(rr["runs"][name]["step_s"] for rr in res.values())
+        peaks = " ".join(f"{res[r]['runs'][name]['peak_gib']:.2f}" for r in sorted(res))
+        extra = ""
+        if "noise_scale" in run:
+            extra += f", noise scale {' '.join(f'{x:.6g}' for x in run['noise_scale'])}"
+        if "compressed" in run:
+            extra += f", compressed {run['compressed']}"
+        if "distinct_sums" in run:
+            extra += (f", ranks' distinct parameter checksums after each step "
+                      f"{run['distinct_sums']}")
+        if "final_loss" in run:
+            extra += f", the final parameters' loss {run['final_loss']:.4f}"
+        print(f"[adaptive] ({name}) {what}, {run['layers']} layers, {card}: losses "
+              f"{' '.join(f'{x:.4f}' for x in run['losses'])}{extra}; steady step "
+              f"{step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} tokens/s, "
+              f"peak memory per rank {peaks} GiB; rank 0 launches {json.dumps(run['launches'])}")
+
+
 def phase_shift(seed: int):
     """B11 on N_RANKS ranks against its stacked plain version, interleaved
     with B5-B8; its time, the plain version's and the bound."""
@@ -1399,6 +1473,156 @@ def rank_train(argv) -> int:
     return 0 if result["ok"] else 1
 
 
+def rank_adaptive(argv) -> int:
+    """One rank of phase adaptive (run by the launcher): runs (a)-(c) in turn."""
+    import gc
+
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch import variables as V
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import (adamw, adaptive_sgd, get_compression_state,
+                                             get_noise_scale, gradient_noise_scale,
+                                             noise_adaptive_compression, synchronous_sgd)
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.policy import BasePolicy
+    from kungfu_tpu_torch.tools.step_profile import (flagship_model, flagship_tokens,
+                                                     lm_step_loss)
+    from kungfu_tpu_torch.train import DataParallelTrainer
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    args = ap.parse_args(argv)
+    tf32_off()
+    world = distributed.init_distributed(device="cuda")
+    rank = dist.get_rank()
+    per = args.batch // world
+    bucket = args.bucket_mib << 20
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS
+
+    def run(tx, steps, per_replica=False, read=None, final_loss=False):
+        """`steps` steps of fit on this rank's rows of the flagship batch,
+        a policy timing each step and taking the parameters' checksum;
+        with `final_loss`, the mean over ranks of the final parameters'
+        loss on each rank's rows, as the trainer's loss metric is taken."""
+        cfg, model = flagship_model(args.seed, "cuda")
+        trainer = DataParallelTrainer(lm_step_loss, tx, per_replica_params=per_replica,
+                                      device="cuda")
+        state = trainer.init(model)
+        rows = flagship_tokens(cfg, args.batch, args.seed)[rank * per:(rank + 1) * per]
+        params = list(model.parameters())
+        opt = state.opt_state
+        rec = {"events": [], "losses": [], "times": [], "sums": [], "read": []}
+
+        class Probe(BasePolicy):
+            def before_step(self):
+                rec["events"].append("before")
+                self.t0 = time.perf_counter()
+
+            def after_step(self, metrics=None):
+                rec["losses"].append(metrics["loss"].item())  # waits for the step
+                rec["times"].append(time.perf_counter() - self.t0)
+                rec["events"].append("after")
+                # each parameter's checksum, as phase ranks gathers them
+                rec["sums"].append(tuple(p.detach().view(torch.int32).to(torch.int64).sum().item()
+                                         for p in params))
+                if read is not None:
+                    rec["read"].append(read(opt))
+
+        V.global_variables().reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        state, _ = trainer.fit(state, iter(lambda: rows, None), steps, log_every=0,
+                               policies=[Probe()])
+        launches = {k.name: k.launches for k in kernels}
+        every = [None] * world
+        dist.all_gather_object(every, rec["sums"])
+        distinct = [len({sums[i] for sums in every}) for i in range(steps)]
+        want = {k.name: 0 for k in kernels}
+        for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV):
+            want[k.name] = cfg.n_layers * steps
+        result = {"layers": cfg.n_layers, "losses": rec["losses"],
+                  "buckets": len(_pack_buckets(params, bucket)) if bucket else len(params),
+                  "step_s": statistics.median(rec["times"][1:]),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "launches": launches, "distinct_sums": distinct,
+                  "trained_samples": V.get_variable(V.TRAINED_SAMPLES),
+                  "checks": {"loss finite": all(math.isfinite(x) for x in rec["losses"]),
+                             "policy saw every step": rec["events"] == ["before", "after"] * steps}}
+        if final_loss:
+            with torch.no_grad():
+                loss = lm_step_loss(model, rows).float()
+            dist.all_reduce(loss)
+            result["final_loss"] = loss.item() / world
+        del state, trainer, model, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result, want, rec["read"]
+
+    runs = {}
+    # (a) AdaptiveSGD per replica: SMA, then rank 0's model and S-SGD
+    a, want, _ = run(adaptive_sgd(lambda ps: torch.optim.SGD(ps, lr=ADAPTIVE_SGD_LR),
+                                       switch_step=ADAPTIVE_SWITCH, alpha=0.1),
+                     ADAPTIVE_STEPS, per_replica=True, final_loss=True)
+    sums, losses = a["distinct_sums"], a["losses"]
+    # Before the switch each replica learns its own rows, taken again each
+    # step; after it every rank holds rank 0's model, whose loss on the
+    # other ranks' rows is higher: the step after the switch can read more
+    # than the step before it, so the loss is held to fall on each side.
+    a["checks"].update({
+        "loss falls": losses[-1] < losses[0],
+        "loss falls on each replica's rows before the switch": all(
+            x > y for x, y in zip(losses[:ADAPTIVE_SWITCH + 1], losses[1:ADAPTIVE_SWITCH + 1])),
+        "loss falls on the global batch after the switch": all(
+            x > y for x, y in zip(losses[ADAPTIVE_SWITCH + 1:],
+                                  losses[ADAPTIVE_SWITCH + 2:] + [a["final_loss"]])),
+        "replicas apart before the switch": all(d > 1 for d in sums[:ADAPTIVE_SWITCH]),
+        "replicas bit-identical from the switch": all(d == 1 for d in sums[ADAPTIVE_SWITCH:]),
+        "kungfu_trained_samples": a["trained_samples"] == ADAPTIVE_STEPS * per * world,
+    })
+    runs["a"] = (a, want)
+    # (b) the GNS monitor over phase ranks' S-SGD: the same update, bit for bit
+    b, want, ns = run(gradient_noise_scale(
+        synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
+                        bucket_bytes=bucket or None), local_batch_size=per),
+        args.steps, read=lambda opt: get_noise_scale(opt).item())
+    for k in (RC.RING_RS, RC.RING_AG):  # once a bucket a step, as in phase ranks
+        want[k.name] = b["buckets"] * args.steps
+    b["noise_scale"] = ns
+    b["checks"].update({"noise scale finite": all(math.isfinite(x) for x in ns),
+                        "replicas bit-identical": all(d == 1 for d in b["distinct_sums"])})
+    runs["b"] = (b, want)
+    # (c) noise-driven int8 compression: the wire from last step's noise scale
+    c, want, read = run(noise_adaptive_compression(
+        adamw(3e-4, b1=0.9, b2=0.95), local_batch_size=per, compression="int8"), NAC_STEPS,
+        read=lambda opt: (get_compression_state(opt).noise_scale.item(),
+                          get_compression_state(opt).compressed))
+    c["noise_scale"], c["compressed"] = [x for x, _ in read], [on for _, on in read]
+    c["checks"].update({"compressed from step 1": all(c["compressed"]),
+                        "noise scale finite after step 2": all(
+                            math.isfinite(x) for x in c["noise_scale"][1:]),
+                        "replicas bit-identical": all(d == 1 for d in c["distinct_sums"])})
+    runs["c"] = (c, want)
+    for name, (r, want) in runs.items():
+        r["expected_launches"] = want
+        r["checks"]["launches"] = r["launches"] == want
+        r["checks"]["no JAX"] = jax_free()
+        r["ok"] = all(r["checks"].values())
+    result = {"rank": rank, "backend": dist.get_backend(),
+              "runs": {name: r for name, (r, _) in runs.items()}}
+    print(ADAPTIVE_LINE + json.dumps(result), flush=True)
+    distributed.shutdown_distributed()
+    return 0 if all(r["ok"] for r in result["runs"].values()) else 1
+
+
 def rank_ring(argv) -> int:
     """One rank of phase ring (run by the launcher)."""
     from kungfu_tpu_torch.tools import ring_check
@@ -1587,7 +1811,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-phase"]:  # one rank of a phase started by the launcher
         phase, rest = sys.argv[2], sys.argv[3:]
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
-                   "fused": rank_fused, "fsdp": rank_fsdp}
+                   "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive}
         return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -1604,7 +1828,7 @@ def main() -> int:
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
     try:
-        _, kind, count = phase_device()
+        card, kind, count = phase_device()
         phase_build()
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
         wide, wide_launches = phase_wide(args.seed)
@@ -1620,6 +1844,8 @@ def main() -> int:
         results.append(phase_ring(n_params, gqa_params, fsdp_sizes, fsdp_groups, args.seed))
         ranks_launches, ranks_losses = phase_ranks(args.rank_steps, args.batch, args.seed,
                                                    args.bucket_mib, main_losses[0])
+        phase_adaptive(card, args.rank_steps, args.batch, args.seed, args.bucket_mib,
+                       main_losses[0], ranks_losses)
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
         results.append(phase_shift(args.seed))

@@ -18,8 +18,15 @@ attention in `parallel/ring_attention.py` with K/V rotating through a
 hand-written shift kernel, `ops/fused_matmul.py`), and its fully sharded
 step (`fsdp.FSDPTrainer`).  The model takes the JAX package's memory
 levers: the chunked head (`head="hidden"` with `lm_loss_chunked`,
-`ops/chunked_ce.py`), dropout and remat "dots".  The kernel sources are in
-`ops/csrc/`.
+`ops/chunked_ce.py`), dropout and remat "dots".  KungFu's adaptive
+optimizers run on the same trainer: SMA with a model per rank
+(`DataParallelTrainer(per_replica_params=True)` with
+`optimizers.synchronous_averaging`), AdaptiveSGD (`optimizers.adaptive_sgd`),
+the gradient-noise-scale and variance monitors and noise-driven
+compression (`optimizers.gradient_noise_scale`, `gradient_variance`,
+`noise_adaptive_compression`), driven by `DataParallelTrainer.fit` with
+policies (`policy.py`, `variables.py`), journaled by `monitor/journal.py`
+and traced by `utils/trace.py`.  The kernel sources are in `ops/csrc/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; on
 the CPU every kernel wrapper runs its plain PyTorch version instead.

@@ -14,7 +14,7 @@ Consumers so far: optimizers/sync.py (compression= on the gradient
 all-reduce) and ops/ring_collectives.fused_ring_all_reduce (the codec
 inside the ring kernels, B7/B8).  The sparse pair exchange of the gossip
 path (`sparse_pair_exchange`, `compressed_pair_average`) waits for the
-gossip slice (ROADMAP A3).
+gossip slice (ROADMAP A.3b).
 """
 from .config import (
     AxisCompression,

@@ -18,7 +18,7 @@ the sum times 1/n (XLA's rewrite of the division by n).
 
 `hierarchical_all_reduce` needs (dcn, ici) groups and raises until they
 exist (ROADMAP A4); `sparse_pair_exchange` and `compressed_pair_average`
-arrive with the gossip slice (ROADMAP A3).
+arrive with the gossip slice (ROADMAP A.3b).
 """
 from __future__ import annotations
 

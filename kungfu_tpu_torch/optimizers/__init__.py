@@ -1,11 +1,59 @@
-"""Distributed optimizers (counterpart of kungfu_tpu.optimizers)."""
+"""Distributed optimizers (counterpart of kungfu_tpu.optimizers).
+
+Each algorithm is a factory `tx(params) -> optimizer` over an inner
+factory (a `torch.optim` one such as `adamw(...)`, or another wrapper),
+as the JAX package chains optax transforms:
+
+    synchronous_sgd, synchronous_averaging, adaptive_sgd,
+    gradient_noise_scale, gradient_variance, noise_adaptive_compression,
+    all_reduce_gradients, lm_adamw
+
+Reference-named aliases (for users migrating from KungFu) are the wrapper
+classes, which take an inner optimizer instance as KungFu's take a TF
+optimizer:
+
+    SynchronousSGDOptimizer            (synchronous_sgd)
+    SynchronousAveragingOptimizer      (synchronous_averaging)
+    AdaptiveSGDOptimizer               (adaptive_sgd)
+    MonitorGradientNoiseScaleOptimizer (gradient_noise_scale)
+    MonitorGradientVarianceOptimizer   (gradient_variance)
+
+Gossip (`pair_averaging`, PairAveragingOptimizer) arrives with ROADMAP A.3b.
+"""
 from __future__ import annotations
 
 import functools
 
 import torch
 
-from .sync import SynchronousSGDOptimizer, all_reduce_gradients, synchronous_sgd
+from .adaptive import (
+    AdaptiveSGDOptimizer,
+    AdaptiveSGDState,
+    NoiseAdaptiveCompressionState,
+    adaptive_sgd,
+    get_compression_state,
+    noise_adaptive_compression,
+)
+from .monitor import (
+    GradVarianceState,
+    MonitorGradientNoiseScaleOptimizer,
+    MonitorGradientVarianceOptimizer,
+    NoiseScaleState,
+    get_gradient_variance,
+    get_noise_scale,
+    gradient_noise_scale,
+    gradient_variance,
+)
+from .presets import lm_adamw
+from .sync import (
+    CompressedGradState,
+    SMAState,
+    SynchronousAveragingOptimizer,
+    SynchronousSGDOptimizer,
+    all_reduce_gradients,
+    synchronous_averaging,
+    synchronous_sgd,
+)
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -18,4 +66,14 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                              eps=eps, weight_decay=weight_decay)
 
 
-__all__ = ["adamw", "synchronous_sgd", "all_reduce_gradients", "SynchronousSGDOptimizer"]
+__all__ = [
+    "adamw", "all_reduce_gradients", "synchronous_sgd", "synchronous_averaging",
+    "adaptive_sgd", "gradient_noise_scale", "gradient_variance",
+    "get_noise_scale", "get_gradient_variance",
+    "noise_adaptive_compression", "get_compression_state",
+    "SMAState", "AdaptiveSGDState", "NoiseScaleState", "GradVarianceState",
+    "CompressedGradState", "NoiseAdaptiveCompressionState",
+    "SynchronousSGDOptimizer", "SynchronousAveragingOptimizer", "AdaptiveSGDOptimizer",
+    "MonitorGradientNoiseScaleOptimizer", "MonitorGradientVarianceOptimizer",
+    "lm_adamw",
+]

@@ -1,5 +1,5 @@
-"""Synchronous SGD: average gradients over the group, then step the inner
-optimizer (counterpart of kungfu_tpu.optimizers.sync).
+"""Synchronous SGD and SMA over the group (counterpart of
+kungfu_tpu.optimizers.sync).
 
 The JAX package composes optax transforms inside the compiled step.  Here
 the inner optimizer is a `torch.optim` one, and the wrapper averages each
@@ -39,6 +39,11 @@ through the fused-codec ring kernels B7/B8
 (ops.ring_collectives.fused_ring_all_reduce), which take no stochastic or
 sparse config; under pmean, ring and rs_ag compression goes through
 compression.all_reduce.  `seed` seeds the generator of stochastic rounding.
+
+`synchronous_averaging` (SMA) pulls each rank's parameters toward the
+group's average and steps the inner optimizer on the local gradients;
+`OptimizerWrapper` is the base of every wrapper here and in `monitor.py`,
+`adaptive.py` and `presets.py`.
 """
 from __future__ import annotations
 
@@ -234,33 +239,86 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
     return None
 
 
-class SynchronousSGDOptimizer:
+def _save_tree(x):
+    """A copy of a wrapper's own state for its state dict: tensors cloned,
+    generators as (state, device)."""
+    if isinstance(x, torch.Generator):
+        return {"generator": x.get_state(), "device": str(x.device)}
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_save_tree(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_save_tree(v) for v in x)
+    return x
+
+
+def _load_tree(x):
+    """The state `_save_tree` saved, as fresh tensors and generators."""
+    if isinstance(x, dict) and set(x) == {"generator", "device"}:
+        gen = torch.Generator(device=x["device"])
+        gen.set_state(x["generator"])
+        return gen
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_load_tree(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_load_tree(v) for v in x)
+    return x
+
+
+class OptimizerWrapper:
+    """An inner optimizer (a `torch.optim` one or another wrapper) whose
+    step a distributed algorithm extends.  `state` holds the wrapper's own
+    state from step to step (a NamedTuple, or None), the counterpart of its
+    optax state in the JAX package; `state_dict` holds it beside the
+    inner's."""
+
+    state = None
+
+    def __init__(self, inner, group=None):
+        self.inner = inner
+        self.group = group
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "state": _save_tree(self.state)}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.inner.load_state_dict(state_dict["inner"])
+        self.state = _load_tree(state_dict["state"])
+
+
+class SynchronousSGDOptimizer(OptimizerWrapper):
     """An inner torch optimizer whose step first averages the gradients
     (compressed, with its residuals kept here, when `compression` is set)."""
 
-    def __init__(self, inner: torch.optim.Optimizer, group=None,
-                 impl: str = "pmean", bucket_bytes: BucketBytes = None,
+    def __init__(self, inner, group=None, impl: str = "pmean",
+                 bucket_bytes: BucketBytes = None,
                  compression: Comp.AxisCompression = None, seed: int = 0):
         Comp.validate_axis_keys(compression, (DP_AXIS,), context="SynchronousSGDOptimizer")
-        self.inner = inner
-        self.group = group
+        super().__init__(inner, group)
         self.impl = impl
         self.bucket_bytes = bucket_bytes
         self.compression = compression
         self.seed = seed
         self.state: Optional[CompressedGradState] = None
 
-    def params(self) -> List[torch.nn.Parameter]:
-        return [p for g in self.inner.param_groups for p in g["params"]]
-
     def step(self) -> None:
         self.state = all_reduce_gradients(self.params(), self.group, self.impl,
                                           self.bucket_bytes, self.compression, self.seed,
                                           self.state)
         self.inner.step()
-
-    def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
 
 
 def synchronous_sgd(inner: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer],
@@ -284,5 +342,69 @@ def synchronous_sgd(inner: Callable[[Iterable[torch.nn.Parameter]], torch.optim.
     def make(params: Iterable[torch.nn.Parameter]) -> SynchronousSGDOptimizer:
         return SynchronousSGDOptimizer(inner(params), group, impl, bucket_bytes, compression,
                                        seed)
+
+    return make
+
+
+def pmean_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`lax.pmean` in place: the sum over the group times 1/n."""
+    world = _world(group)
+    if world > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        x.mul_(1.0 / world)
+    return x
+
+
+def pull_toward_mean(params: List[torch.Tensor], group, alpha: float) -> List[torch.Tensor]:
+    """alpha * (pmean(p) - p) for every parameter, taken before an inner
+    step moves p in place (one f32 copy of the parameters)."""
+    pulls = []
+    with torch.no_grad():
+        for p in params:
+            pull = pmean_(p.detach().clone(), group)
+            pulls.append(pull.sub_(p).mul_(alpha))
+    return pulls
+
+
+class SMAState(NamedTuple):
+    step: int  # steps taken
+
+
+class SynchronousAveragingOptimizer(OptimizerWrapper):
+    """SMA: each step pulls every replica toward the group's average
+    parameters and applies its own local gradients."""
+
+    def __init__(self, inner, group=None, alpha: float = 0.1):
+        super().__init__(inner, group)
+        self.alpha = alpha
+        self.state = SMAState(step=0)
+
+    def step(self) -> None:
+        params = self.params()
+        pulls = pull_toward_mean(params, self.group, self.alpha)
+        self.inner.step()
+        with torch.no_grad():
+            torch._foreach_add_(params, pulls)
+        self.state = SMAState(step=self.state.step + 1)
+
+
+def synchronous_averaging(inner: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer],
+                          group: Optional[dist.ProcessGroup] = None, alpha: float = 0.1
+                          ) -> Callable[[Iterable[torch.nn.Parameter]],
+                                        SynchronousAveragingOptimizer]:
+    """SynchronousAveragingOptimizer factory (SMA / EA-SGD; reference
+    optimizers/sma_sgd.py:46-76): every step each rank pulls its
+    parameters toward the group's average, v <- (1 - a) v + a avg(v), and
+    applies its *local* gradients through `inner(params)`:
+
+        p <- p + inner's update(local grads) + alpha * (pmean(p) - p)
+
+    The average is of the parameters before the inner step, taken into a
+    buffer (one f32 copy of the parameters) before `inner.step()` moves
+    them in place and added after it.  The ranks' models differ between
+    steps; run it under `DataParallelTrainer(per_replica_params=True)`."""
+
+    def make(params: Iterable[torch.nn.Parameter]) -> SynchronousAveragingOptimizer:
+        return SynchronousAveragingOptimizer(inner(params), group, alpha)
 
     return make

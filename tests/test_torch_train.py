@@ -508,6 +508,3 @@ def test_unported_options_raise():
         synchronous_sgd(adamw(LR), impl="hierarchical")
     with pytest.raises(NotImplementedError):
         synchronous_sgd(adamw(LR), bucket_bytes="auto")
-    with pytest.raises(NotImplementedError):
-        DataParallelTrainer(lambda m, b: 0, synchronous_sgd(adamw(LR)),
-                            per_replica_params=True, device="cpu")
