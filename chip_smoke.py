@@ -130,6 +130,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              bit-identical, the first loss within 1e-2 of phase main's;
              B1-B3 once a layer a step in every run; each run's steady
              step, tokens/s and peak memory per rank
+ 8c. gossip KungFu's gossip (AD-PSGD pair averaging) on the flagship, 4
+             ranks x batch 2 of phase main's 8 sequences, one launch
+             running its runs in turn, per replica
+             (DataParallelTrainer(per_replica_params=True)) at SGD lr
+             ADAPTIVE_SGD_LR: (a) pair_averaging(SGD), random selector,
+             GOSSIP_STEPS steps:
+             each step every rank pulls rank + s's parameters, packed into
+             chunks of at most 256 MiB, each chunk one B11 call: the ranks'
+             parameter checksums distinct after step 1, every received
+             buffer bit-equal to what the partner sent (a digest that
+             depends on each word's place, made on the card and gathered
+             over the group; a planted swap of two 128 KiB blocks changes
+             it), the largest chunk the one phase shift holds against
+             torch.roll, one shift a step on every rank, loss finite
+             and falling, the first within 1e-2 of phase main's, B11
+             launched once a chunk a step (the chunks counted from the
+             parameters' sizes) and B1-B3 once a layer a step; (b) the
+             same with compression="int8": codes and scales, each chunk's
+             pair one B11 call, bit-equal to the partner's; (c)
+             HostPairAveraging, then OverlappedHostPairAveraging, over the
+             ranks' TCP blob stores (peer.Peer, store.py), HOST_GOSSIP_STEPS
+             steps each: every pulled
+             blob bit-equal (checksum) to a blob its owner published, the
+             loss finite, no ring kernel; each run's steady step, tokens/s
+             and peak memory per rank
  9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
@@ -142,7 +167,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              the ring shift kernel (B11) bit-equal to its stacked plain
              version (torch.roll over the ranks' payloads) on a K/V pair of
              one ring-attention hop (2 x [2, 2048, 16, 64] bf16, 16.8 MB) at
-             shift +1 and -1 and on an odd byte count at +1 and +2, then
+             shift +1 and -1, on an odd byte count at +1 and +2, on the
+             gossip pull's largest chunk (GOSSIP_SHIFT_BYTES of uint8) at
+             -1 and -2 and on an int8 pull's pair of that many uint8 codes
+             and an f32 scale a block of 256 at -1, then
              interleaved with B5-B8 calls of other sizes; planted faults (a
              pair shifted the wrong way, a 16-byte vector corrupted)
              rejected; the pair on the side stream beside a flash forward
@@ -205,7 +233,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              residual kernel (launches from rank 0 of the path that runs
              each: phase ranks for B1-B3, B5, B6, phase sp for B11, phase
              fused for B9 and B10, phase wide's model step for the wide
-             family, phase gqa for the others), then the last line {"ok":
+             family, phase gqa for the others; B11's entry also holds its
+             launches in phase sp and in phase gossip (a) and (b),
+             `launches_by_phase`), then the last line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
@@ -299,6 +329,17 @@ ADAPTIVE_STEPS = 4
 ADAPTIVE_SWITCH = 2
 ADAPTIVE_SGD_LR = 0.1
 NAC_STEPS = 3
+GOSSIP_LINE = "GOSSIP_RESULT "
+# Phase gossip: the steps of runs (a) and (b), at phase adaptive's SGD rate
+# (the loss falls on each replica's rows, mixed with its partner's model
+# each step), and of each host run (c), 10-18 s a step on one card: cut to
+# 2 to keep the whole smoke within 150 s of its length before the phase.
+GOSSIP_STEPS = 3
+HOST_GOSSIP_STEPS = 2
+# Phase gossip: the bytes of the flagship's largest packed chunk of an
+# uncompressed pull (phase gossip checks it; phase shift holds B11 there).
+GOSSIP_SHIFT_BYTES = 265314304
+DIGEST_ROW = 1 << 14  # int32 words a row of a gossip chunk's position digest
 SP_LINE = "SP_RESULT "
 FSDP_LINE = "FSDP_RESULT "
 
@@ -1226,13 +1267,60 @@ def phase_adaptive(card: str, steps: int, batch: int, seed: int, bucket_mib: int
               f"peak memory per rank {peaks} GiB; rank 0 launches {json.dumps(run['launches'])}")
 
 
+def phase_gossip(card: str, batch: int, seed: int, main_loss1: float):
+    """KungFu's gossip on the flagship, N_RANKS ranks x batch 2: (a)
+    pair_averaging(SGD) with its pull through B11, (b) the same with an
+    int8 pull, (c) HostPairAveraging and OverlappedHostPairAveraging over
+    the TCP blob stores.  Returns rank 0's B11 launches in (a) and (b)."""
+    out, res = spawn_ranks(["gossip", "--batch", str(batch), "--seed", str(seed)],
+                           GOSSIP_LINE, 900)
+    for line in out.splitlines():
+        if "[gossip]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        for name, run in rr["runs"].items():
+            check(run["ok"], f"gossip ({name}): rank {r} failed its checks: "
+                  f"{json.dumps(run['checks'])}; launches {json.dumps(run['launches'])}, "
+                  f"expected {json.dumps(run['expected_launches'])}")
+    runs = res[0]["runs"]
+    for name in ("a", "b"):
+        check(abs(runs[name]["losses"][0] - main_loss1) <= TOL_RANKS_LOSS,
+              f"gossip ({name}): first-step loss {runs[name]['losses'][0]} vs phase main's "
+              f"{main_loss1}")
+    whats = {"a": "pair_averaging(SGD lr %g), random selector, the pull through B11",
+             "b": "pair_averaging(SGD lr %g, compression int8), codes and scales through B11",
+             "c-host": "HostPairAveraging over the TCP blob stores, then SGD lr %g",
+             "c-overlapped": "OverlappedHostPairAveraging over the TCP blob stores, then SGD "
+                             "lr %g"}
+    for name, run in runs.items():
+        step_s = max(rr["runs"][name]["step_s"] for rr in res.values())
+        peaks = " ".join(f"{res[r]['runs'][name]['peak_gib']:.2f}" for r in sorted(res))
+        extra = ""
+        if "shifts" in run:
+            extra += (f", shifts {run['shifts']}, {run['chunks']} packed chunks a step (the "
+                      f"largest {run['largest_chunk']} bytes, its position digest "
+                      f"{run['digest_ms']:.1f} ms, made of every sent and received buffer "
+                      f"inside the step), ranks' "
+                      f"distinct parameter checksums after each step {run['distinct_sums']}")
+        if "pulls" in run:
+            extra += f", {run['pulls']} pulls of {run['pull_misses'] + run['pulls']} found a blob"
+        print(f"[gossip] ({name}) {whats[name] % ADAPTIVE_SGD_LR}, {run['layers']} layers, "
+              f"{card}: losses {' '.join(f'{x:.4f}' for x in run['losses'])}{extra}; steady "
+              f"step {step_s * 1e3:.1f} ms (slowest rank), {batch * 2048 / step_s:.0f} tokens/s, "
+              f"peak memory per rank {peaks} GiB; rank 0 launches {json.dumps(run['launches'])}")
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+
+    return runs["a"]["launches"][FM.SHIFT.name] + runs["b"]["launches"][FM.SHIFT.name]
+
+
 def phase_shift(seed: int):
     """B11 on N_RANKS ranks against its stacked plain version, interleaved
     with B5-B8; its time, the plain version's and the bound."""
     from kungfu_tpu_torch.ops import fused_matmul as FM
 
-    _, res = spawn_ranks(["shift", "--interleave", "--faults", "--beside-flash", "--grid",
-                          SHIFT_GRIDS, "--iters", "20", "--seed", str(seed)], "SHIFT_CHECK ", 600)
+    _, res = spawn_ranks(["shift", "--gossip", str(GOSSIP_SHIFT_BYTES), "--interleave",
+                          "--faults", "--beside-flash", "--grid", SHIFT_GRIDS, "--iters", "20",
+                          "--seed", str(seed)], "SHIFT_CHECK ", 600)
     for r, rr in sorted(res.items()):
         bad = [k for k, v in rr["ok"].items() if not v]
         check(rr["ok_all"], f"shift rank {r}: failed {bad}, max abs err "
@@ -1623,6 +1711,230 @@ def rank_adaptive(argv) -> int:
     return 0 if all(r["ok"] for r in result["runs"].values()) else 1
 
 
+def _wire_chunks(sizes, scheme: str, chunk_bytes: int) -> int:
+    """The packed chunks of one gossip pull, from the parameters' (element
+    count, element bytes) alone: each tensor's wire (its values; int8: its
+    codes padded to whole blocks of 256, then an f32 scale a block), each
+    part at a 16-byte-aligned place, grouped in order up to `chunk_bytes`."""
+    def up(n):
+        return -(-n // 16) * 16
+
+    chunks, size = 0, 0
+    for numel, itemsize in sizes:
+        if scheme == "int8":
+            blocks = -(-numel // 256)
+            nb = up(blocks * 256) + up(blocks * 4)
+        else:
+            nb = up(numel * itemsize)
+        if size and size + nb > chunk_bytes:
+            chunks, size = chunks + 1, 0
+        size += nb
+    return chunks + (size > 0)
+
+
+def position_digest(buf: "torch.Tensor") -> "torch.Tensor":
+    """The sum of every DIGEST_ROW-word row of a buffer's int32 words and
+    the sum of each word times its place in its row (1 to DIGEST_ROW), rows
+    in order, made on the buffer's card: [rows, 2] int64, no sum past
+    2^59.  A word moved, dropped, repeated or changed changes it, where a
+    plain sum misses any reordering."""
+    words = buf.view(torch.int32)
+    place = torch.arange(1, DIGEST_ROW + 1, dtype=torch.int64, device=buf.device)
+    out = []
+    for start in range(0, words.numel(), DIGEST_ROW * 256):  # 32 MiB of int64 at a time
+        part = words[start:start + DIGEST_ROW * 256]
+        full = part.numel() - part.numel() % DIGEST_ROW
+        for rows in (part[:full].view(-1, DIGEST_ROW), part[full:].view(1, -1)):
+            if rows.numel():
+                x = rows.to(torch.int64)
+                out.append(torch.stack([x.sum(1), (x * place[:x.shape[1]]).sum(1)], 1))
+    return torch.cat(out)
+
+
+def rank_gossip(argv) -> int:
+    """One rank of phase gossip (run by the launcher): runs (a)-(c) in turn."""
+    import gc
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import (HostPairAveraging, OverlappedHostPairAveraging,
+                                             gossip, pair_averaging)
+    from kungfu_tpu_torch.peer import Peer
+    from kungfu_tpu_torch.tools.step_profile import (flagship_model, flagship_tokens,
+                                                     lm_step_loss)
+    from kungfu_tpu_torch.train import DataParallelTrainer
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    tf32_off()
+    # this rank's blob store first (its port is fixed), then the group
+    peer = Peer(device="cuda").start()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    per = args.batch // world
+    kernels = flash.KERNELS + RC.KERNELS + FM.KERNELS + EF.KERNELS
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=ADAPTIVE_SGD_LR)
+
+    def blob_sum(arr) -> int:
+        return int(np.add.reduce(np.asarray(arr).view(np.uint32), dtype=np.uint64))
+
+    def run(tx, steps, host=None):
+        """`steps` steps on this rank's rows, per replica: `tx` the
+        optimizer; with `host` (a host gossip class) plain SGD, the host
+        gossip's mix before each step and its publish after it."""
+        cfg, model = flagship_model(args.seed, "cuda")
+        trainer = DataParallelTrainer(lm_step_loss, tx, per_replica_params=True, device="cuda")
+        state = trainer.init(model)
+        rows = flagship_tokens(cfg, args.batch, args.seed)[rank * per:(rank + 1) * per]
+        params = list(model.parameters())
+        sizes[:] = [(p.numel(), p.element_size()) for p in params]
+        rec = {"losses": [], "times": [], "sums": []}
+        g, wire = None, None
+        if host is not None:
+            wire = {"saves": saves, "pulls": []}
+
+            class Recording:  # the peer, with a checksum of every blob saved or pulled
+                rank, size = peer.rank, peer.size
+
+                def save(self, name, arr, version=""):
+                    wire["saves"].append(blob_sum(arr))
+                    peer.save(name, arr, version)
+
+                def request(self, target, name, version="", wait=True, timeout=30.0):
+                    got = peer.request(target, name, version, wait=wait, timeout=timeout)
+                    wire["pulls"].append((target, None if got is None else blob_sum(got)))
+                    return got
+
+            g = host(Recording(), seed=args.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        for step in range(steps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            if g is not None:
+                g.mix(params)
+            state, metrics = trainer.train_step(state, rows)
+            if g is not None:
+                g.publish(params)
+            rec["losses"].append(metrics["loss"].item())  # waits for the step
+            rec["times"].append(time.perf_counter() - t0)
+            rec["sums"].append(tuple(p.detach().view(torch.int32).to(torch.int64).sum().item()
+                                     for p in params))
+            print(f"[gossip] rank {rank} step {step + 1}: loss {rec['losses'][-1]:.4f}, "
+                  f"{rec['times'][-1] * 1e3:.1f} ms", flush=True)
+        if g is not None and host is OverlappedHostPairAveraging:
+            g.close()  # flushes the last publish
+        launches = {k.name: k.launches for k in kernels}
+        every = [None] * world
+        dist.all_gather_object(every, rec["sums"])
+        want = {k.name: 0 for k in kernels}
+        for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV):
+            want[k.name] = cfg.n_layers * steps
+        result = {"layers": cfg.n_layers, "losses": rec["losses"],
+                  "step_s": statistics.median(rec["times"][1:]),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "launches": launches, "expected_launches": want,
+                  "distinct_sums": [len({sums[i] for sums in every}) for i in range(steps)],
+                  "checks": {"loss finite": all(math.isfinite(x) for x in rec["losses"])}}
+        if wire is not None:
+            walls = [None] * world
+            dist.all_gather_object(walls, wire)
+            pulls = [(t, s) for t, s in wire["pulls"] if s is not None]
+            result.update(pulls=len(pulls), pull_misses=len(wire["pulls"]) - len(pulls))
+            # (a pull may find the blob its owner left in the run before)
+            result["checks"]["each pull bit-equal to a blob its owner published"] = all(
+                s in walls[t]["saves"] for t, s in pulls)
+            result["checks"]["a pull found a blob"] = bool(pulls)
+        del state, trainer, model, params, g
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result, want
+
+    def digest_hex(d) -> str:
+        return hashlib.sha256(d.cpu().numpy().tobytes()).hexdigest()
+
+    runs, sizes, saves = {}, [], []  # saves: the checksum of every blob this rank published
+    shift_wire = gossip.shift_wire
+    for name, scheme in (("a", None), ("b", "int8")):
+        pulled, planted, largest = [], [], []
+
+        def recording(sent, group, shift):  # each chunk's buffers, digested on the card
+            received = shift_wire(sent, group, shift)
+            if not pulled:  # a swap of two 128 KiB blocks of the first chunk shows
+                blk, got = 128 << 10, received[0]
+                bad = got.clone()
+                bad[:blk], bad[blk:2 * blk] = got[blk:2 * blk], got[:blk]
+                planted.append(got.numel() >= 2 * blk and not torch.equal(
+                    position_digest(bad), position_digest(got)))
+                del bad
+            largest.append(max(b.numel() for b in sent))
+            pulled.append((-shift, [position_digest(b) for b in sent],
+                           [position_digest(b) for b in received]))
+            return received
+
+        gossip.shift_wire = recording  # pull_mix_ shifts each chunk through it
+        try:
+            r, want = run(pair_averaging(sgd, seed=args.seed, compression=scheme), GOSSIP_STEPS)
+        finally:
+            gossip.shift_wire = shift_wire
+        buf = torch.randint(0, 256, (max(largest),), dtype=torch.uint8, device="cuda")
+        dist.barrier()  # every rank at once, as in the steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            position_digest(buf)
+        torch.cuda.synchronize()
+        digest_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del buf
+        pulled = [(s, [digest_hex(x) for x in a], [digest_hex(x) for x in b])
+                  for s, a, b in pulled]
+        every = [None] * world
+        dist.all_gather_object(every, pulled)
+        chunks = len(pulled) // GOSSIP_STEPS
+        shifts = [pulled[i * chunks][0] for i in range(GOSSIP_STEPS)]
+        expect = _wire_chunks(sizes, scheme or "none", gossip.CHUNK_BYTES)
+        want[FM.SHIFT.name] = expect * GOSSIP_STEPS
+        r.update(shifts=shifts, chunks=chunks, largest_chunk=max(largest), digest_ms=digest_ms)
+        r["checks"].update({
+            "loss falls": r["losses"][-1] < r["losses"][0],
+            "checksums distinct after step 1": r["distinct_sums"][0] == world,
+            "one shift a step on every rank": all(
+                [p[0] for p in e] == [p[0] for p in pulled] for e in every),
+            "chunks a step": chunks == expect and len(pulled) == expect * GOSSIP_STEPS,
+            "the digest rejects two blocks swapped": planted == [True],
+            "largest chunk as phase shift holds it": scheme is not None
+            or max(largest) == GOSSIP_SHIFT_BYTES,
+            # what rank d received is what rank d + s sent, buffer by buffer
+            "pulled bit-equal to the partner's sent": all(
+                every[d][i][2] == every[(d + every[d][i][0]) % world][i][1]
+                for d in range(world) for i in range(len(pulled))),
+        })
+        runs[name] = (r, want)
+    runs["c-host"] = run(sgd, HOST_GOSSIP_STEPS, host=HostPairAveraging)
+    runs["c-overlapped"] = run(sgd, HOST_GOSSIP_STEPS, host=OverlappedHostPairAveraging)
+    for name, (r, want) in runs.items():
+        r["checks"]["launches"] = r["launches"] == want
+        r["checks"]["no JAX"] = jax_free()
+        r["ok"] = all(r["checks"].values())
+    result = {"rank": rank, "backend": dist.get_backend(),
+              "runs": {name: r for name, (r, _) in runs.items()}}
+    print(GOSSIP_LINE + json.dumps(result), flush=True)
+    dist.barrier()
+    peer.close()  # the store, then the group
+    return 0 if all(r["ok"] for r in result["runs"].values()) else 1
+
+
 def rank_ring(argv) -> int:
     """One rank of phase ring (run by the launcher)."""
     from kungfu_tpu_torch.tools import ring_check
@@ -1811,7 +2123,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-phase"]:  # one rank of a phase started by the launcher
         phase, rest = sys.argv[2], sys.argv[3:]
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
-                   "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive}
+                   "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive,
+                   "gossip": rank_gossip}
         return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -1846,6 +2159,7 @@ def main() -> int:
                                                    args.bucket_mib, main_losses[0])
         phase_adaptive(card, args.rank_steps, args.batch, args.seed, args.bucket_mib,
                        main_losses[0], ranks_losses)
+        gossip_shifts = phase_gossip(card, args.batch, args.seed, main_losses[0])
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
         results.append(phase_shift(args.seed))
@@ -1874,6 +2188,9 @@ def main() -> int:
         "plain_ms": plain[k.name], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
     } for k in flash.KERNELS + flash.WIDE_KERNELS + RC.KERNELS + FM.KERNELS + EF.KERNELS]
+    for k in kernels:  # B11 runs two paths: ring attention's K/V and the gossip pull
+        if k["name"] == FM.SHIFT.name:
+            k["launches_by_phase"] = {"sp": launches[k["name"]], "gossip": gossip_shifts}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -26,7 +26,12 @@ the gradient-noise-scale and variance monitors and noise-driven
 compression (`optimizers.gradient_noise_scale`, `gradient_variance`,
 `noise_adaptive_compression`), driven by `DataParallelTrainer.fit` with
 policies (`policy.py`, `variables.py`), journaled by `monitor/journal.py`
-and traced by `utils/trace.py`.  The kernel sources are in `ops/csrc/`.
+and traced by `utils/trace.py`.  So does KungFu's gossip
+(`optimizers.pair_averaging`, the pull through the shift kernel), and its
+asynchronous host forms (`optimizers.HostPairAveraging`) over each rank's
+p2p blob store (`store.py`, started by `peer.Peer`), averaging with the
+native host library (`native.py`, built from the repository's `csrc/`).
+The kernel sources are in `ops/csrc/`.
 
 Entry points run on the card unless the caller passes `device="cpu"`; on
 the CPU every kernel wrapper runs its plain PyTorch version instead.

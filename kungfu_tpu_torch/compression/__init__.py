@@ -6,15 +6,15 @@
   quant.py           block-wise int8/fp8 quantize/dequantize (per-block f32
                      scales, optional stochastic rounding) on tensors
   collectives.py     the quantized RS->AG all-reduce over a process group
-                     (f32 accumulators), cross_all_reduce, group_all_reduce
+                     (f32 accumulators), cross_all_reduce, group_all_reduce,
+                     and the gossip pull's pair exchanges
+                     (compressed_pair_average, sparse_pair_exchange)
   error_feedback.py  EF residuals, so compression error feeds back into the
                      next step's gradients
 
-Consumers so far: optimizers/sync.py (compression= on the gradient
-all-reduce) and ops/ring_collectives.fused_ring_all_reduce (the codec
-inside the ring kernels, B7/B8).  The sparse pair exchange of the gossip
-path (`sparse_pair_exchange`, `compressed_pair_average`) waits for the
-gossip slice (ROADMAP A.3b).
+Consumers: optimizers/sync.py (compression= on the gradient all-reduce),
+ops/ring_collectives.fused_ring_all_reduce (the codec inside the ring
+kernels, B7/B8) and optimizers/gossip.py (compression= on the pull).
 """
 from .config import (
     AxisCompression,
@@ -44,9 +44,11 @@ from .quant import (
 )
 from .collectives import (
     all_reduce,
+    compressed_pair_average,
     cross_all_reduce,
     group_all_reduce,
     hierarchical_all_reduce,
+    sparse_pair_exchange,
 )
 from . import error_feedback
 from .error_feedback import EFState
@@ -59,6 +61,6 @@ __all__ = [
     "QTensor", "quantize", "dequantize", "roundtrip", "pad_to_block",
     "quantization_error", "sparsify",
     "all_reduce", "cross_all_reduce", "hierarchical_all_reduce",
-    "group_all_reduce",
+    "group_all_reduce", "sparse_pair_exchange", "compressed_pair_average",
     "error_feedback", "EFState",
 ]

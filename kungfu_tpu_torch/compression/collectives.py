@@ -16,9 +16,18 @@ reduce, so a value may differ in the last bits where the two orders
 differ; codes and scales follow the same rules bit for bit.  A mean is
 the sum times 1/n (XLA's rewrite of the division by n).
 
+`sparse_pair_exchange` and `compressed_pair_average` are the gossip
+pull's directed pair averages with a dieted wire.  A pairing there is a
+ring shift (rank i receives from rank i + s), so the exchange is
+`ops.fused_matmul.ring_shift`: B11 on CUDA tensors, whose kernel moves
+bytes, so the codes and their scales (or the values and their int32
+indices) go as one `ring_shift_pair` call; on CPU tensors its plain
+`batch_isend_irecv`.  `pair_wire` and `pair_mix` are the two ends of one
+such exchange, for callers that pack several tensors' wires into one
+shift (the gossip optimizer).
+
 `hierarchical_all_reduce` needs (dcn, ici) groups and raises until they
-exist (ROADMAP A4); `sparse_pair_exchange` and `compressed_pair_average`
-arrive with the gossip slice (ROADMAP A.3b).
+exist (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..plan.graph import validate_permutation
 from .config import CompressionConfig, resolve
-from .quant import QTensor, dequantize, from_wire, quantize, to_wire
+from .quant import (QTensor, add_dequantized, dequantize, from_wire, pad_to_block, quantize,
+                    sparsify, to_wire)
 
 Config = Union[None, str, CompressionConfig]
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
@@ -141,3 +152,97 @@ def group_all_reduce(xs: Sequence[torch.Tensor], group=None, config: Config = No
                      op: str = "sum", generator: Optional[torch.Generator] = None):
     """Compressed all-reduce over a tensor list, one collective each."""
     return [all_reduce(x, group, config, op=op, generator=generator) for x in xs]
+
+
+Pairs = Sequence[Tuple[int, int]]
+
+
+def pair_shift(perm: Pairs, n: int) -> int:
+    """The `ring_shift` shift t (rank d receives from rank d - t) that the
+    (src, dst) pairing `perm` over n ranks is.  Raises unless it is a
+    permutation (`plan.graph.validate_permutation`) and a whole ring
+    shift: B11 shifts every rank of a group by one amount."""
+    validate_permutation(perm, n, what="pair exchange")
+    shifts = {(dst - src) % n for src, dst in perm}
+    if len(perm) != n or len(shifts) != 1:
+        raise ValueError(f"pair exchange: {list(perm)} is not a shift of all {n} ranks")
+    return shifts.pop()
+
+
+def pair_wire(x: torch.Tensor, config: Config,
+              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+    """What a rank sends of x in a pair exchange under `config`: (x,) for
+    none; the codes (fp8 as bytes) and the per-block f32 scales of x's
+    flat f32 copy padded to the block for bf16/int8/fp8; the f32 values
+    and int32 indices of its kept coordinates for topk/randk."""
+    cfg = resolve(config)
+    if cfg.is_sparse:
+        return sparsify(x.float().reshape(-1), cfg, generator)
+    if cfg.scheme == "none":
+        return (x,)
+    qt = quantize(pad_to_block(x.float().reshape(-1), cfg.block), cfg, generator)
+    return to_wire(qt.data), qt.scale
+
+
+def pair_mix(x: torch.Tensor, received: Sequence[torch.Tensor], config: Config) -> torch.Tensor:
+    """x averaged with the partner's `received` wire (`pair_wire`), in the
+    JAX package's arithmetic as XLA compiles it: (x + other) * 0.5 in x's
+    dtype for none; for a quantized wire 0.5 * (x + codes * scale) in f32,
+    the sum one fused multiply-add (`quant.add_dequantized`), cast back;
+    for a sparse one each received coordinate idx becomes
+    0.5 * (x[idx] + value) in f32 and every other keeps x's value."""
+    cfg = resolve(config)
+    if cfg.is_sparse:
+        vals, idx = received
+        flat = x.float().reshape(-1)
+        idx = idx.long()
+        mixed = flat.index_put((idx,), 0.5 * (flat[idx] + vals))
+        return mixed.view(x.shape).to(x.dtype)
+    if cfg.scheme == "none":
+        return (x + received[0]) * 0.5
+    data, scale = received
+    flat = pad_to_block(x.float().reshape(-1), cfg.block)
+    total = add_dequantized(flat, QTensor(from_wire(data, cfg), scale))
+    return (0.5 * total[:x.numel()]).view(x.shape).to(x.dtype)
+
+
+def shift_wire(wire: Sequence[torch.Tensor], group, shift: int) -> Tuple[torch.Tensor, ...]:
+    """One or two tensors shifted around the ring as one call (B11 on a
+    card; its kernel moves bytes, so the two may differ in dtype)."""
+    from ..ops.fused_matmul import ring_shift, ring_shift_pair
+
+    if len(wire) == 1:
+        return (ring_shift(wire[0], group, shift),)
+    return ring_shift_pair(wire[0], wire[1], group, shift)
+
+
+def sparse_pair_exchange(x: torch.Tensor, group=None, perm: Pairs = (), config: Config = None,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Sparsified directed pair averaging (the gossip path's wire diet).
+
+    Each rank sends only the top-k (or a random-k subset, from
+    `generator`) of its tensor's coordinates along the pairing `perm`
+    ((src, dst) ranks of the group, a ring shift); the receiver averages
+    the exchanged coordinates and keeps the rest of its tensor:
+
+        x_i[idx_j] <- (x_i[idx_j] + vals_j) / 2,   everything else untouched
+
+    Wire bytes: k·n·8 (f32 value + int32 index) instead of n·4."""
+    cfg = resolve(config)
+    if not cfg.is_sparse:
+        raise ValueError(f"sparse_pair_exchange needs topk/randk, got {cfg.scheme!r}")
+    return compressed_pair_average(x, group, perm, cfg, generator)
+
+
+def compressed_pair_average(x: torch.Tensor, group=None, perm: Pairs = (), config: Config = None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Directed pair averaging with a selectable wire format: each rank
+    averages x with the x of the rank that `perm` pairs it with.
+
+    Dense schemes (bf16/int8/fp8) quantize the pulled tensor: the
+    partner's x crosses the wire as codes and the average runs in f32.
+    Sparse schemes exchange only k·n coordinates (`sparse_pair_exchange`).
+    none is the plain dense exchange."""
+    cfg = resolve(config)
+    shift = pair_shift(perm, _world(group))
+    return pair_mix(x, shift_wire(pair_wire(x, cfg, generator), group, shift), cfg)

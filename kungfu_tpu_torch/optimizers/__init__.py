@@ -4,9 +4,12 @@ Each algorithm is a factory `tx(params) -> optimizer` over an inner
 factory (a `torch.optim` one such as `adamw(...)`, or another wrapper),
 as the JAX package chains optax transforms:
 
-    synchronous_sgd, synchronous_averaging, adaptive_sgd,
+    synchronous_sgd, synchronous_averaging, pair_averaging, adaptive_sgd,
     gradient_noise_scale, gradient_variance, noise_adaptive_compression,
     all_reduce_gradients, lm_adamw
+
+and the host gossip over the blob store, HostPairAveraging and
+OverlappedHostPairAveraging (`gossip.py`).
 
 Reference-named aliases (for users migrating from KungFu) are the wrapper
 classes, which take an inner optimizer instance as KungFu's take a TF
@@ -14,11 +17,10 @@ optimizer:
 
     SynchronousSGDOptimizer            (synchronous_sgd)
     SynchronousAveragingOptimizer      (synchronous_averaging)
+    PairAveragingOptimizer             (pair_averaging)
     AdaptiveSGDOptimizer               (adaptive_sgd)
     MonitorGradientNoiseScaleOptimizer (gradient_noise_scale)
     MonitorGradientVarianceOptimizer   (gradient_variance)
-
-Gossip (`pair_averaging`, PairAveragingOptimizer) arrives with ROADMAP A.3b.
 """
 from __future__ import annotations
 
@@ -33,6 +35,13 @@ from .adaptive import (
     adaptive_sgd,
     get_compression_state,
     noise_adaptive_compression,
+)
+from .gossip import (
+    GossipState,
+    HostPairAveraging,
+    OverlappedHostPairAveraging,
+    PairAveragingOptimizer,
+    pair_averaging,
 )
 from .monitor import (
     GradVarianceState,
@@ -68,6 +77,8 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 
 __all__ = [
     "adamw", "all_reduce_gradients", "synchronous_sgd", "synchronous_averaging",
+    "pair_averaging", "GossipState", "PairAveragingOptimizer", "HostPairAveraging",
+    "OverlappedHostPairAveraging",
     "adaptive_sgd", "gradient_noise_scale", "gradient_variance",
     "get_noise_scale", "get_gradient_variance",
     "noise_adaptive_compression", "get_compression_state",

@@ -1,0 +1,164 @@
+"""Peer: this process's identity in the cluster and its p2p blob store
+(counterpart of the store half of kungfu_tpu.peer).
+
+Re-design of the reference Peer (srcs/go/kungfu/peer/peer.go:27-48): a
+Peer owns this process's identity from the KungFu env contract, joins the
+process group (`distributed.init_distributed`) and runs its blob store
+(`store.StoreServer` on `store.store_port(worker port)`), through which
+the asynchronous gossip pulls other peers' models.
+
+The Session (`current_session`), elastic reconfiguration
+(`update_cluster`) and the interference detector raise until their
+modules are ported (ROADMAP A.4, A.5 and A.8).
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from . import env as kfenv
+from .plan import PeerID
+from .utils import get_logger
+
+log = get_logger("kungfu.peer")
+
+
+class Peer:
+    def __init__(self, config: Optional[kfenv.Config] = None, device=None):
+        self.config = config if config is not None else kfenv.parse_config_from_env()
+        self.cluster_version = self.config.cluster_version
+        self.device = device
+        self._started = False
+        self._store_server = None
+        self._store_client = None
+
+    # -- identity (reference peer.go + python/__init__.py:36-103) ---------------
+
+    @property
+    def self_id(self) -> PeerID:
+        return self.config.self_id
+
+    @property
+    def rank(self) -> int:
+        return self.config.rank
+
+    @property
+    def size(self) -> int:
+        return len(self.config.peers)
+
+    @property
+    def local_rank(self) -> int:
+        r = self.config.peers.local_rank(self.self_id)
+        return 0 if r is None else r
+
+    @property
+    def local_size(self) -> int:
+        return max(1, sum(p.host == self.self_id.host for p in self.config.peers))
+
+    @property
+    def host_count(self) -> int:
+        return max(1, self.config.peers.host_count())
+
+    def uid(self) -> int:
+        """(version << 32) | rank, reference libkungfu-comm/main.go uid."""
+        return (self.cluster_version << 32) | self.rank
+
+    # -- lifecycle ----------------------------------------------------------------
+
+    def start(self) -> "Peer":
+        """With more than one peer, start the blob store, then join the
+        process group (`device`: "cuda" unless "cpu").  The store's port is
+        fixed (worker port + STORE_PORT_OFFSET), so it binds before the
+        group's transport takes ephemeral ports that could hold it; and a
+        faster peer must find it listening before its first pull (a miss,
+        never a connection error)."""
+        if self._started:
+            return self
+        from .distributed import init_distributed
+
+        if self.size > 1:
+            self._ensure_store()
+        init_distributed(self.config, device=self.device)
+        self._started = True
+        log.info("peer up: rank %d/%d local %d/%d hosts %d version %d", self.rank, self.size,
+                 self.local_rank, self.local_size, self.host_count, self.cluster_version)
+        return self
+
+    def _bind_host(self) -> str:
+        """The store's listen address: loopback aliases ("hosts" 127.0.0.1
+        and 127.0.0.2 on one machine) each bind their own; every other
+        host binds 0.0.0.0 (it may be listed by an address it cannot
+        bind: NAT, a published port)."""
+        if self.config.single_machine:
+            return "127.0.0.1"
+        host = self.self_id.host
+        return host if host.startswith("127.") else "0.0.0.0"
+
+    def current_session(self):
+        raise NotImplementedError("Peer.current_session: the Session is not ported yet "
+                                  "(ROADMAP A.4)")
+
+    def update_cluster(self, cluster, version: int) -> bool:
+        raise NotImplementedError("Peer.update_cluster: elastic reconfiguration is not ported "
+                                  "yet (ROADMAP A.5)")
+
+    def interference_detector(self):
+        raise NotImplementedError("Peer.interference_detector: the monitors are not ported yet "
+                                  "(ROADMAP A.8)")
+
+    # -- p2p blob store (reference peer/p2p.go Save/Request + handler/p2p.go) ------
+
+    def _ensure_store(self):
+        from .store import StoreClient, StoreServer, store_port
+
+        if self._store_server is None:
+            self._store_server = StoreServer(host=self._bind_host(),
+                                             port=store_port(self.self_id.port)).start()
+            self._store_client = StoreClient()
+        return self._store_server, self._store_client
+
+    def save(self, name: str, arr, version: str = "") -> None:
+        """Publish a named blob in this peer's store (GoKungfuSave)."""
+        srv, _ = self._ensure_store()
+        srv.save(name, np.asarray(arr), version=version)
+
+    def request(self, target_rank: int, name: str, version: str = "", wait: bool = True,
+                timeout: float = 30.0):
+        """Pull a named blob from peer `target_rank`'s store (GoKungfuRequest);
+        None if it is not there (after `timeout` seconds of polling with
+        `wait`)."""
+        from .store import poll_until
+
+        srv, client = self._ensure_store()
+        if target_rank == self.rank:
+            # the wait semantics hold on the self path too: correct code
+            # must not break only when the target happens to be self
+            return poll_until(lambda: srv.get(name, version=version), wait=wait,
+                              deadline=time.monotonic() + timeout)
+        return client.request(self.config.peers[target_rank], name, version=version,
+                              wait=wait, timeout=timeout)
+
+    def get_peer_latencies(self, timeout: float = 5.0) -> List[float]:
+        """RTT to every peer's store, seconds; 0 for self (reference
+        GetPeerLatencies, tensorflow/ops/cpu/topology.cpp:84)."""
+        if self.size <= 1:
+            return [0.0] * self.size
+        _, client = self._ensure_store()
+        return [0.0 if r == self.rank else client.ping(p, timeout=timeout)
+                for r, p in enumerate(self.config.peers)]
+
+    def close(self) -> None:
+        """Stop the store; leave the process group if this peer joined it."""
+        if self._store_server is not None:
+            self._store_server.close()
+            self._store_server = None
+        if self._store_client is not None:
+            self._store_client.close()
+            self._store_client = None
+        if self._started:
+            from .distributed import shutdown_distributed
+
+            shutdown_distributed()
+        self._started = False

@@ -1,8 +1,8 @@
 """The ring shift kernel (B11) against its stacked plain version, run as one rank.
 
     python -m kungfu_tpu_torch.run -np 4 python -m kungfu_tpu_torch.tools.shift_check \\
-        [--kv 2,2048,16,64] [--odd 1000003] [--interleave] [--faults] [--beside-flash] \\
-        [--grid 8,16,32,66] [--iters 5] [--seed 0] [--device cpu]
+        [--kv 2,2048,16,64] [--odd 1000003] [--gossip BYTES] [--interleave] [--faults] \\
+        [--beside-flash] [--grid 8,16,32,66] [--iters 5] [--seed 0] [--device cpu]
 
 Every rank makes every rank's payloads from the seed on its own device, so
 the check needs no communication.  Cases, each held against the stacked
@@ -14,6 +14,13 @@ ranks' payloads) bit for bit:
   odd+1, odd+2 ring_shift of `--odd` bytes (uint8), a count that is not a
                multiple of the kernel's 16-byte vectors; +2 stores into a
                peer that is not a neighbour (n > 2)
+  gossip-1, gossip-2  (with `--gossip BYTES`) ring_shift of one uint8
+               payload of BYTES at the gossip pull's shifts (rank i
+               pulls i + 1, i + 2): a packed chunk of
+               `optimizers.gossip.pair_averaging`
+  gossip int8 pair-1  ring_shift_pair of an int8 pull's two payloads of
+               unequal sizes and dtypes: BYTES uint8 codes and an f32
+               scale a block of 256 codes
 
 `--interleave` then issues, back to back on the same group and without a
 sync, the ring kernels B5-B8 on payloads of other sizes between shifts of
@@ -139,6 +146,26 @@ def run_cases(n: int, d: int, kv: Sequence[int], odd: int, seed: int, device,
         got = FM.ring_shift(xs[d], None, shift)
         want = FM._plain_ring_shift(xs, shift)[d]
         ok[key], err[key] = torch.equal(got, want), _err(got, want)
+    return {"ok": ok, "max_abs_err": err}
+
+
+def run_gossip(n: int, d: int, nbytes: int, seed: int, device) -> Dict:
+    """The gossip pull's payloads: one uint8 chunk of `nbytes` at the
+    pull's shifts, and an int8 wire's codes and scales as one pair."""
+    ok, err = {}, {}
+    xs = stacked(n, (nbytes,), torch.uint8, seed + 50, device)
+    for shift in (-1, -2) if n > 2 else (-1,):
+        key = f"gossip{shift:+d}"
+        got = FM.ring_shift(xs[d], None, shift)
+        want = FM._plain_ring_shift(xs, shift)[d]
+        ok[key], err[key] = torch.equal(got, want), _err(got, want)
+    del xs, got, want
+    codes = stacked(n, (nbytes,), torch.uint8, seed + 51, device)
+    scales = stacked(n, (-(-nbytes // 256),), torch.float32, seed + 52, device)
+    got = FM.ring_shift_pair(codes[d], scales[d], None, -1)
+    want = [FM._plain_ring_shift(x, -1)[d] for x in (codes, scales)]
+    ok["gossip int8 pair-1"] = all(torch.equal(g, w) for g, w in zip(got, want))
+    err["gossip int8 pair-1"] = max(_err(g, w) for g, w in zip(got, want))
     return {"ok": ok, "max_abs_err": err}
 
 
@@ -331,6 +358,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kv", default="2,2048,16,64", help="shape of K and of V, bf16")
     ap.add_argument("--odd", type=int, default=1000003, help="bytes of the odd case")
+    ap.add_argument("--gossip", type=int, default=0,
+                    help="bytes of the gossip pull's cases (0: none)")
     ap.add_argument("--interleave", action="store_true")
     ap.add_argument("--faults", action="store_true")
     ap.add_argument("--beside-flash", action="store_true")
@@ -354,6 +383,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     FM.SHIFT.side_launches = 0
     res = run_cases(n, d, kv, args.odd, args.seed, device, args.faults)
     more = []
+    if args.gossip:
+        more.append(run_gossip(n, d, args.gossip, args.seed, device))
     if args.interleave:
         more.append(run_interleaved(n, d, kv, args.seed, device))
     if args.beside_flash:

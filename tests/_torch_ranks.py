@@ -3,10 +3,11 @@ KungFu env contract (KFT_SELF_SPEC, KFT_INIT_PEERS), for the CPU tests."""
 from __future__ import annotations
 
 import os
+import random
 import socket
 import subprocess
 import sys
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -17,9 +18,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_ranks(worker: str, n: int, args: Sequence[str]) -> list:
-    """Start `worker` (Python source) on n ranks; each gets `args`."""
-    port = _free_port()
+def _binds(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def _free_port_range(n: int, max_port: int, offsets: Sequence[int]) -> int:
+    """A first worker port p <= max_port - n + 1 whose n ports p..p+n-1,
+    and each of those plus every offset, bind now: below the ephemeral
+    range (32768+) where the kernel does not hand them out by itself."""
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(12000, min(max_port, 32000) - n)
+        if all(_binds(port + r + off) for r in range(n) for off in (0, *offsets)):
+            return port
+    raise RuntimeError(f"no {n} free worker ports at or below {max_port}")
+
+
+def start_ranks(worker: str, n: int, args: Sequence[str],
+                max_port: Optional[int] = None, offsets: Sequence[int] = ()) -> list:
+    """Start `worker` (Python source) on n ranks; each gets `args`.  With
+    `max_port`, the worker ports are at most that and free, as is each of
+    them plus every one of `offsets` (the blob store takes worker port +
+    store.STORE_PORT_OFFSET, at most 65535)."""
+    port = _free_port() if max_port is None else _free_port_range(n, max_port, offsets)
     peers = ",".join(f"127.0.0.1:{port + r}" for r in range(n))
     procs = []
     for r in range(n):

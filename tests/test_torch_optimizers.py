@@ -12,7 +12,8 @@ a CPU mesh of the same size for the JAX package:
   summed in another order;
 * the trainer: a 2-layer TransformerLM (d_model 64) on 2 ranks against the
   JAX DataParallelTrainer for 3 steps from the same converted weights and
-  batches, under SMA(adamw) and AdaptiveSGD(sgd) per replica, the GNS
+  batches, under SMA(adamw), AdaptiveSGD(sgd) and gossip
+  (pair_averaging(sgd, selector="roundrobin")) per replica, the GNS
   monitor over S-SGD(adamw) and noise-driven int8 compression replicated,
   each replica's parameters to 1e-5 (compression: the compressed
   tolerance of test_torch_train.py); and place_state, the optimizers'
@@ -401,7 +402,7 @@ TRAIN_WORKER = textwrap.dedent("""
     from kungfu_tpu_torch.models import transformer as tt
     from kungfu_tpu_torch.optimizers import (
         adamw, adaptive_sgd, get_compression_state, get_noise_scale, gradient_noise_scale,
-        noise_adaptive_compression, synchronous_averaging, synchronous_sgd)
+        noise_adaptive_compression, pair_averaging, synchronous_averaging, synchronous_sgd)
     from kungfu_tpu_torch.policy import BasePolicy
     from kungfu_tpu_torch.train import DataParallelTrainer
 
@@ -444,6 +445,8 @@ TRAIN_WORKER = textwrap.dedent("""
         "gns": (gradient_noise_scale(sync, local_batch_size=per_rank), False),
         "nac": (noise_adaptive_compression(adamw(lr, b1=0.9, b2=0.95), local_batch_size=per_rank,
                                            compression="int8"), False),
+        "gossip": (pair_averaging(lambda ps: torch.optim.SGD(ps, lr=sgd_lr),
+                                  selector="roundrobin"), True),
     }
     out = {}
 
@@ -537,6 +540,7 @@ def _jax_train(ref, kind, tokens, init_params):
                 False),
         "nac": (opt.noise_adaptive_compression(adam, local_batch_size=PER_RANK,
                                                compression="int8"), False),
+        "gossip": (opt.pair_averaging(optax.sgd(SGD_LR), selector="roundrobin"), True),
     }
     tx, per_replica = txs[kind]
 
@@ -602,11 +606,13 @@ def _assert_replica_close(got, want, what):
     assert (diff > 1e-5).mean() < 1e-3, f"{what}: {(diff > 1e-5).sum()} of {diff.size}"
 
 
-@pytest.mark.parametrize("kind", ["sma", "adaptive", "gns", "nac"])
+@pytest.mark.parametrize("kind", ["sma", "adaptive", "gns", "nac", "gossip"])
 def test_trainer_steps_match_jax(ref, tmp_path, kind):
     """3 steps of fit (a recording policy) on 2 gloo ranks against the JAX
     trainer's train_step.  Losses to 2e-5 and each replica's parameters to
-    1e-5, as in test_torch_train.py (SMA: `_assert_replica_close`); the
+    1e-5, as in test_torch_train.py (SMA: `_assert_replica_close`; gossip
+    to rtol 1e-5: the port's `mixed + u` and the JAX package's
+    `params + (u + (mixed - params))` round apart in the last bit); the
     noise scale to 1e-4 relative (a difference of squared norms of two f32
     sums in other orders).  int8 compression: the compressed tolerance of
     test_torch_train.py (transposed kernels block other elements: up to a
@@ -624,7 +630,7 @@ def test_trainer_steps_match_jax(ref, tmp_path, kind):
     want = {r: _leaves(final_ref[r]) for r in range(WORLD)}
     for r in range(WORLD):
         np.testing.assert_array_equal(res[r]["losses"], res[0]["losses"])
-    if kind == "sma":  # each replica trained on its own batch
+    if kind in ("sma", "gossip"):  # each replica trained on its own batch
         assert any(not np.array_equal(got[1][k], got[0][k]) for k in got[0])
     else:  # adaptive: from the switch on; the replicated ones always
         for k in got[0]:
@@ -643,6 +649,11 @@ def test_trainer_steps_match_jax(ref, tmp_path, kind):
     for r in range(WORLD):
         if kind == "sma":
             _assert_replica_close(got[r], want[r], f"replica {r}")
+            continue
+        if kind == "gossip":  # mixed + u against params + (u + (mixed - params))
+            for k, v in want[r].items():
+                np.testing.assert_allclose(got[r][k], v, rtol=1e-5, atol=1e-7,
+                                           err_msg=f"replica {r} {k}")
             continue
         for k, v in want[r].items():
             np.testing.assert_allclose(got[r][k], v, rtol=0, atol=1e-5,

@@ -56,17 +56,17 @@ def _data(seed=0, ranks=1):
 
 
 def _jax_run(ref, tokens, n_devices, impl="pmean", compression=None, first=None,
-             ce_block=None):
+             ce_block=None, extra=None):
     """(initial params, losses, final params) of the JAX trainer.  A dict
     `first` receives, after step 1, the reduced gradients ("g"), rank 0's
     EF residuals ("e", with compression) and the parameters ("p").  With
     `ce_block` the model has head="hidden" and the loss is lm_loss_chunked
-    over vocab blocks of that size."""
+    over vocab blocks of that size.  `extra`: more config fields (remat)."""
     jt, nn, optax, jsync, JTrainer = ref
     from jax.sharding import Mesh
 
     head = "hidden" if ce_block else "dense"
-    cfg = jt.TransformerConfig(dtype=jnp.float32, head=head, **COMMON)
+    cfg = jt.TransformerConfig(dtype=jnp.float32, head=head, **COMMON, **(extra or {}))
     model = jt.TransformerLM(cfg)
     params = nn.meta.unbox(
         jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(tokens[:1]))["params"])
@@ -213,8 +213,8 @@ WORKER = textwrap.dedent("""
     from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
     from kungfu_tpu_torch.train import DataParallelTrainer
 
-    common, lr, steps, per_rank, world, impl, bucket_bytes, compression, ce_block = eval(
-        sys.argv[3])
+    (common, lr, steps, per_rank, world, impl, bucket_bytes, compression, ce_block,
+     extra) = eval(sys.argv[3])
     data = np.load(sys.argv[1])
     tree = {}
     for key in data.files:
@@ -228,14 +228,16 @@ WORKER = textwrap.dedent("""
     assert distributed.init_distributed(device="cpu") == world
     rank = dist.get_rank()
     head = "hidden" if ce_block else "dense"
-    cfg = tt.TransformerConfig(dtype=torch.float32, head=head, **common)
+    cfg = tt.TransformerConfig(dtype=torch.float32, head=head, **common, **extra)
     model = tt.TransformerLM(cfg, device="cpu")
     model.load_state_dict(convert.params_from_flax(tree, cfg))
+    # dropout: each rank's masks from its own generator
+    gen = torch.Generator().manual_seed(1000 + rank) if cfg.dropout else None
 
-    def loss_fn(m, b):
+    def loss_fn(m, b, train=True):
         if ce_block:
-            return tt.lm_loss_chunked(m, b, block=ce_block)
-        return tt.lm_loss(m(b), b)
+            return tt.lm_loss_chunked(m, b, block=ce_block, train=train, generator=gen)
+        return tt.lm_loss(m(b, train=train, generator=gen), b)
 
     trainer = DataParallelTrainer(
         loss_fn,
@@ -249,6 +251,9 @@ WORKER = textwrap.dedent("""
     for step in range(steps):
         state, m = trainer.train_step(state, batch)
         losses.append(m["loss"].item())
+        # every parameter's bits, summed: the replicas compare these after each step
+        out[f"sums/{step}"] = np.array([p.detach().view(torch.int32).to(torch.int64).sum().item()
+                                        for p in state.params.parameters()])
         if step == 0:  # the reduced gradients, residuals and parameters after step 1
             opt = state.opt_state
             named = list(state.params.named_parameters())
@@ -258,13 +263,20 @@ WORKER = textwrap.dedent("""
                 out.update({"e1/" + n: e.numpy().copy()
                             for (n, _), e in zip(named, opt.state.ef.residual)})
     out.update({k: v.numpy() for k, v in trainer.eval_params(state).items()})
+    if cfg.dropout:  # evaluation: the trained weights with and without dropout configured
+        plain = tt.TransformerLM(tt.TransformerConfig(dtype=torch.float32, head=head, **common),
+                                 device="cpu")
+        plain.load_state_dict(state.params.state_dict())
+        with torch.no_grad():
+            out["eval"] = np.array([loss_fn(state.params, batch, train=False).item(),
+                                    loss_fn(plain, batch, train=False).item()])
     np.savez(sys.argv[2] + f".{rank}.npz", losses=np.array(losses), **out)
     distributed.shutdown_distributed()
 """)
 
 
 def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=None,
-              ce_block=None):
+              ce_block=None, extra=None, dropout=0.0):
     """(losses, final params) of every one of `world` gloo ranks, beside
     the JAX trainer's (initial params, losses, final params).  A dict
     `first` receives the step-1 values of both, "g", "e", "p" from the JAX
@@ -272,7 +284,7 @@ def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=
     With `ce_block` both train head="hidden" on lm_loss_chunked."""
     tokens = _data(seed=1, ranks=world)
     init, losses_ref, final_ref = _jax_run(ref, tokens, world, impl, compression, first,
-                                           ce_block)
+                                           ce_block, extra)
     flat = {jax.tree_util.keystr(p, simple=True, separator="/"): v
             for p, v in jax.tree_util.tree_flatten_with_path(init)[0]}
     data = tmp_path / "in.npz"
@@ -280,43 +292,65 @@ def _gloo_run(ref, tmp_path, impl, world, bucket_bytes, compression=None, first=
     wait_ranks(start_ranks(WORKER, world, [
         data, tmp_path / "out",
         repr((COMMON, LR, STEPS, PER_RANK, world, impl, bucket_bytes, compression,
-              ce_block))]))
+              ce_block, dict(extra or {}, **({"dropout": dropout} if dropout else {}))))]))
     results = [np.load(tmp_path / f"out.{r}.npz") for r in range(world)]
-    # S-SGD: every replica holds the same parameters and gradients, bit for bit
+    # S-SGD: every replica holds the same parameters and gradients, bit for
+    # bit, after every step
     for res in results[1:]:
         for key in results[0].files:
-            if not key.startswith("e1/"):  # residuals are each rank's own
-                np.testing.assert_array_equal(res[key], results[0][key])
+            if not key.startswith("e1/") and key != "eval":  # each rank's own
+                np.testing.assert_array_equal(res[key], results[0][key], err_msg=key)
     params = {k: torch.from_numpy(results[0][k]) for k in results[0].files
-              if k != "losses" and "/" not in k}
+              if k not in ("losses", "eval") and "/" not in k}
     if first is not None:
         for part in ("g", "e", "p"):
             first["torch/" + part] = {k[3:]: torch.from_numpy(results[0][k])
                                       for k in results[0].files if k.startswith(part + "1/")}
+    if dropout:
+        return [res["losses"] for res in results], params, [res["eval"] for res in results]
     return [res["losses"] for res in results], params, losses_ref, final_ref
 
 
-# (impl, ranks, bucket_bytes, ce_block): the JAX trainer reduces per leaf;
-# pmean's mean is element-wise, so bucketing it changes nothing, while a
-# ring's chunks follow the buffer, so the ring cases reduce per leaf as JAX
-# does.  The last case trains head="hidden" on lm_loss_chunked (vocab
-# blocks of 16 over 61) on four ranks, as `run -np 4` brings them up.
-@pytest.mark.parametrize("impl,world,bucket_bytes,ce_block", [
-    pytest.param("pmean", 2, 4096, None, id="pmean-2-4096"),
-    pytest.param("pallas_ring", 2, None, None, id="pallas_ring-2-None"),
-    pytest.param("pallas_ring", 3, None, None, id="pallas_ring-3-None"),
-    pytest.param("pmean", 4, 4096, 16, id="pmean-4-4096-chunked"),
+# (impl, ranks, bucket_bytes, ce_block, extra): the JAX trainer reduces
+# per leaf; pmean's mean is element-wise, so bucketing it changes nothing,
+# while a ring's chunks follow the buffer, so the ring cases reduce per
+# leaf as JAX does.  The last cases train head="hidden" on lm_loss_chunked
+# (vocab blocks of 16 over 61) on four ranks, as `run -np 4` brings them
+# up, the second with remat_policy="dots" (jax.checkpoint_policies.
+# dots_saveable in the JAX trainer) in both.
+@pytest.mark.parametrize("impl,world,bucket_bytes,ce_block,extra", [
+    pytest.param("pmean", 2, 4096, None, None, id="pmean-2-4096"),
+    pytest.param("pallas_ring", 2, None, None, None, id="pallas_ring-2-None"),
+    pytest.param("pallas_ring", 3, None, None, None, id="pallas_ring-3-None"),
+    pytest.param("pmean", 4, 4096, 16, None, id="pmean-4-4096-chunked"),
+    pytest.param("pmean", 4, 4096, 16, {"remat": True, "remat_policy": "dots"},
+                 id="pmean-4-4096-chunked-remat-dots"),
 ])
 def test_two_rank_gloo_steps_match_jax(ref, tmp_path, monkeypatch, impl, world, bucket_bytes,
-                                       ce_block):
+                                       ce_block, extra):
     monkeypatch.setenv("KFT_PALLAS", "interpret")  # the JAX ring runs the Pallas kernels
     losses, params, losses_ref, final_ref = _gloo_run(ref, tmp_path, impl, world, bucket_bytes,
-                                                      ce_block=ce_block)
+                                                      ce_block=ce_block, extra=extra)
     for rank_losses in losses:
         np.testing.assert_allclose(rank_losses, losses_ref, atol=2e-5)
     head = "hidden" if ce_block else "dense"
-    _assert_params_close(params, final_ref,
-                         tt.TransformerConfig(dtype=torch.float32, head=head, **COMMON))
+    _assert_params_close(params, final_ref, tt.TransformerConfig(
+        dtype=torch.float32, head=head, **COMMON, **(extra or {})))
+
+
+def test_four_rank_dropout_keeps_replicas_identical(ref, tmp_path):
+    """The four-rank chunked-loss case with dropout 0.1 under train=True,
+    each rank's masks from its own generator: the replicas bit-identical
+    after every step (the reduced gradients are the same on every rank;
+    `_gloo_run` compares every parameter's bit sum), the loss finite, and
+    the trained model's evaluation loss (train=False) equal to the same
+    weights' without dropout configured.  The JAX and torch masks come from
+    different generators, so nothing compares them."""
+    losses, _, evals = _gloo_run(ref, tmp_path, "pmean", 4, 4096, ce_block=16, dropout=0.1)
+    for rank_losses, (with_dropout, without) in zip(losses, evals):
+        assert np.isfinite(rank_losses).all()
+        assert with_dropout == without
+    np.testing.assert_array_equal(losses[1:], np.tile(losses[0], (3, 1)))
 
 
 # int8 with error feedback, the whole step against the JAX trainer.  The
