@@ -155,6 +155,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              blob bit-equal (checksum) to a blob its owner published, the
              loss finite, no ring kernel; each run's steady step, tokens/s
              and peak memory per rank
+ 8d. session KungFu's Session (session.py) on 4 ranks started by `python -m
+             kungfu_tpu_torch.run -strategy PALLAS_RING`, so the launcher's
+             strategy reaches each rank's Session through env.Config; each
+             rank the full flagship, batch 2 of phase main's 8 sequences:
+             (a) the torch interop (kungfu_tpu_torch.init, then
+             kungfu_tpu_torch.torch.broadcast_parameters of a model made
+             from seed + rank): Session.consensus true on every parameter,
+             false after a one-bit flip on rank 1; SynchronousSGDOptimizer(
+             SGD lr ADAPTIVE_SGD_LR) for SESSION_STEPS steps, one Session
+             all_reduce a gradient: the first loss (the ranks' mean) within
+             1e-2 of phase main's, the loss falling, the replicas agreeing
+             after every step (consensus on the parameters' position
+             digests), B5 and B6 once a gradient a step (195), no B7/B8,
+             B1-B3 once a layer a step, every gradient's span tagged
+             ring_kernels; (b) set_strategy(PALLAS_RING_FUSED) and
+             set_compression("int8") on every rank, SWAP_STEPS more steps:
+             B7 and B8 195 times a step, no B5/B6, the replicas agreeing,
+             the loss finite, the spans tagged fused_ring_kernels; (c) this
+             rank's gradients of one more backward: the embedding, a 1024 x
+             1024 projection and a LayerNorm scale each through B5/B6 and
+             B7/B8 (int8), bit-equal to the stacked plain versions fed with
+             the ranks' inputs gathered by Session.all_gather;
+             group_all_reduce of all 195 gradients in 256 MiB buckets
+             bit-equal to an all_reduce each, B5 and B6 once a segment_plan
+             run; reduce, broadcast, gather, max, min, prod (the one-shot),
+             barrier, and cross_all_reduce and the hierarchical all-reduce
+             on a 2 x 2 ("dcn", "ici") mesh, on 4 MB tensors, each equal to
+             the answer every rank computes from the seed; each part's
+             steady step, the ranks' calc_stats()
  9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
@@ -235,7 +264,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              fused for B9 and B10, phase wide's model step for the wide
              family, phase gqa for the others; B11's entry also holds its
              launches in phase sp and in phase gossip (a) and (b),
-             `launches_by_phase`), then the last line {"ok":
+             `launches_by_phase`; B5 and B6 theirs in phases ranks and
+             session, B7 and B8 in phases gqa and session), then the last
+             line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
@@ -342,6 +373,15 @@ GOSSIP_SHIFT_BYTES = 265314304
 DIGEST_ROW = 1 << 14  # int32 words a row of a gossip chunk's position digest
 SP_LINE = "SP_RESULT "
 FSDP_LINE = "FSDP_RESULT "
+SESSION_LINE = "SESSION_RESULT "
+# Phase session: (a) the interop S-SGD's steps under PALLAS_RING, (b) the
+# steps after the swap to PALLAS_RING_FUSED with int8, each at phase
+# adaptive's SGD rate; (c)'s bucket and the size of its small collectives
+# (4 MB of f32 a rank).
+SESSION_STEPS = 3
+SWAP_STEPS = 2
+SESSION_BUCKET = 256 << 20
+SESSION_SMALL = 1 << 20
 
 
 class SmokeFailure(Exception):
@@ -381,8 +421,9 @@ def jax_free() -> bool:
     return not any(m.split(".")[0] in ("jax", "kungfu_tpu") for m in sys.modules)
 
 
-def spawn_ranks(worker_args, tag: str, timeout: float):
-    """This script in rank mode on N_RANKS ranks, started by the launcher;
+def spawn_ranks(worker_args, tag: str, timeout: float, launcher_args=(), env=None):
+    """This script in rank mode on N_RANKS ranks, started by the launcher
+    (`launcher_args` its flags, `env` added to the ranks' environment);
     {rank: its `tag` line}.  A failed rank fails the phase, with the
     ranks' output."""
     from kungfu_tpu_torch.tools import ring_check
@@ -391,10 +432,10 @@ def spawn_ranks(worker_args, tag: str, timeout: float):
     print(f"[{worker_args[0]}] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
           f"of the card while {N_RANKS} ranks run")
     # expandable segments: less memory stranded between the ranks' allocations
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", **(env or {}))
     rc, out, results = ring_check.launch(
-        N_RANKS, [sys.executable, os.path.abspath(__file__), "--rank-phase", *worker_args],
-        env=env, timeout=timeout, tag=tag)
+        N_RANKS, [*launcher_args, sys.executable, os.path.abspath(__file__), "--rank-phase",
+                  *worker_args], env=env, timeout=timeout, tag=tag)
     if rc != 0 or sorted(results) != list(range(N_RANKS)):
         print(out[-12000:], file=sys.stderr)
         raise SmokeFailure(f"rank phase {worker_args[0]}: launcher exit {rc}, "
@@ -1313,6 +1354,49 @@ def phase_gossip(card: str, batch: int, seed: int, main_loss1: float):
     return runs["a"]["launches"][FM.SHIFT.name] + runs["b"]["launches"][FM.SHIFT.name]
 
 
+def phase_session(card: str, batch: int, seed: int, main_loss1: float):
+    """KungFu's Session on N_RANKS ranks started with the launcher's
+    -strategy PALLAS_RING: (a) the torch interop's S-SGD on the flagship,
+    (b) the runtime swap to PALLAS_RING_FUSED with an int8 wire, (c) the
+    rest of the Session on CUDA tensors.  Returns rank 0's B5-B8 launches
+    in (a) and (b)."""
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    out, res = spawn_ranks(["session", "--batch", str(batch), "--seed", str(seed)], SESSION_LINE,
+                           900, launcher_args=["-strategy", "PALLAS_RING"],
+                           env={"KFT_CONFIG_ENABLE_TRACE": "1", "KFT_CONFIG_LOG_LEVEL": "warning"})
+    for line in out.splitlines():
+        if "[session]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        check(rr["ok"], f"session: rank {r} failed its checks: "
+              f"{json.dumps({k: v for k, v in rr['checks'].items() if not v})}; launches "
+              f"{json.dumps(rr['launches'])}, expected {json.dumps(rr['expected_launches'])}")
+    r0 = res[0]
+    check(abs(r0["losses"]["a"][0] - main_loss1) <= TOL_RANKS_LOSS,
+          f"session (a): first-step loss {r0['losses']['a'][0]} vs phase main's {main_loss1}")
+    whats = {"a": f"SynchronousSGDOptimizer(SGD lr {ADAPTIVE_SGD_LR}) under PALLAS_RING, one "
+                  "Session all_reduce a gradient (B5 + B6)",
+             "b": "after set_strategy(PALLAS_RING_FUSED) and set_compression('int8') (B7 + B8)"}
+    for part, what in whats.items():
+        step_s = max(rr["step_s"][part] for rr in res.values())
+        print(f"[session] ({part}) {what}, {r0['layers']} layers, {card}: losses "
+              f"{' '.join(f'{x:.4f}' for x in r0['losses'][part])}; replicas agree after every "
+              f"step (consensus); steady step {step_s * 1e3:.1f} ms (slowest rank), "
+              f"{batch * 2048 / step_s:.0f} tokens/s; span tags {json.dumps(r0['tags'][part])}; "
+              f"rank 0 launches {json.dumps(r0['launches'][part])}")
+    slowest = {k: max(rr["c_ms"][k] for rr in res.values()) for k in r0["c_ms"]}
+    peaks = " ".join(f"{rr['peak_gib']:.2f}" for rr in res.values())
+    print(f"[session] (c) on CUDA tensors, every check held on every rank; slowest rank's ms: "
+          f"{json.dumps({k: round(v, 1) for k, v in slowest.items()})}; grouped B5/B6 "
+          f"launches {r0['group_launches']} for {r0['group_expected']} segment_plan runs; "
+          f"peak memory per rank {peaks} GiB")
+    print(f"[session] rank 0 calc_stats() (bytes/s): "
+          f"{json.dumps({k: round(v) for k, v in r0['stats'].items()})}")
+    a, b = r0["launches"]["a"], r0["launches"]["b"]
+    return {k.name: a[k.name] + b[k.name] for k in RC.KERNELS}
+
+
 def phase_shift(seed: int):
     """B11 on N_RANKS ranks against its stacked plain version, interleaved
     with B5-B8; its time, the plain version's and the bound."""
@@ -1935,6 +2019,193 @@ def rank_gossip(argv) -> int:
     return 0 if all(r["ok"] for r in result["runs"].values()) else 1
 
 
+def rank_session(argv) -> int:
+    """One rank of phase session (run by the launcher with -strategy
+    PALLAS_RING): (a) the interop S-SGD, (b) the strategy swap, (c) the
+    rest of the Session on CUDA tensors."""
+    import collections
+
+    import kungfu_tpu_torch as kf
+    from kungfu_tpu_torch import torch as kt
+    from kungfu_tpu_torch.compression import resolve
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import flash, peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.plan import Strategy, make_hierarchical_mesh
+    from kungfu_tpu_torch.session import Session
+    from kungfu_tpu_torch.tools.step_profile import (flagship_model, flagship_tokens,
+                                                     lm_step_loss)
+    from kungfu_tpu_torch.utils import trace as T
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    tf32_off()
+    peer = kf.init()  # on the card; the launcher's -strategy reaches the Session
+    sess = peer.current_session()
+    world, rank = kf.cluster_size(), kf.current_rank()
+    per = args.batch // world
+    kernels = flash.KERNELS + RC.KERNELS
+    checks = {"the launcher's strategy": sess.strategy is Strategy.PALLAS_RING,
+              "on the card": sess.device.type == "cuda"}
+
+    # (a) a model of its own a rank, then rank 0's everywhere
+    cfg, model = flagship_model(args.seed + rank, "cuda")
+    rows = flagship_tokens(cfg, args.batch, args.seed)[rank * per:(rank + 1) * per]
+    params = list(model.parameters())
+    kt.broadcast_parameters(model.state_dict())
+    checks["consensus on the parameters after the broadcast"] = all(
+        sess.consensus(p.detach()) for p in params)
+    flipped = next(p for p in params if p.dim() == 1).detach().clone()  # a LayerNorm scale
+    if rank == 1:
+        flipped.view(torch.int32)[0] ^= 1
+    checks["consensus false after a one-bit flip on rank 1"] = not sess.consensus(flipped)
+
+    def digest():
+        """Every parameter's position digest: one small int64 tensor."""
+        return torch.cat([position_digest(p.detach()).reshape(-1) for p in params])
+
+    losses, step_s, launches, expected, tags = {}, {}, {}, {}, {}
+
+    def train(part, opt, steps, ring):
+        """`steps` interop S-SGD steps on this rank's rows: the launches,
+        the mean loss over the ranks, the replicas' consensus a step."""
+        for kern in kernels:
+            kern.launches = 0
+        T.global_trace_buffer().clear()
+        rec, times, agree = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = lm_step_loss(model, rows)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            # the loss's mean over the ranks: the one-shot, at full precision
+            rec.append(sess.all_reduce(loss.detach().float(), op="mean", strategy=Strategy.STAR,
+                                       compression="none").item())
+            times.append(time.perf_counter() - t0)
+            agree.append(sess.consensus(digest()))
+            print(f"[session] rank {rank} ({part}) step {len(rec)}: loss {rec[-1]:.4f}, "
+                  f"{times[-1] * 1e3:.1f} ms", flush=True)
+        launches[part] = {k.name: k.launches for k in kernels}
+        want = {k.name: 0 for k in kernels}
+        for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV):
+            want[k.name] = cfg.n_layers * steps
+        for k in ring:  # one all_reduce a gradient a step, each B5 + B6 or B7 + B8
+            want[k.name] = len(params) * steps
+        expected[part] = want
+        tags[part] = dict(collections.Counter(
+            sp.args["collective_impl"] for sp in T.global_trace_buffer().spans()
+            if sp.name == "collective:all_reduce"))
+        losses[part], step_s[part] = rec, statistics.median(times[1:])
+        checks[f"({part}) replicas agree after every step"] = all(agree)
+        checks[f"({part}) loss finite"] = all(math.isfinite(x) for x in rec)
+        checks[f"({part}) launches"] = launches[part] == want
+
+    opt = kt.SynchronousSGDOptimizer(torch.optim.SGD(model.parameters(), lr=ADAPTIVE_SGD_LR))
+    torch.cuda.reset_peak_memory_stats()
+    train("a", opt, SESSION_STEPS, (RC.RING_RS, RC.RING_AG))
+    checks["(a) loss falls"] = losses["a"][-1] < losses["a"][0]
+    checks["(a) spans name B5/B6"] = tags["a"] == {"ring_kernels": len(params) * SESSION_STEPS,
+                                                   "one_shot": SESSION_STEPS}
+    # (b) the runtime swap, on every rank
+    kf.set_strategy("PALLAS_RING_FUSED")
+    sess.set_compression("int8")
+    train("b", opt, SWAP_STEPS, (RC.FUSED_RS, RC.FUSED_AG))
+    checks["(b) spans name B7/B8"] = tags["b"] == {"fused_ring_kernels": len(params) * SWAP_STEPS,
+                                                   "one_shot": SWAP_STEPS}
+    sess.set_strategy(Strategy.PALLAS_RING)
+    sess.set_compression(None)
+
+    # (c) this rank's own gradients, then the rest of the Session
+    c_ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        c_ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    opt.zero_grad()
+    lm_step_loss(model, rows).backward()
+    grads = [p.grad for p in params]
+    int8 = resolve("int8")
+    picks = {"embedding": grads[0],
+             "projection": next(g for g in grads if tuple(g.shape) == (1024, 1024)),
+             "ln_scale": next(g for g in grads if g.dim() == 1)}
+    for name, g in picks.items():
+        xs = list(timed(f"all_gather {name}", lambda: sess.all_gather(g)))
+        ring = timed(f"B5+B6 {name}", lambda: sess.all_reduce(g, strategy=Strategy.PALLAS_RING))
+        fused = timed(f"B7+B8 {name}", lambda: sess.all_reduce(
+            g, strategy=Strategy.PALLAS_RING_FUSED, compression="int8"))
+        checks[f"(c) {name} B5/B6 bit-equal"] = torch.equal(
+            ring, C._plain_ring_all_reduce(xs)[rank])
+        checks[f"(c) {name} B7/B8 bit-equal"] = torch.equal(
+            fused, C._plain_fused_ring_all_reduce(xs, int8)[rank])
+        del xs
+    one = timed("all_reduce x195", lambda: [sess.all_reduce(g, strategy=Strategy.PALLAS_RING)
+                                            for g in grads])
+    for kern in RC.KERNELS:
+        kern.launches = 0
+    group = timed("group_all_reduce x195", lambda: sess.group_all_reduce(
+        grads, strategy=Strategy.PALLAS_RING, bucket_bytes=SESSION_BUCKET))
+    ws = peer_memory.workspace(sess._group, grads[0].device)
+    runs = {kind: sum(len(RC.segment_plan(
+        [(RC._chunk_elems(grads[i].numel(), world), torch.float32) for i in bucket],
+        ws.slot_bytes[kind])) for bucket in Session.pack_buckets(
+        [g.numel() * g.element_size() for g in grads], SESSION_BUCKET)) for kind in ("rs", "ag")}
+    group_launches = [RC.RING_RS.launches, RC.RING_AG.launches]
+    checks["(c) group bit-equal to an all_reduce a tensor"] = all(
+        torch.equal(a, b) for a, b in zip(group, one))
+    checks["(c) group: B5 and B6 once a segment_plan run"] = (
+        group_launches == [runs["rs"], runs["ag"]] and RC.FUSED_RS.launches == 0)
+    del one, group
+
+    # small collectives, every rank's tensor made here from the seed
+    gens = [torch.Generator(device="cuda").manual_seed(args.seed * 1000 + r) for r in range(world)]
+    xs = [torch.randint(-3, 4, (SESSION_SMALL,), generator=g, device="cuda").float() for g in gens]
+    mine, stacked = xs[rank], torch.stack(xs)
+    zeros = torch.zeros_like(mine)
+    want = {
+        "reduce": stacked.sum(0) if rank == 1 else zeros,
+        "broadcast": xs[2],
+        "gather": stacked if rank == 3 else torch.zeros_like(stacked),
+        "max": stacked.amax(0), "min": stacked.amin(0), "prod": stacked.prod(0),
+    }
+    got = {"reduce": timed("reduce", lambda: sess.reduce(mine, root=1)),
+           "broadcast": timed("broadcast", lambda: sess.broadcast(mine, root=2)),
+           "gather": timed("gather", lambda: sess.gather(mine, root=3))}
+    for op in ("max", "min", "prod"):
+        checks[f"(c) {op} takes the one-shot"] = sess.route(mine, op) == "one_shot"
+        got[op] = timed(op, lambda: sess.all_reduce(mine, op=op))
+    for name, w in want.items():
+        checks[f"(c) {name}"] = torch.equal(got[name], w)
+    timed("barrier", sess.barrier)
+    checks["(c) cross_all_reduce on one host is the identity"] = sess.cross_all_reduce(mine) is mine
+    hier = Session(make_hierarchical_mesh(2), strategy=Strategy.BINARY_TREE_STAR, host_count=2,
+                   device="cuda")
+    local = rank % 2  # ranks 0-1 and 2-3 stand for two hosts: dcn pairs {0, 2}, {1, 3}
+    checks["(c) cross_all_reduce over dcn"] = torch.equal(
+        timed("cross_all_reduce", lambda: hier.cross_all_reduce(mine)), xs[local] + xs[local + 2])
+    checks["(c) hierarchical all_reduce"] = torch.equal(
+        timed("hierarchical all_reduce", lambda: hier.all_reduce(mine)), stacked.sum(0))
+    checks["no JAX"] = jax_free()
+    result = {"rank": rank, "layers": cfg.n_layers, "losses": losses, "step_s": step_s,
+              "launches": launches, "expected_launches": expected, "tags": tags,
+              "group_launches": group_launches, "group_expected": [runs["rs"], runs["ag"]],
+              "c_ms": c_ms, "stats": sess.calc_stats(),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "checks": checks,
+              "ok": all(checks.values())}
+    print(SESSION_LINE + json.dumps(result), flush=True)
+    sess.barrier()
+    kf.finalize()  # the store, the ring workspaces, then the group
+    return 0 if result["ok"] else 1
+
+
 def rank_ring(argv) -> int:
     """One rank of phase ring (run by the launcher)."""
     from kungfu_tpu_torch.tools import ring_check
@@ -2124,7 +2395,7 @@ def main() -> int:
         phase, rest = sys.argv[2], sys.argv[3:]
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
                    "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive,
-                   "gossip": rank_gossip}
+                   "gossip": rank_gossip, "session": rank_session}
         return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -2160,6 +2431,7 @@ def main() -> int:
         phase_adaptive(card, args.rank_steps, args.batch, args.seed, args.bucket_mib,
                        main_losses[0], ranks_losses)
         gossip_shifts = phase_gossip(card, args.batch, args.seed, main_losses[0])
+        session_launches = phase_session(card, args.batch, args.seed, main_losses[0])
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
         results.append(phase_shift(args.seed))
@@ -2191,6 +2463,10 @@ def main() -> int:
     for k in kernels:  # B11 runs two paths: ring attention's K/V and the gossip pull
         if k["name"] == FM.SHIFT.name:
             k["launches_by_phase"] = {"sp": launches[k["name"]], "gossip": gossip_shifts}
+        if k["name"] in session_launches:  # B5-B8 also run under the Session's strategies
+            first = "ranks" if k["name"] in (RC.RING_RS.name, RC.RING_AG.name) else "gqa"
+            k["launches_by_phase"] = {first: launches[k["name"]],
+                                      "session": session_launches[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -31,8 +31,47 @@ and traced by `utils/trace.py`.  So does KungFu's gossip
 asynchronous host forms (`optimizers.HostPairAveraging`) over each rank's
 p2p blob store (`store.py`, started by `peer.Peer`), averaging with the
 native host library (`native.py`, built from the repository's `csrc/`).
-The kernel sources are in `ops/csrc/`.
+The kernel sources are in `ops/csrc/`.  KungFu's collective runtime is
+`session.Session` (every collective and strategy, the runtime strategy
+and wire swap, its ring strategies on the ring kernels), started by
+`peer.Peer`, with the topology planner in `plan/`, the scalar api below
+(`api.py`: `init`, `current_rank`, `run_barrier`, `set_strategy`, ...)
+and the torch interop of the reference (`kungfu_tpu_torch.torch`:
+`all_reduce`, `broadcast_parameters`, `SynchronousSGDOptimizer`).
 
-Entry points run on the card unless the caller passes `device="cpu"`; on
-the CPU every kernel wrapper runs its plain PyTorch version instead.
+Entry points run on the card unless the caller passes `device="cpu"` (or
+the launcher's `-platform cpu`); on the CPU every kernel wrapper runs its
+plain PyTorch version instead.
 """
+
+__version__ = "0.1.0"
+
+# the scalar api (kungfu_tpu/__init__.py exports the same names), loaded on
+# first use so that `import kungfu_tpu_torch` stays light
+_API = (
+    "init", "finalize", "current_rank", "current_cluster", "cluster_size",
+    "current_local_rank", "current_local_size", "host_count", "detached", "uid",
+    "run_barrier", "propose_new_size", "save_variable", "request_variable", "calc_stats",
+    "log_stats", "egress_rates", "check_interference", "get_peer_latencies",
+    "minimum_spanning_tree", "set_tree", "set_strategy", "get_variable", "set_variable",
+)
+
+
+def __getattr__(name):
+    if name in _API:
+        from . import api
+
+        return getattr(api, name)
+    if name == "DataParallelTrainer":
+        from .train import DataParallelTrainer
+
+        return DataParallelTrainer
+    if name == "MeshTrainer":
+        from .trainer import MeshTrainer
+
+        return MeshTrainer
+    if name == "FSDPTrainer":
+        from .fsdp import FSDPTrainer
+
+        return FSDPTrainer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -26,17 +26,21 @@ indices) go as one `ring_shift_pair` call; on CPU tensors its plain
 such exchange, for callers that pack several tensors' wires into one
 shift (the gossip optimizer).
 
-`hierarchical_all_reduce` needs (dcn, ici) groups and raises until they
-exist (ROADMAP A4).
+`hierarchical_all_reduce` is the two-level all-reduce over the groups of
+a ("dcn", "ici") mesh (`plan.make_hierarchical_mesh`), a wire format a
+leg.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
+import math
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..ops import collective as C
 from ..plan.graph import validate_permutation
 from .config import CompressionConfig, resolve
 from .quant import (QTensor, add_dequantized, dequantize, from_wire, pad_to_block, quantize,
@@ -140,12 +144,61 @@ def cross_all_reduce(x: torch.Tensor, dcn_group=None, config: Config = None, op:
     return all_reduce(x, dcn_group, config, op=op, generator=generator)
 
 
-def hierarchical_all_reduce(*args, **kwargs):
-    """Two-level all-reduce with per-leg wire formats: needs (dcn, ici)
-    process groups, which the port does not build yet."""
-    raise NotImplementedError(
-        "hierarchical_all_reduce needs (dcn, ici) process groups, not ported yet "
-        "(ROADMAP A4)")
+def hierarchical_all_reduce(x: torch.Tensor, ici_group, dcn_group, ici_config: Config = None,
+                            dcn_config: Config = None, op: str = "sum",
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Two-level all-reduce with a wire format a leg: reduce-scatter within
+    the host (ici), the compressed all-reduce of this rank's shard across
+    hosts (dcn), all-gather within the host.  The canonical config is
+    ici_config=None (the host's links are fast), dcn_config=int8 (the slow
+    leg); both legs take any dense config.  A quantized ici leg moves
+    codes both ways (all_to_all, then all_gather of the requantized
+    shard); a full-precision one reduce-scatters by the ring (rank d
+    ending with shard d, as psum_scatter) and all-gathers.  The mean is
+    the sum times 1/world.  Ops other than sum and mean: the uncompressed
+    one-shot over ici, then over dcn."""
+    ici_cfg, dcn_cfg = resolve(ici_config), resolve(dcn_config)
+    if op not in ("sum", "mean"):
+        return C.all_reduce(C.all_reduce(x, ici_group, op), dcn_group, op)
+    n = _world(ici_group)
+    world = n * _world(dcn_group)
+    flat = x.float().reshape(-1)
+    # a shard must hold whole quantization blocks of both legs
+    blk = math.lcm(ici_cfg.block if ici_cfg.is_quantized else 1,
+                   dcn_cfg.block if dcn_cfg.is_quantized else 1)
+    pad = (-flat.numel()) % (n * blk)
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    shards = flat.view(n, -1)
+    g_rs, g_ag = _leg_generators(generator, ici_group, ici_cfg)
+    if n == 1:
+        scat = shards[0]
+    elif ici_cfg.is_quantized:
+        qt = quantize(shards, ici_cfg, g_rs)
+        wire = to_wire(qt.data).contiguous()
+        data, scale = torch.empty_like(wire), torch.empty_like(qt.scale)
+        dist.all_to_all_single(data, wire, group=ici_group)
+        dist.all_to_all_single(scale, qt.scale.contiguous(), group=ici_group)
+        scat = dequantize(QTensor(from_wire(data, ici_cfg), scale)).sum(dim=0)
+    else:
+        scat = C._staged(lambda t: C.ring_reduce_scatter_chunks(list(t), ici_group), shards,
+                         ici_group)
+
+    # the cross-host leg: every local rank reduces its shard, compressed
+    scat = all_reduce(scat, dcn_group, dcn_cfg, op="sum", generator=generator)
+    if op == "mean":
+        scat = scat * (1.0 / world)
+
+    if n == 1:
+        out = scat
+    elif ici_cfg.is_quantized:
+        qt2 = quantize(scat, ici_cfg, g_ag)
+        codes = C.all_gather(to_wire(qt2.data).contiguous(), ici_group)
+        scales = C.all_gather(qt2.scale.contiguous(), ici_group)
+        out = dequantize(QTensor(from_wire(codes, ici_cfg), scales)).reshape(-1)
+    else:
+        out = C.all_gather(scat, ici_group).reshape(-1)
+    return out[:x.numel()].view(x.shape).to(x.dtype)
 
 
 def group_all_reduce(xs: Sequence[torch.Tensor], group=None, config: Config = None,

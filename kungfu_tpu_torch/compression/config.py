@@ -123,6 +123,10 @@ class AxisConfig:
                 return c
         return NONE
 
+    @property
+    def is_compressed(self) -> bool:
+        return any(c.scheme != "none" for _, c in self.legs)
+
     def describe(self) -> str:
         return ",".join(f"{k}={c.describe()}" for k, c in self.legs) or "none"
 

@@ -12,6 +12,9 @@ The launcher configures each worker through these variables:
   KFT_CONFIG_URLS          comma-separated replica URLs (wins over
                            KFT_CONFIG_SERVER)
   KFT_JOB_START / KFT_PROC_START  timestamps for event tracing
+  KFT_PLATFORM             the launcher's -platform: "cpu" puts the Peer and
+                           its Session on the CPU; "" or "gpu" on the card
+                           (`platform_device`)
 
 Tuning tier: every KFT_CONFIG_* variable of the launcher's environment is
 forwarded to the workers (`worker_env`).
@@ -37,6 +40,7 @@ CONFIG_SERVER = "KFT_CONFIG_SERVER"
 CONFIG_URLS = "KFT_CONFIG_URLS"
 JOB_START = "KFT_JOB_START"
 PROC_START = "KFT_PROC_START"
+PLATFORM = "KFT_PLATFORM"
 
 CONFIG_PREFIX = "KFT_CONFIG_"
 
@@ -66,6 +70,18 @@ class Config:
 
     def cluster(self) -> Cluster:
         return Cluster(runners=self.runners, workers=self.peers)
+
+
+def platform_device(env: Optional[Dict[str, str]] = None) -> Optional[str]:
+    """The device KFT_PLATFORM asks for: "cpu", or None (the card) for ""
+    and "gpu"; anything else raises.  The JAX package hands the same
+    variable to jax.config as the platform."""
+    plat = (os.environ if env is None else env).get(PLATFORM, "").strip().lower()
+    if plat in ("", "gpu"):
+        return None
+    if plat == "cpu":
+        return "cpu"
+    raise ValueError(f"{PLATFORM}={plat!r}: the port runs on 'cpu' or 'gpu'")
 
 
 def _parse_peers(s: str) -> PeerList:

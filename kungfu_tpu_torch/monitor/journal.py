@@ -34,8 +34,8 @@ segments oldest-first: `segment_paths` / `read_journal_segments`, and
 `merge_journals` folds them in automatically.
 
 Offline: read_journal / merge_journals for a dead job's files.  The
-launcher's `-telemetry` flag and the `--merge` CLI arrive with ROADMAP A.4
-and A.8.
+launcher's `-telemetry` flag and the `--merge` CLI arrive with ROADMAP
+A.8.
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ kernels are kungfu_tpu/ops/ring_kernels.py).
   ring_reduce_scatter_group, ring_all_gather_group
                          B5, B6 on many tensors at once (FSDP's buckets)
   ring_all_reduce        B5 then B6
+  ring_all_reduce_group  B5 then B6 on many tensors at once (the Session's
+                         grouped all-reduce)
   fused_ring_all_reduce  int8/fp8 codes on the wire: csrc/ring.cu replaces
                          `make_fused_rs_kernel` (B7) then
                          `make_fused_ag_kernel` (B8)
@@ -46,7 +48,9 @@ workspace (`peer_memory`); a CPU tensor goes to the plain ring of
 `collective.py` over the process group.  There is no other path: the JAX
 wrappers' fallbacks to the lax ring (payload above the VMEM budget, a dtype
 other than f32/bf16, an op other than sum/mean) do not exist here.  Every
-payload size runs through the kernels, and another dtype or op raises.
+payload size runs through the kernels, and another dtype or op raises; the
+Session (`session.py`) routes those, by op and dtype before the call, to
+the routes the JAX wrapper falls back to.
 n == 1 returns the input, as the lax lowering does (so does an empty
 all-reduce).
 
@@ -117,12 +121,12 @@ _world = C._world
 def _check(name: str, x: torch.Tensor, op: str = "sum") -> None:
     if x.dtype not in _DTYPE_CODES:
         raise NotImplementedError(
-            f"{name}: dtype {x.dtype} has no ring kernel (f32 and bf16 only; other "
-            "types wait for the Session collectives, ROADMAP A4)")
+            f"{name}: dtype {x.dtype} has no ring kernel (f32 and bf16 only; the Session "
+            "routes other dtypes to the ring of ops/collective.py: session.Session.all_reduce)")
     if op not in ("sum", "mean"):
         raise NotImplementedError(
-            f"{name}: op {op!r} has no ring kernel (sum and mean only; other ops "
-            "wait for the Session collectives, ROADMAP A4)")
+            f"{name}: op {op!r} has no ring kernel (sum and mean only; the Session "
+            "routes other ops to the one-shot all-reduce: session.Session.all_reduce)")
 
 
 def _blocks(chunk: int, itemsize: int, max_blocks: int) -> int:
@@ -308,6 +312,34 @@ def ring_all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tenso
         mine = _rs_kernel([x.contiguous()], [chunk], group)[0]
         out = _ag_kernel([mine], [size], group)[0].view(x.shape)
     return out.mul_(1.0 / n) if op == "mean" else out
+
+
+def ring_all_reduce_group(xs: Sequence[torch.Tensor], group=None, op: str = "sum"
+                          ) -> List[torch.Tensor]:
+    """`ring_all_reduce` of every tensor of xs (one dtype, one device) as
+    one ring: B5 over every tensor's chunks, then B6, one launch each per
+    run of `segment_plan` (the Session's grouped all-reduce); each result
+    bit-equal to a call per tensor.  Empty tensors are returned as given."""
+    n = _world(group)
+    _check_group("ring_all_reduce", xs)
+    if xs:
+        _check("ring_all_reduce", xs[0], op)
+    full = [x for x in xs if x.numel()]
+    if n == 1 or not full:
+        return list(xs)
+    sizes = [x.numel() for x in full]
+    chunks = [_chunk_elems(size, n) for size in sizes]
+    if kernel_mode(full[0].device) == "plain":
+        mines = ring_reduce_scatter_group(
+            [C._padded_chunks(x, n, c) for x, c in zip(full, chunks)], group)
+        outs = [g.reshape(-1)[:size] for g, size in zip(ring_all_gather_group(mines, group),
+                                                         sizes)]
+    else:
+        mines = _rs_kernel([x.reshape(-1).contiguous() for x in full], chunks, group)
+        outs = _ag_kernel(mines, sizes, group)
+    it = iter(o.view(x.shape).mul_(1.0 / n) if op == "mean" else o.view(x.shape)
+              for o, x in zip(outs, full))
+    return [next(it) if x.numel() else x for x in xs]
 
 
 # --------------------------------------------------- fused-codec ring ----

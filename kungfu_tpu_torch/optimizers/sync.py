@@ -19,17 +19,24 @@ the same update and the replicas stay identical.
                gradient runs their plain ring over the process group
   ring         the lax ring of ops/collective.py, times 1/world
   rs_ag        reduce-scatter + all-gather of ops/collective.py, times 1/world
+  hierarchical reduce-scatter within the host, all-reduce across hosts,
+               all-gather within the host (ops.collective.
+               hierarchical_all_reduce), times 1/world; `group` is then a
+               ("dcn", "ici") mesh (plan.make_hierarchical_mesh), as the
+               JAX package takes axis_name=(dcn, ici)
 
 `bucket_bytes` packs consecutive same-dtype gradients into flat buffers of
 at most that size and reduces each buffer with one collective.  The pmean
 is element-wise, so bucketed and unbucketed results are identical; the
 rings chunk the buffer they are given, so bucketing moves chunk
 boundaries and with them the order of some adds.  `bucket_bytes="auto"`
-(the tuner) and impl="hierarchical" are not ported yet and raise.
+(the tuner) is not ported yet and raises.
 
 `compression` selects the gradient wire format (kungfu_tpu_torch.compression):
 a CompressionConfig or registered name ("int8", "fp8", "bf16", "int8-sr"),
-or a {axis: config} dict over the data-parallel axis "dp".  Quantized
+or a {axis: config} dict over the data-parallel axis "dp" (under
+impl="hierarchical" over "dcn" and "ici": {"dcn": "int8"} quantizes the
+cross-host leg alone, `compression.hierarchical_all_reduce`).  Quantized
 configs with error_feedback=True keep an f32 residual per gradient
 (compression.error_feedback, in place: correct_, residual_update_): each
 step reduces g + e, casts the result back to the gradient's dtype, and
@@ -53,53 +60,75 @@ import torch
 import torch.distributed as dist
 
 from .. import compression as Comp
-from ..ops import collective as C
 from ..ops import peer_memory, ring_collectives
+from ..plan.mesh import Mesh
+from ..plan.strategy import Impl
+from ..session import KERNEL_ROUTES, all_reduce_route, run_route
 
 BucketBytes = Union[int, str, None]
 DP_AXIS = "dp"  # the axis name a per-axis compression dict may use for the group
+HIER_AXES = ("dcn", "ici")  # impl="hierarchical": the mesh's axes, outer first
 
 
 def _world(group) -> int:
+    if isinstance(group, Mesh):
+        return group.size
     return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def _axes(impl: str):
+    """The axis names a per-axis compression dict may use under `impl`."""
+    return HIER_AXES if impl == "hierarchical" else (DP_AXIS,)
+
+
+def _hier_mesh(group) -> Mesh:
+    """The group as a hierarchical mesh; raises for anything else."""
+    if not (isinstance(group, Mesh) and group.axis_names == HIER_AXES):
+        raise ValueError("hierarchical reduction needs a ('dcn', 'ici') mesh "
+                         f"(plan.make_hierarchical_mesh) as its group, got {group!r}")
+    return group
+
+
+#: impl= names (the JAX package's) -> the Impl whose route the Session's
+#: table (session.all_reduce_route) gives each reduction
+IMPLS = {"pmean": Impl.PSUM, "pallas_ring": Impl.PALLAS_RING, "ring": Impl.RING,
+         "rs_ag": Impl.RS_AG, "hierarchical": Impl.HIERARCHICAL}
+
+
+def _impl(impl: str) -> Impl:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown reduce impl {impl!r}")
+    return IMPLS[impl]
 
 
 def _mean_reducer(group, impl: str, op: str = "mean") -> Callable[[torch.Tensor], None]:
     """In-place gradient mean (op "mean") or sum (op "sum") over the
-    group, by the named implementation."""
+    group, by the named implementation: the Session's route for its Impl.
+    A ring kernel takes the mean itself; every other route sums, and the
+    mean is taken here, as the JAX package's pmean (/ n) and rings (* 1/n)
+    take it."""
     if op not in ("mean", "sum"):
         raise ValueError(f"op must be 'mean' or 'sum', got {op!r}")
-    average = op == "mean"
-    if impl == "pmean":
-        def reduce(flat: torch.Tensor) -> None:
-            world = _world(group)
-            if world > 1:
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-                if average:
-                    flat.div_(world)
+    kind = _impl(impl)
+    mesh = _hier_mesh(group) if kind is Impl.HIERARCHICAL else None  # refused here, not in a step
+    pg = None if mesh is not None else group
 
-        return reduce
+    def reduce(flat: torch.Tensor) -> None:
+        world = _world(group)
+        if world == 1:
+            return
+        route = all_reduce_route(kind, op, flat.dtype, None, mesh is not None)
+        if route in KERNEL_ROUTES:
+            flat.copy_(run_route(route, flat, pg, op))
+            return
+        flat.copy_(run_route(all_reduce_route(kind, "sum", flat.dtype, None, mesh is not None),
+                             flat, pg, "sum", mesh=mesh))
+        if op == "mean" and kind is Impl.PSUM:
+            flat.div_(world)
+        elif op == "mean":
+            flat.mul_(1.0 / world)
 
-    def times(x: torch.Tensor) -> torch.Tensor:  # the lax rings' sum times 1/n
-        return x.mul_(1.0 / _world(group)) if average else x
-
-    rings = {
-        "pallas_ring": lambda g: ring_collectives.ring_all_reduce(g, group, op=op),
-        "ring": lambda g: times(C.ring_all_reduce(g, group)),
-        "rs_ag": lambda g: times(C.rs_ag_all_reduce(g, group)),
-    }
-    if impl in rings:
-        mean = rings[impl]
-
-        def reduce(flat: torch.Tensor) -> None:
-            if _world(group) > 1:
-                flat.copy_(mean(flat))
-
-        return reduce
-    if impl == "hierarchical":
-        raise NotImplementedError(
-            "impl='hierarchical' needs (dcn, ici) groups, not ported yet (ROADMAP A4)")
-    raise ValueError(f"unknown reduce impl {impl!r}")
+    return reduce
 
 
 def _resolve_bucket_bytes(bucket_bytes: BucketBytes) -> int:
@@ -153,22 +182,31 @@ class CompressedGradState(NamedTuple):
 
 
 def _compressed_reducer(group, impl: str, compression: Comp.AxisCompression):
-    """(reduce(flat) -> the mean of flat over the group, the config whose
-    error the residual tracks) for the selected schedule."""
-    if impl == "hierarchical":
-        raise NotImplementedError(
-            "impl='hierarchical' needs (dcn, ici) groups, not ported yet (ROADMAP A4)")
-    if impl not in ("pmean", "pallas_ring", "ring", "rs_ag"):
-        raise ValueError(f"unknown reduce impl {impl!r}")
-    cfg = Comp.resolve_for_axis(compression, DP_AXIS)
-    if impl == "pallas_ring":
-        ring_collectives.require_fused_kernel(cfg, "mean")  # refuse at construction, not in a step
+    """(reduce(flat, generator) -> the mean of flat over the group, the
+    config whose error the residual tracks): the Session's route for the
+    Impl and the wire."""
+    kind = _impl(impl)
+    if kind is Impl.HIERARCHICAL:
+        mesh = _hier_mesh(group)
+        ici_cfg = Comp.resolve_for_axis(compression, "ici")
+        dcn_cfg = Comp.resolve_for_axis(compression, "dcn")
+        cfg = Comp.AxisConfig.make({"ici": ici_cfg, "dcn": dcn_cfg})
+        # the residual tracks the error of the leg that quantizes first
+        ef_cfg = ici_cfg if ici_cfg.is_quantized else dcn_cfg
+        route = all_reduce_route(kind, "mean", torch.float32, cfg, True)
 
         def reduce(flat, generator):
-            return ring_collectives.fused_ring_all_reduce(flat, group, cfg, op="mean")
-    else:
-        def reduce(flat, generator):
-            return Comp.all_reduce(flat, group, cfg, op="mean", generator=generator)
+            return run_route(route, flat, None, "mean", cfg, mesh=mesh, generator=generator)
+
+        return reduce, ef_cfg
+    cfg = Comp.resolve_for_axis(compression, DP_AXIS)
+    if kind is Impl.PALLAS_RING:
+        ring_collectives.require_fused_kernel(cfg, "mean")  # refuse at construction, not in a step
+
+    def reduce(flat, generator):
+        route = all_reduce_route(kind, "mean", flat.dtype, cfg)
+        return run_route(route, flat, group, "mean", cfg, generator=generator)
+
     return reduce, cfg
 
 
@@ -217,7 +255,7 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None,
     state from step to step: pass the state the previous call returned
     (None at the first step: zero residuals, a generator seeded `seed`);
     the new state is returned.  Without it, None is returned."""
-    Comp.validate_axis_keys(compression, (DP_AXIS,), context="all_reduce_gradients")
+    Comp.validate_axis_keys(compression, _axes(impl), context="all_reduce_gradients")
     grads = [p.grad for p in params if p.grad is not None]
     if compression is not None:
         if op != "mean":
@@ -306,7 +344,7 @@ class SynchronousSGDOptimizer(OptimizerWrapper):
     def __init__(self, inner, group=None, impl: str = "pmean",
                  bucket_bytes: BucketBytes = None,
                  compression: Comp.AxisCompression = None, seed: int = 0):
-        Comp.validate_axis_keys(compression, (DP_AXIS,), context="SynchronousSGDOptimizer")
+        Comp.validate_axis_keys(compression, _axes(impl), context="SynchronousSGDOptimizer")
         super().__init__(inner, group)
         self.impl = impl
         self.bucket_bytes = bucket_bytes
@@ -332,7 +370,7 @@ def synchronous_sgd(inner: Callable[[Iterable[torch.nn.Parameter]], torch.optim.
     `compression` says.  An unported `impl` or `bucket_bytes`, a per-axis
     key that names no axis, or a compression the impl cannot run raises
     here, not at the first step."""
-    Comp.validate_axis_keys(compression, (DP_AXIS,), context="synchronous_sgd")
+    Comp.validate_axis_keys(compression, _axes(impl), context="synchronous_sgd")
     if compression is None:
         _mean_reducer(group, impl)
     else:

@@ -1,18 +1,25 @@
-"""Peer: this process's identity in the cluster and its p2p blob store
-(counterpart of the store half of kungfu_tpu.peer).
+"""Peer: this process's identity in the cluster, its Session and its p2p
+blob store (counterpart of kungfu_tpu.peer).
 
 Re-design of the reference Peer (srcs/go/kungfu/peer/peer.go:27-48): a
 Peer owns this process's identity from the KungFu env contract, joins the
-process group (`distributed.init_distributed`) and runs its blob store
-(`store.StoreServer` on `store.store_port(worker port)`), through which
-the asynchronous gossip pulls other peers' models.
+process group (`distributed.init_distributed`), builds the Session over
+the ranks (`current_session`: a ("dcn", "ici") mesh when the cluster spans
+several hosts with several ranks on a host, else "dp" over every rank)
+and runs its blob store (`store.StoreServer` on `store.store_port(worker
+port)`), through which the asynchronous gossip pulls other peers' models.
 
-The Session (`current_session`), elastic reconfiguration
-(`update_cluster`) and the interference detector raise until their
-modules are ported (ROADMAP A.4, A.5 and A.8).
+Its device is the caller's, else the launcher's KFT_PLATFORM
+(`env.platform_device`: "cpu" puts the Peer and its Session on the CPU),
+else the card.  The module singleton (`default_peer`) is what the scalar
+api (`api.py`) and the torch interop (`kungfu_tpu_torch.torch`) use.
+
+Elastic reconfiguration (`update_cluster`) and the interference detector
+raise until their modules are ported (ROADMAP A.5 and A.8).
 """
 from __future__ import annotations
 
+import atexit
 import time
 from typing import List, Optional
 
@@ -29,7 +36,9 @@ class Peer:
     def __init__(self, config: Optional[kfenv.Config] = None, device=None):
         self.config = config if config is not None else kfenv.parse_config_from_env()
         self.cluster_version = self.config.cluster_version
-        self.device = device
+        self.device = device if device is not None else kfenv.platform_device()
+        self.detached = False
+        self._session = None
         self._started = False
         self._store_server = None
         self._store_client = None
@@ -69,18 +78,22 @@ class Peer:
 
     def start(self) -> "Peer":
         """With more than one peer, start the blob store, then join the
-        process group (`device`: "cuda" unless "cpu").  The store's port is
-        fixed (worker port + STORE_PORT_OFFSET), so it binds before the
-        group's transport takes ephemeral ports that could hold it; and a
-        faster peer must find it listening before its first pull (a miss,
-        never a connection error)."""
+        process group (`device`: "cuda" unless "cpu") and build the Session.
+        The store's port is fixed (worker port + STORE_PORT_OFFSET), so it
+        binds before the group's transport takes ephemeral ports that could
+        hold it; and a faster peer must find it listening before its first
+        pull (a miss, never a connection error)."""
         if self._started:
             return self
         from .distributed import init_distributed
+        from .monitor.journal import set_journal_context
 
         if self.size > 1:
             self._ensure_store()
         init_distributed(self.config, device=self.device)
+        self._session = self._build_session()
+        # journal stamps follow the current incarnation
+        set_journal_context(rank=self.rank, cluster_version=self.cluster_version)
         self._started = True
         log.info("peer up: rank %d/%d local %d/%d hosts %d version %d", self.rank, self.size,
                  self.local_rank, self.local_size, self.host_count, self.cluster_version)
@@ -96,9 +109,25 @@ class Peer:
         host = self.self_id.host
         return host if host.startswith("127.") else "0.0.0.0"
 
+    def _build_session(self):
+        """The Session over every rank: hierarchical (dcn x ici) when there
+        are several hosts and several ranks on a host (the JAX package
+        counts the devices of a host; here a rank is one card), else flat."""
+        from .plan import make_hierarchical_mesh, make_mesh
+        from .session import Session
+
+        if self.host_count > 1 and self.local_size > 1:
+            mesh = make_hierarchical_mesh(self.host_count)
+        else:
+            mesh = make_mesh(dp=-1)
+        return Session(mesh=mesh, strategy=self.config.strategy, host_count=self.host_count,
+                       device=self.device)
+
     def current_session(self):
-        raise NotImplementedError("Peer.current_session: the Session is not ported yet "
-                                  "(ROADMAP A.4)")
+        """The Session, starting the peer first if it has not started."""
+        if not self._started:
+            self.start()
+        return self._session
 
     def update_cluster(self, cluster, version: int) -> bool:
         raise NotImplementedError("Peer.update_cluster: elastic reconfiguration is not ported "
@@ -162,3 +191,30 @@ class Peer:
 
             shutdown_distributed()
         self._started = False
+        self._session = None
+
+
+# -- module singleton (reference src/python/init.cpp:12-41 _default_peer) -------------
+
+_default_peer: Optional[Peer] = None
+
+
+def default_peer() -> Peer:
+    """The process's Peer, started on first use (closed at exit)."""
+    global _default_peer
+    if _default_peer is None:
+        _default_peer = Peer().start()
+        atexit.register(finalize_default_peer)
+    return _default_peer
+
+
+def set_default_peer(p: Optional[Peer]) -> None:
+    global _default_peer
+    _default_peer = p
+
+
+def finalize_default_peer() -> None:
+    global _default_peer
+    if _default_peer is not None:
+        _default_peer.close()
+        _default_peer = None

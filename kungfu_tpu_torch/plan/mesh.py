@@ -14,7 +14,10 @@ axis:
 
 The data axes (dp, and fsdp: `fsdp.FSDPTrainer` shards the model over
 it) and the sequence axis (sp) are ported; a mesh that names pp, ep or tp
-raises NotImplementedError (ROADMAP.md A.6).
+raises NotImplementedError (ROADMAP.md A.6).  `make_hierarchical_mesh`
+makes the ("dcn", "ici") mesh of the Session's hierarchical strategies.
+The JAX module's `data_sharding` and `replicated` name jax shardings and
+have no counterpart: a rank holds its own rows.
 Without a process group the world is this process, and every group is
 None (a world of one).
 """
@@ -109,8 +112,6 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int) -> Mesh:
     `make_mesh(fsdp=4)` one model sharded over four ranks;
     `make_mesh(dp=1, sp=4)` one sequence over four ranks.  Collective:
     every rank makes the same mesh, in the same order."""
-    from ..distributed import sub_group
-
     if spec is None:
         spec = MeshSpec.make(**(sizes or {"dp": -1}))
     later = [a for a, _ in spec.axes if a not in PORTED_AXES]
@@ -118,8 +119,37 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int) -> Mesh:
         raise NotImplementedError(
             f"mesh axes {later} are not ported yet (dp, fsdp and sp are; see ROADMAP.md A.6)")
     world = dist.get_world_size() if dist.is_initialized() else 1
-    shape = spec.resolve(world)
-    if world == 1:
+    return _mesh(spec.resolve(world))
+
+
+def make_hierarchical_mesh(n_hosts: int) -> Mesh:
+    """The ("dcn", "ici") mesh: the outer axis across hosts, the inner one
+    within a host, rank r at (r // per_host, r % per_host), so the ranks of
+    each host must be consecutive, as the launcher numbers them.  The
+    analog of the reference's hierarchical all-reduce split (local reduce,
+    cross-host all-reduce, local broadcast; srcs/cpp/src/nccl/controller.cpp:
+    8-40): collectives over "ici" stay on a host, those over "dcn" cross
+    hosts.  Collective, as `make_mesh`."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_hosts < 1 or world % n_hosts:
+        raise ValueError(f"{world} ranks not divisible by {n_hosts} hosts")
+    return _mesh({"dcn": n_hosts, "ici": world // n_hosts})
+
+
+def _mesh(shape: Dict[str, int]) -> Mesh:
+    """This rank's Mesh of `shape` (covering every rank), with a group an axis."""
+    from ..distributed import sub_group
+
+    if math.prod(shape.values()) == 1:
         return Mesh(shape, 0, dict.fromkeys(shape))
     return Mesh(shape, dist.get_rank(),
                 {axis: sub_group(axis_partition(shape, axis)) for axis in shape})
+
+
+def mesh_digest(mesh: Mesh) -> str:
+    """Stable digest of the mesh's shape and ranks, for membership consensus
+    (the JAX package digests its shape and device ids)."""
+    import hashlib
+
+    desc = f"{dict(mesh.shape)}|{','.join(map(str, range(mesh.size)))}"
+    return hashlib.sha256(desc.encode()).hexdigest()[:16]

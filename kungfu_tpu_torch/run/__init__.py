@@ -1,6 +1,7 @@
 """The launcher, `python -m kungfu_tpu_torch.run -np 4 <worker>` (counterpart
-of kungfu_tpu.run): static mode only; watch, heal and elastic mode wait for
-the elastic slice (ROADMAP A4)."""
+of kungfu_tpu.run): static mode, and `run/distribute.py` (parallel ssh and
+remote static jobs); watch, heal and elastic mode wait for the elastic
+slice (ROADMAP A.5)."""
 from .job import ChipPool, Job, Proc
 from .launcher import ProcRunner, simple_run
 

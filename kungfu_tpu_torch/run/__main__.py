@@ -1,12 +1,18 @@
 """The launcher CLI: `python -m kungfu_tpu_torch.run -np 4 python train.py`.
 
 Static mode of the JAX package's CLI (kungfu_tpu/run/__main__.py), with
-its flags: -np, -H, -self, -strategy, -k, -logdir, -q and -chips-per-host.
-Each worker gets the KungFu env contract (`env.worker_env`) and picks its
-own card (`distributed.placement`); -chips-per-host N instead gives each
-worker one card slot of N through CUDA_VISIBLE_DEVICES, as the JAX CLI
-does with TPU_VISIBLE_CHIPS.  Every other flag of the JAX CLI raises,
-naming the ROADMAP item that will port it; none is ignored.
+its flags: -np, -H, -self, -strategy, -k, -logdir, -q, -chips-per-host,
+-platform and -devices-per-worker.  Each worker gets the KungFu env
+contract (`env.worker_env`) and picks its own card
+(`distributed.placement`); -chips-per-host N instead gives each worker one
+card slot of N through CUDA_VISIBLE_DEVICES, as the JAX CLI does with
+TPU_VISIBLE_CHIPS.  -platform cpu puts the workers' Peer and Session on
+the CPU (KFT_PLATFORM); -devices-per-worker takes 1 only (a worker is one
+rank with one card).  `-strategy` reaches each worker's Session through
+KFT_ALLREDUCE_STRATEGY.  Every other flag of the JAX CLI raises, naming
+the ROADMAP item that will port it (A.5: watch, heal, elastic and the
+config servers; A.8: fleet telemetry); none is ignored.  Multi-host
+launches over ssh: `run/distribute.py`.
 """
 from __future__ import annotations
 
@@ -19,24 +25,22 @@ from ..plan import Cluster, HostList, Strategy
 from .job import Job
 from .launcher import install_signal_trap, simple_run
 
-# flag -> (argparse options, what it does in the JAX CLI)
+# flag -> (argparse options, what it does in the JAX CLI, the ROADMAP item porting it)
 UNPORTED: Dict[str, tuple] = {
-    "-w": ({"action": "store_true"}, "watch (elastic) mode"),
-    "-heal": ({"action": "store_true"}, "self-healing watch mode"),
-    "-restart-budget": ({"type": int}, "restarts after a heal"),
-    "-heartbeat-timeout": ({"type": float}, "the healer's worker heartbeat"),
-    "-suspicion-timeout": ({"type": float}, "the healer's host suspicion window"),
-    "-timeout": ({"type": float}, "the watch-mode timeout"),
-    "-telemetry": ({"action": "store_true"}, "fleet telemetry"),
-    "-telemetry-port": ({"type": int}, "the fleet telemetry port"),
-    "-slo-file": ({}, "the fleet SLO rules"),
-    "-slo-exit-code": ({"action": "store_true"}, "the SLO exit code"),
-    "-config-server": ({}, "the elastic config server"),
-    "-builtin-config-server": ({"action": "store_true"}, "an embedded config server"),
-    "-port": ({"type": int}, "the embedded config server's port"),
-    "-config-replicas": ({"type": int}, "a replicated config ensemble"),
-    "-platform": ({}, "the workers' JAX platform (here each worker picks its device)"),
-    "-devices-per-worker": ({"type": int}, "virtual CPU devices per worker"),
+    "-w": ({"action": "store_true"}, "watch (elastic) mode", "A.5"),
+    "-heal": ({"action": "store_true"}, "self-healing watch mode", "A.5"),
+    "-restart-budget": ({"type": int}, "restarts after a heal", "A.5"),
+    "-heartbeat-timeout": ({"type": float}, "the healer's worker heartbeat", "A.5"),
+    "-suspicion-timeout": ({"type": float}, "the healer's host suspicion window", "A.5"),
+    "-timeout": ({"type": float}, "the watch-mode timeout", "A.5"),
+    "-config-server": ({}, "the elastic config server", "A.5"),
+    "-builtin-config-server": ({"action": "store_true"}, "an embedded config server", "A.5"),
+    "-port": ({"type": int}, "the embedded config server's port", "A.5"),
+    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5"),
+    "-telemetry": ({"action": "store_true"}, "fleet telemetry", "A.8"),
+    "-telemetry-port": ({"type": int}, "the fleet telemetry port", "A.8"),
+    "-slo-file": ({}, "the fleet SLO rules", "A.8"),
+    "-slo-exit-code": ({"action": "store_true"}, "the SLO exit code", "A.8"),
 }
 
 
@@ -86,21 +90,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("-q", dest="quiet", action="store_true")
     ap.add_argument("-chips-per-host", dest="cards_per_host", type=int, default=0,
                     help="give each worker one of this many card slots (CUDA_VISIBLE_DEVICES)")
-    for flag, (opts, _) in UNPORTED.items():
+    ap.add_argument("-platform", default="",
+                    help="the workers' device: cpu or gpu (default: the card)")
+    ap.add_argument("-devices-per-worker", dest="devices_per_worker", type=int, default=1,
+                    help="devices per worker: 1 (a worker is one rank with one card)")
+    for flag, (opts, _, _) in UNPORTED.items():
         ap.add_argument(flag, dest="unported_" + flag[1:].replace("-", "_"), default=None,
                         help=argparse.SUPPRESS, **opts)
     flags, prog = _split(argv, ap)
     args = ap.parse_args(flags)
-    for flag, (_, what) in UNPORTED.items():
+    for flag, (_, what, item) in UNPORTED.items():
         if getattr(args, "unported_" + flag[1:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(f"{flag} ({what}) is not ported yet (ROADMAP A4)")
+            raise NotImplementedError(f"{flag} ({what}) is not ported yet (ROADMAP {item})")
 
     if not prog:
         ap.error("missing worker command")
     hosts = HostList.parse(args.hosts) if args.hosts else HostList.parse(f"127.0.0.1:{args.np}")
     cluster = Cluster.from_hostlist(hosts, args.np)
     job = Job(prog=prog[0], args=prog[1:], strategy=Strategy.parse(args.strategy),
-              cards_per_host=args.cards_per_host)
+              cards_per_host=args.cards_per_host, platform=args.platform,
+              devices_per_worker=args.devices_per_worker)
     install_signal_trap()
     return simple_run(job, cluster, args.self_host or infer_self_ip(hosts),
                       logdir=args.logdir, quiet=args.quiet, keep=args.keep)

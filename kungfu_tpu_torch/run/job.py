@@ -7,7 +7,9 @@ Card slots are opt-in, as `chips_per_host` is in the JAX package: with
 CUDA_VISIBLE_DEVICES.  By default nothing is narrowed, since a rank's ring
 peers must stay visible to it (the ring kernels map their memory); each
 rank then picks card local_rank mod count itself
-(`distributed.placement`).
+(`distributed.placement`).  `platform` ("cpu" or "gpu", "" to inherit)
+reaches the workers as KFT_PLATFORM (`env.platform_device`); a worker is
+one rank with one card, so `devices_per_worker` takes 1 only.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import dataclasses
 import os
 from typing import Dict, List, Optional
 
-from ..env import worker_env
+from ..env import PLATFORM, platform_device, worker_env
 from ..plan import Cluster, PeerID, Strategy
 
 
@@ -44,12 +46,23 @@ class Job:
     args: List[str]
     strategy: Strategy
     cards_per_host: int = 0  # 0 = leave CUDA_VISIBLE_DEVICES alone
+    platform: str = ""  # "" = inherit; "cpu" puts the workers on the CPU
+    devices_per_worker: int = 1
+
+    def __post_init__(self):
+        if self.devices_per_worker != 1:
+            raise ValueError(
+                f"devices_per_worker={self.devices_per_worker}: a worker of the port is one "
+                "rank with one card (or the CPU); start one worker a card instead")
+        platform_device({PLATFORM: self.platform})  # refuse an unknown platform at launch
 
     def new_proc(self, peer: PeerID, chip: int, cluster: Cluster, version: int,
                  parent: Optional[PeerID] = None) -> Proc:
         env = dict(os.environ)
         env.update(worker_env(self_id=peer, cluster=cluster, version=version,
                               strategy=self.strategy, parent=parent))
+        if self.platform:
+            env[PLATFORM] = self.platform
         if self.cards_per_host > 0 and chip >= 0:
             # a pre-set visible list is respected: the slot indexes into it
             pre = env.get("CUDA_VISIBLE_DEVICES")

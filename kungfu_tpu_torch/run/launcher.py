@@ -2,7 +2,7 @@
 `ProcRunner` and `simple_run`): start every local worker, prefix its
 output with its rank, wait for all, and on the first failure stop the
 rest (unless keep) and return that worker's exit code.  Watch, heal and
-elastic mode wait for the elastic slice (ROADMAP A4).
+elastic mode wait for the elastic slice (ROADMAP A.5).
 """
 from __future__ import annotations
 

@@ -40,19 +40,25 @@ def _free_port_range(n: int, max_port: int, offsets: Sequence[int]) -> int:
 
 
 def start_ranks(worker: str, n: int, args: Sequence[str],
-                max_port: Optional[int] = None, offsets: Sequence[int] = ()) -> list:
+                max_port: Optional[int] = None, offsets: Sequence[int] = (),
+                hosts: Optional[Sequence[str]] = None,
+                env: Optional[Dict[str, str]] = None) -> list:
     """Start `worker` (Python source) on n ranks; each gets `args`.  With
     `max_port`, the worker ports are at most that and free, as is each of
     them plus every one of `offsets` (the blob store takes worker port +
-    store.STORE_PORT_OFFSET, at most 65535)."""
+    store.STORE_PORT_OFFSET, at most 65535).  `hosts` names each rank's
+    host (loopback aliases such as 127.0.0.2 stand for other hosts; the
+    default is 127.0.0.1 for all); `env` is added to each rank's."""
     port = _free_port() if max_port is None else _free_port_range(n, max_port, offsets)
-    peers = ",".join(f"127.0.0.1:{port + r}" for r in range(n))
+    hosts = list(hosts) if hosts is not None else ["127.0.0.1"] * n
+    specs = [f"{hosts[r]}:{port + r}" for r in range(n)]
+    peers = ",".join(specs)
     procs = []
     for r in range(n):
-        env = dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,
-                   PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+        env_r = dict(os.environ, KFT_SELF_SPEC=specs[r], KFT_INIT_PEERS=peers,
+                     PYTHONPATH=REPO, OMP_NUM_THREADS="1", **(env or {}))
         procs.append(subprocess.Popen([sys.executable, "-c", worker, *map(str, args)],
-                                      env=env, stdout=subprocess.PIPE,
+                                      env=env_r, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
     return procs
 

@@ -316,8 +316,9 @@ def test_config_registry_matches_jax(jc):
     ax = tc.AxisConfig.make({"dcn": "int8", "ici": None})
     assert hash(ax) == hash(tc.AxisConfig.make({"ici": None, "dcn": "int8"}))
     assert ax.describe() == jc.AxisConfig.make({"dcn": "int8", "ici": None}).describe()
-    with pytest.raises(NotImplementedError, match="A4"):
-        tc.hierarchical_all_reduce(torch.zeros(4), None, None)
+    x = torch.arange(4.0)  # one rank: each leg a group of one
+    assert torch.equal(tc.hierarchical_all_reduce(x, None, None, dcn_config="int8"),
+                       tc.all_reduce(x, None, "int8"))
 
 
 # -- compression.all_reduce on gloo ranks against the JAX shard_map --------

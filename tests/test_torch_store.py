@@ -216,7 +216,7 @@ def test_peer_identity_and_refusals():
     assert (p.rank, p.size, p.local_rank, p.local_size, p.host_count) == (1, 3, 1, 2, 2)
     assert p.uid() == (3 << 32) | 1 and p.self_id == peers[1]
     assert p._bind_host() == "0.0.0.0"
-    for call, item in ((p.current_session, "A.4"), (lambda: p.update_cluster(None, 1), "A.5"),
+    for call, item in ((lambda: p.update_cluster(None, 1), "A.5"),
                        (p.interference_detector, "A.8")):
         with pytest.raises(NotImplementedError, match=item):
             call()

@@ -538,7 +538,7 @@ def test_compressed_sync_matches_jax(ref, tmp_path, monkeypatch, impl,
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="'dcn', 'ici'"):  # it takes a (dcn, ici) mesh
         synchronous_sgd(adamw(LR), impl="hierarchical")
     with pytest.raises(NotImplementedError):
         synchronous_sgd(adamw(LR), bucket_bytes="auto")
