@@ -184,6 +184,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              on a 2 x 2 ("dcn", "ici") mesh, on 4 MB tensors, each equal to
              the answer every rank computes from the seed; each part's
              steady step, the ranks' calc_stats()
+ 8e. elastic KungFu's elastic resize on the flagship (phase ranks' model,
+             batch 2 a rank of phase main's 8 sequences through
+             datasets.ElasticDataAdaptor): `python -m kungfu_tpu_torch.run
+             -w -np 4` with its embedded config server runs
+             elastic.run_elastic with make_tx = synchronous_sgd(adamw(3e-4,
+             b1=0.9, b2=0.95), impl="pallas_ring", bucket_bytes=--bucket-mib
+             MiB), schedule ELASTIC_SCHEDULE (4 ranks, then 2: ranks 2 and 3
+             detach, then 4: two joiners from fresh init), check_every 2,
+             ELASTIC_SAMPLES samples, checkpoints every 3 steps into a
+             temporary directory: the launcher exits 0; four RESULT lines
+             with trained=40 and final_size=4, the survivors' resizes=2;
+             two DETACHED lines; each survivor's two resize events with
+             every phase; the joiners' parameter checksums after the grow's
+             sync equal to rank 0's; the four ranks' checksums bit-identical
+             after the last step; the first loss within 1e-2 of phase
+             main's, every loss finite; B1-B3 once a layer and B5/B6 once a
+             bucket in every step on every rank (the first after each
+             resize too); no ring workspace left when each new group forms;
+             each group's rendezvous at peer.coordinator_port(root port,
+             version); then, in this process, restore_latest_verified gives
+             the last step with rank 0's final checksum, and a byte flipped
+             in a leaf file of that step is demoted and the step before it
+             restored and verified; each resize's phase times, each
+             joiner's resume from the checkpoints at its start, the steady
+             step at 4 ranks and the step after step 3's save at 2 (the
+             schedule leaves no steady step there), each save's time
  9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
@@ -264,8 +290,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              fused for B9 and B10, phase wide's model step for the wide
              family, phase gqa for the others; B11's entry also holds its
              launches in phase sp and in phase gossip (a) and (b),
-             `launches_by_phase`; B5 and B6 theirs in phases ranks and
-             session, B7 and B8 in phases gqa and session), then the last
+             `launches_by_phase`; B5 and B6 theirs in phases ranks,
+             session and elastic, B1-B3 theirs in phases ranks and
+             elastic, B7 and B8 in phases gqa and session), then the last
              line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
@@ -374,6 +401,12 @@ DIGEST_ROW = 1 << 14  # int32 words a row of a gossip chunk's position digest
 SP_LINE = "SP_RESULT "
 FSDP_LINE = "FSDP_RESULT "
 SESSION_LINE = "SESSION_RESULT "
+ELASTIC_LINE = "ELASTIC_RESULT "  # a rank that trained to the end
+ELASTIC_LEFT = "ELASTIC_LEFT "  # a rank that detached, at its exit
+ELASTIC_SCHEDULE = "4:2,2:2,4:2"
+ELASTIC_SAMPLES = 40  # 6 steps: 2 at 4 ranks, 2 at 2, 2 at 4 (batch 2 a rank)
+ELASTIC_CKPT_EVERY = 3
+ELASTIC_TIMEOUT = 540  # the phase's own limit (the launcher's -timeout)
 # Phase session: (a) the interop S-SGD's steps under PALLAS_RING, (b) the
 # steps after the swap to PALLAS_RING_FUSED with int8, each at phase
 # adaptive's SGD rate; (c)'s bucket and the size of its small collectives
@@ -1397,6 +1430,167 @@ def phase_session(card: str, batch: int, seed: int, main_loss1: float):
     return {k.name: a[k.name] + b[k.name] for k in RC.KERNELS}
 
 
+def state_checksum(sd) -> list:
+    """The bits of every tensor of a state dict, one int64 sum each (the
+    checksum of phase ranks, for any element size)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [t.detach().reshape(-1).view(ints[t.element_size()]).to(torch.int64).sum().item()
+            for t in sd.values()]
+
+
+def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: float):
+    """KungFu's elastic resize on N_RANKS ranks of the flagship under the
+    launcher's watch mode, then the checkpoints it left, read back and
+    faulted in this process.  Returns rank 0's launches in the run."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.checkpoint import CheckpointManager
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    t_phase = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="kft-elastic-")
+    try:
+        out, res = spawn_ranks(["elastic", "--batch", str(batch), "--seed", str(seed),
+                                "--bucket-mib", str(bucket_mib), "--ckpt-dir", ckpt_dir],
+                               ELASTIC_LINE, ELASTIC_TIMEOUT + 60,
+                               launcher_args=["-w", "-timeout", str(ELASTIC_TIMEOUT)])
+        lines = out.splitlines()
+        for line in lines:
+            if "[elastic]" in line:
+                print(line)
+        results = [line for line in lines if re.match(r"^\[\d+\] RESULT: elastic ", line)]
+        detached = [line for line in lines if "DETACHED:" in line]
+        left = {}
+        for line in lines:
+            m = re.match(r"^\[(\d+)\] " + re.escape(ELASTIC_LEFT) + r"(.*)$", line)
+            if m:
+                left[len(left)] = json.loads(m.group(2))
+        check(len(results) == N_RANKS and all("trained=40 " in x and "final_size=4 " in x
+                                               for x in results),
+              f"elastic: RESULT lines {results}")
+        check(len(detached) == 2 and len(left) == 2,
+              f"elastic: {len(detached)} DETACHED lines, {len(left)} detached ranks' records")
+        r0 = res[0]
+        for r, rr in sorted(res.items()):
+            check(rr["ok"], f"elastic: rank {r} failed its checks: "
+                  f"{json.dumps({k: v for k, v in rr['checks'].items() if not v})}")
+        for who, rr in [*(("rank %d" % r, rr) for r, rr in res.items()),
+                        *(("a detached rank", rr) for rr in left.values())]:
+            check(all(st["launches"] == st["want"] for st in rr["steps"]),
+                  f"elastic: {who}'s launches in its steps "
+                  f"{json.dumps([(st['step'], st['launches']) for st in rr['steps']])}")
+            check(all(i["workspaces"] == 0 and i["port"] == i["fenced_port"]
+                      for i in rr["inits"]), f"elastic: {who}'s groups {rr['inits']}")
+        check([i["version"] for i in r0["inits"]] == [0, 1, 2]
+              and len({i["port"] for i in r0["inits"]}) == 3,
+              f"elastic: rank 0's groups {r0['inits']}, expected versions 0, 1 and 2 at ports "
+              f"of their own")
+        survivors = [r for r, rr in res.items() if rr["resizes"] == 2]
+        joiners = [r for r, rr in res.items() if rr["resizes"] == 0]
+        check(sorted(survivors) == [0, 1] and sorted(joiners) == [2, 3],
+              f"elastic: survivors {survivors}, joiners {joiners}")
+        for r in survivors:
+            evs = res[r]["resize_events"]
+            want = {"snapshot", "ckpt_release", "teardown", "reinit", "rebuild", "sync",
+                    "first_step"}
+            check(len(evs) == 2 and all(set(e["phases"]) == want for e in evs),
+                  f"elastic: rank {r}'s resize events {evs}")
+        grow = max(s["version"] for s in r0["syncs"])
+        sync0 = next(s["checksum"] for s in r0["syncs"] if s["version"] == grow)
+        for r in joiners:
+            check([s["checksum"] for s in res[r]["syncs"]] == [sync0],
+                  f"elastic: joiner {r}'s parameters after the grow's sync differ from rank 0's")
+        check(all(rr["final_checksum"] == r0["final_checksum"] for rr in res.values()),
+              "elastic: the ranks' parameters differ after the last step")
+        losses = [st["loss"] for st in r0["steps"]]
+        check(all(math.isfinite(x) for rr in [*res.values(), *left.values()]
+                  for x in (st["loss"] for st in rr["steps"])), "elastic: a non-finite loss")
+        check(abs(losses[0] - main_loss1) <= TOL_RANKS_LOSS,
+              f"elastic: first-step loss {losses[0]} vs phase main's {main_loss1}")
+
+        # the checkpoints the run left: the last step restores and verifies
+        # with rank 0's final parameters; a flipped byte demotes it
+        mgr = CheckpointManager(ckpt_dir, is_primary=False)
+        t0 = time.perf_counter()
+        got = mgr.restore_latest_verified()
+        restore_s = time.perf_counter() - t0
+        last = r0["steps"][-1]["step"]
+        check(got is not None and got[2] == last and not got[3],
+              f"elastic: restore_latest_verified gave step {got and got[2]}, expected {last}")
+        check(state_checksum(got[0]["params"]) == r0["final_checksum"],
+              "elastic: the restored parameters differ from rank 0's final ones")
+        steps = mgr.all_steps()
+        check(steps == list(range(ELASTIC_CKPT_EVERY, last + 1, ELASTIC_CKPT_EVERY)),
+              f"elastic: checkpoint steps {steps}: the save at 2 ranks (step 3), released by "
+              f"the grow, and the last")
+        del got
+        leaf = os.path.join(ckpt_dir, str(last), "state", "0.bin")
+        with open(leaf, "r+b") as f:
+            f.seek(os.path.getsize(leaf) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x10]))
+        got = mgr.restore_latest_verified()
+        check(got is not None and got[2] == steps[-2] and len(got[3]) == 1
+              and got[3][0]["candidate"] == f"step:{last}"
+              and "checksum mismatch" in got[3][0]["reason"],
+              f"elastic: the planted fault gave {got and (got[2], got[3])}, expected step "
+              f"{steps[-2]} after demoting {last}")
+        del got
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    for r in survivors:
+        for ev in res[r]["resize_events"]:
+            print(f"[elastic] rank {r} resize v{ev['version']} {ev['old_size']} -> "
+                  f"{ev['new_size']} on {card}: {ev['total_s']:.2f} s, phases (s) "
+                  f"{json.dumps(ev['phases'])}, propose to done "
+                  f"{ev.get('propose_to_done_s', 'n/a')} s")
+    # the grow's sync: the survivors wait for the joiners, then rank 0 sends
+    enter = {r: next(s["t0"] for s in rr["syncs"] if s["version"] == grow)
+             for r, rr in res.items()}
+    leave = max(next(s["t1"] for s in rr["syncs"] if s["version"] == grow)
+                for rr in res.values())
+    for r in joiners:
+        rr = res[r]
+        restores = ", ".join(f"step {x['step']} in {x['s']:.2f} s" for x in rr["restores"])
+        print(f"[elastic] joiner rank {r}: worker start to its group "
+              f"{rr['inits'][0]['t_joined'] - rr['t_start']:.2f} s, to its sync "
+              f"{enter[r] - rr['t_start']:.2f} s; of it the resume from the checkpoint "
+              f"directory (restore_latest_verified) {restores or 'none'}")
+    peaks = " ".join(f"{rr['host_peak_gib']:.2f}" for rr in res.values())
+    print(f"[elastic] grow v{grow}: the survivors waited {max(enter.values()) - enter[0]:.2f} s "
+          f"in the sync for the joiners, then the broadcast of rank 0's state took "
+          f"{leave - max(enter.values()):.2f} s; host peak per rank {peaks} GiB")
+    # a step is steady if it is not the first on its group and does not
+    # follow a save (rank 0's writer thread then copies and writes 4 GiB)
+    for size in (2, 4):
+        for label, after_save in (("steady step", False), ("step after a save", True)):
+            times = [st["s"] for rr in res.values() for st in rr["steps"]
+                     if st["world"] == size and not st["first"]
+                     and ((st["step"] - 1) % ELASTIC_CKPT_EVERY == 0) == after_save]
+            if times:
+                print(f"[elastic] {label} at {size} ranks on {card}: slowest rank "
+                      f"{max(times) * 1e3:.1f} ms, median "
+                      f"{statistics.median(times) * 1e3:.1f} ms ({len(times)} rank-steps)")
+            elif not after_save:
+                print(f"[elastic] no steady step at {size} ranks in {ELASTIC_SCHEDULE}: each "
+                      f"step there is the first on its group or follows a save")
+    for sv in r0["saves"]:
+        print(f"[elastic] checkpoint step {sv['step']} on {card}: save() (host copy) "
+              f"{sv['save_s']:.2f} s, write + manifest {sv['write_s']:.2f} s, "
+              f"{sv['gib']:.2f} GiB")
+    print(f"[elastic] {N_RANKS} -> 2 -> {N_RANKS} ranks ({ELASTIC_SCHEDULE}), losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, first {losses[0]:.4f} vs phase main's "
+          f"{main_loss1:.4f}; joiners synced bit-equal to rank 0; replicas bit-identical at the "
+          f"end; restore_latest_verified step {last} in {restore_s:.2f} s, a flipped byte "
+          f"demoted it to step {steps[-2]}; rank 0 launches {json.dumps(r0['launches'])}; "
+          f"the phase {time.perf_counter() - t_phase:.1f} s")
+    return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
+
+
 def phase_shift(seed: int):
     """B11 on N_RANKS ranks against its stacked plain version, interleaved
     with B5-B8; its time, the plain version's and the bound."""
@@ -2206,6 +2400,180 @@ def rank_session(argv) -> int:
     return 0 if result["ok"] else 1
 
 
+def rank_elastic(argv) -> int:
+    """One worker of phase elastic (run by the launcher in watch mode): the
+    flagship under elastic.run_elastic, instrumented to record each step's
+    loss, time and launches, each group's rendezvous, each sync's
+    parameters and each checkpoint save."""
+    import atexit
+    import resource
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import checkpoint as CK
+    from kungfu_tpu_torch import distributed, train
+    from kungfu_tpu_torch import peer as peer_mod
+    from kungfu_tpu_torch.datasets import ElasticDataAdaptor
+    from kungfu_tpu_torch.elastic import trainer as ET
+    from kungfu_tpu_torch.env import parse_config_from_env
+    from kungfu_tpu_torch.ops import flash, peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.models.transformer import FLAGSHIP_GPT, TransformerConfig
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens, lm_step_loss
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    ap.add_argument("--ckpt-dir", required=True)
+    args = ap.parse_args(argv)
+    tf32_off()
+    bucket = args.bucket_mib << 20
+    kernels = flash.KERNELS + RC.KERNELS
+    # wall-clock stamps (time.time(): the ranks share a host) split a
+    # resize's sync into the wait for the joiners and the broadcast
+    rec = {"steps": [], "inits": [], "syncs": [], "saves": [], "restores": [],
+           "t_start": time.time()}
+    first = {"flag": True}
+
+    # each group's rendezvous: its port, and the ring workspaces left then
+    init_distributed, init_process_group = distributed.init_distributed, dist.init_process_group
+
+    def init_pg(*a, **kw):
+        rec["inits"][-1]["port"] = int(kw["init_method"].rsplit(":", 1)[1])
+        return init_process_group(*a, **kw)
+
+    def init_rec(config=None, device=None):
+        cfg = config if config is not None else parse_config_from_env()
+        rec["inits"].append({"version": cfg.cluster_version, "world": len(cfg.peers),
+                             "workspaces": len(peer_memory._WORKSPACES),
+                             "fenced_port": peer_mod.coordinator_port(cfg.peers[0].port,
+                                                                      cfg.cluster_version)})
+        out = init_distributed(cfg, device)
+        rec["inits"][-1]["t_joined"] = time.time()
+        return out
+
+    distributed.init_distributed, dist.init_process_group = init_rec, init_pg
+
+    # each step: its loss (the group's mean), time and kernel launches
+    train_step = train.DataParallelTrainer.train_step
+    n_buckets = []
+
+    def step_rec(self, state, batch):
+        if not n_buckets:
+            n_buckets.append(len(_pack_buckets(list(state.params.parameters()), bucket)))
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(self, state, batch)
+        loss = metrics["loss"].item()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches - before[k.name] for k in kernels}
+        want = {k.name: 0 for k in kernels}
+        want.update({k.name: state.params.cfg.n_layers for k in
+                     (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
+        want.update({k.name: n_buckets[0] for k in (RC.RING_RS, RC.RING_AG)})
+        rec["steps"].append({"step": state.step, "world": self.world, "loss": loss, "s": dt,
+                             "first": first["flag"], "launches": launches, "want": want})
+        first["flag"] = False
+        print(f"[elastic] rank {dist.get_rank()}/{self.world} step {state.step}: loss "
+              f"{loss:.4f}, {dt * 1e3:.1f} ms", flush=True)
+        return state, metrics
+
+    train.DataParallelTrainer.train_step = step_rec
+
+    # each sync: the parameters every rank then holds
+    sync_state = ET._GroupPrograms.sync_state
+
+    def sync_rec(self, counters, host_tree):
+        t0 = time.time()
+        out = sync_state(self, counters, host_tree)
+        rec["syncs"].append({"version": peer_mod.default_peer().cluster_version, "t0": t0,
+                             "t1": time.time(), "checksum": state_checksum(out[1]["params"])})
+        first["flag"] = True  # the next step is the first on the new group
+        return out
+
+    ET._GroupPrograms.sync_state = sync_rec
+
+    # each checkpoint: save()'s host copy, and the writer's time
+    save, write_step = CK.CheckpointManager.save, CK.CheckpointManager._write_step
+
+    def save_rec(self, step, state, meta=None, force=False):
+        sv = {"step": step}
+        rec["saves"].append(sv)  # before the writer can finish with it
+        t0 = time.perf_counter()
+        ok = save(self, step, state, meta, force)
+        sv["save_s"] = time.perf_counter() - t0
+        if not ok:
+            rec["saves"].remove(sv)
+        return ok
+
+    def write_rec(self, step, host_state, meta):
+        t0 = time.perf_counter()
+        write_step(self, step, host_state, meta)
+        sv = next(s for s in rec["saves"] if s["step"] == step)
+        sv["write_s"] = time.perf_counter() - t0
+        sv["gib"] = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                        os.walk(os.path.join(self.directory, str(step))) for f in fs) / 2**30
+
+    CK.CheckpointManager.save, CK.CheckpointManager._write_step = save_rec, write_rec
+
+    # the resume at start-up: a joiner finds the survivors' checkpoints,
+    # restores and verifies the newest, and the sync then replaces it
+    restore = CK.CheckpointManager.restore_latest_verified
+
+    def restore_rec(self, *a, **kw):
+        t0 = time.perf_counter()
+        got = restore(self, *a, **kw)
+        rec["restores"].append({"s": time.perf_counter() - t0, "step": got and got[2]})
+        return got
+
+    CK.CheckpointManager.restore_latest_verified = restore_rec
+
+    def left_at_exit():
+        if not rec.get("done"):  # this rank detached: its record, for the parent
+            print(ELASTIC_LEFT + json.dumps(rec), flush=True)
+
+    atexit.register(left_at_exit)
+
+    cfg = TransformerConfig(**FLAGSHIP_GPT)  # the tokens need only its vocab and length
+    tokens = flagship_tokens(cfg, args.batch, args.seed, "cuda").cpu().numpy()
+
+    def make_data(rank, size, offset):
+        it = iter(ElasticDataAdaptor(tokens, np.zeros(len(tokens), np.int32),
+                                     batch_size=args.batch // N_RANKS, rank=rank, size=size,
+                                     offset=offset, seed=args.seed))
+        return (torch.from_numpy(rows) for rows, _ in it)
+
+    def make_tx(axes=None):
+        return synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), group=axes, impl="pallas_ring",
+                               bucket_bytes=bucket or None)
+
+    for kern in kernels:
+        kern.launches = 0
+    out = ET.run_elastic(
+        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda")[1], make_tx, make_data,
+        ET.ElasticConfig(total_samples=ELASTIC_SAMPLES, batch_size=args.batch // N_RANKS,
+                         schedule=ELASTIC_SCHEDULE, check_every=2, checkpoint_dir=args.ckpt_dir,
+                         checkpoint_every=ELASTIC_CKPT_EVERY))
+    rec["done"] = True
+    rank = dist.get_rank()
+    rec["final_checksum"] = state_checksum(out["state"].params.state_dict())
+    rec["launches"] = {k.name: k.launches for k in kernels}
+    rec["resizes"], rec["resize_events"] = out["resizes"], out["resize_events"]
+    rec["checks"] = {"no JAX": jax_free()}
+    rec["ok"] = all(rec["checks"].values())
+    rec["host_peak_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"RESULT: elastic trained={out['trained_samples']} resizes={out['resizes']} "
+          f"final_size={out['final_size']} loss={out['loss']:.4f} rank={rank}", flush=True)
+    print(ELASTIC_LINE + json.dumps(rec), flush=True)
+    peer_mod.finalize_default_peer()
+    return 0 if rec["ok"] else 1
+
+
 def rank_ring(argv) -> int:
     """One rank of phase ring (run by the launcher)."""
     from kungfu_tpu_torch.tools import ring_check
@@ -2395,7 +2763,7 @@ def main() -> int:
         phase, rest = sys.argv[2], sys.argv[3:]
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
                    "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive,
-                   "gossip": rank_gossip, "session": rank_session}
+                   "gossip": rank_gossip, "session": rank_session, "elastic": rank_elastic}
         return workers[phase](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -2432,6 +2800,8 @@ def main() -> int:
                        main_losses[0], ranks_losses)
         gossip_shifts = phase_gossip(card, args.batch, args.seed, main_losses[0])
         session_launches = phase_session(card, args.batch, args.seed, main_losses[0])
+        elastic_launches = phase_elastic(card, args.batch, args.seed, args.bucket_mib,
+                                         main_losses[0])
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
         results.append(phase_shift(args.seed))
@@ -2467,6 +2837,9 @@ def main() -> int:
             first = "ranks" if k["name"] in (RC.RING_RS.name, RC.RING_AG.name) else "gqa"
             k["launches_by_phase"] = {first: launches[k["name"]],
                                       "session": session_launches[k["name"]]}
+        if elastic_launches.get(k["name"]):  # B1-B3, B5 and B6 also run under run_elastic
+            k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
+            k["launches_by_phase"]["elastic"] = elastic_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

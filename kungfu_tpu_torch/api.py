@@ -8,8 +8,9 @@ built on ctypes into libkungfu.  Here they read the default Peer
 
 As in the JAX package init is lazy: importing kungfu_tpu_torch does not
 start the peer; any API call or an explicit `init()` starts it.
-`egress_rates` and `check_interference` need the monitors (ROADMAP A.8),
-`propose_new_size` the config server (A.5); they raise until then.
+`propose_new_size` goes through the elastic config server
+(`elastic.propose_new_size`).  `egress_rates` and `check_interference`
+need the monitors (ROADMAP A.8) and raise until then.
 """
 from __future__ import annotations
 
@@ -159,6 +160,8 @@ def set_variable(name: str, value: float) -> None:
 
 
 def propose_new_size(new_size: int) -> None:
-    """Rank 0 proposes a resize via the config server (legacy.go:18-37)."""
-    raise NotImplementedError("propose_new_size needs the elastic config server, not ported "
-                              "yet (ROADMAP A.5)")
+    """Rank 0 proposes a resize via the config server (legacy.go:18-37);
+    every other rank does nothing."""
+    from .elastic import propose_new_size as _propose
+
+    _propose(default_peer(), new_size)

@@ -2,8 +2,10 @@
 
 Counterpart of kungfu_tpu.distributed, which brings up the JAX
 coordination service.  Here the process group is torch.distributed's,
-with rendezvous over TCP at the first peer of KFT_INIT_PEERS and world
-size and rank from the peer list.  A cluster of one needs no group, and
+with rendezvous over TCP on the first peer's host of KFT_INIT_PEERS, at
+the version-fenced port `peer.coordinator_port(its port, cluster
+version)` as in the JAX package, and world size and rank from the peer
+list.  A cluster of one needs no group, and
 nothing is started for it.
 
 Card and backend (`placement`): a rank uses card local_rank mod the
@@ -69,16 +71,20 @@ def init_distributed(config: Optional[Config] = None, device=None) -> int:
     card, backend = placement(cfg.peers, cfg.self_id, dev.type, count)
     if card is not None:
         torch.cuda.set_device(card)
+    from .peer import coordinator_port
+
     root = cfg.peers[0]
+    port = coordinator_port(root.port, cfg.cluster_version)
     dist.init_process_group(
         backend,
-        init_method=f"tcp://{root.host}:{root.port}",
+        init_method=f"tcp://{root.host}:{port}",
         world_size=world,
         rank=cfg.rank,
         timeout=_RENDEZVOUS_TIMEOUT,
     )
     where = f"card {card} of {count}" if card is not None else "cpu"
-    log.info("rank %d/%d joined at %s: %s, backend %s", cfg.rank, world, root, where, backend)
+    log.info("rank %d/%d joined at %s:%d (version %d): %s, backend %s", cfg.rank, world,
+             root.host, port, cfg.cluster_version, where, backend)
     return world
 
 

@@ -14,8 +14,13 @@ Its device is the caller's, else the launcher's KFT_PLATFORM
 else the card.  The module singleton (`default_peer`) is what the scalar
 api (`api.py`) and the torch interop (`kungfu_tpu_torch.torch`) use.
 
-Elastic reconfiguration (`update_cluster`) and the interference detector
-raise until their modules are ported (ROADMAP A.5 and A.8).
+Version fencing: the group's rendezvous port is derived from the cluster
+version (`coordinator_port`), so a peer holding a stale cluster document
+cannot reach the group of the new one, the counterpart of the
+cluster-version token check on collective connections
+(srcs/go/rchannel/connection/connection.go:81-87).  `update_cluster`
+adopts a resized document and rejoins at the new version's port.  The
+interference detector raises until the monitors are ported (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -30,6 +35,27 @@ from .plan import PeerID
 from .utils import get_logger
 
 log = get_logger("kungfu.peer")
+
+COORDINATOR_PORT_OFFSET = 20000
+# versions cycle through a window of ports: an elastic job bumps its
+# version without bound, and only consecutive versions need fencing from
+# each other (a stale peer is at most a few versions behind)
+COORDINATOR_PORT_WINDOW = 1000
+
+
+def coordinator_port(root_port: int, cluster_version: int) -> int:
+    """The version-fenced rendezvous port of the group whose first peer
+    listens at `root_port`.  The range check covers the whole window, not
+    this version alone, so a root port too high fails at start-up and not
+    hours into an elastic job."""
+    if not (0 < root_port + COORDINATOR_PORT_OFFSET + COORDINATOR_PORT_WINDOW - 1 <= 65535):
+        raise ValueError(
+            f"worker port {root_port} leaves no room for the coordinator "
+            f"window (+{COORDINATOR_PORT_OFFSET}+{COORDINATOR_PORT_WINDOW} "
+            f"exceeds 65535); pick worker ports <= "
+            f"{65535 - COORDINATOR_PORT_OFFSET - COORDINATOR_PORT_WINDOW + 1}"
+        )
+    return root_port + COORDINATOR_PORT_OFFSET + (cluster_version % COORDINATOR_PORT_WINDOW)
 
 
 class Peer:
@@ -130,8 +156,33 @@ class Peer:
         return self._session
 
     def update_cluster(self, cluster, version: int) -> bool:
-        raise NotImplementedError("Peer.update_cluster: elastic reconfiguration is not ported "
-                                  "yet (ROADMAP A.5)")
+        """Adopt a new cluster document; False if this peer was removed.
+
+        The reference's Peer.updateTo (peer/peer.go:144-166): leave the
+        old group (the store, the ring workspaces, the Session's mesh
+        groups, the process group), adopt the new peer list and rejoin at
+        the new version's fenced port.  A removed peer leaves the old group
+        too, since the ring workspaces' release is collective over it, and
+        is then `detached`."""
+        if cluster.workers.rank(self.self_id) is None:
+            self.close()
+            self.detached = True
+            log.info("detached from cluster at version %d", version)
+            return False
+        self.close()
+        self.config = kfenv.Config(
+            self_id=self.self_id,
+            peers=cluster.workers,
+            runners=cluster.runners,
+            cluster_version=version,
+            strategy=self.config.strategy,
+            config_server=self.config.config_server,
+            parent=self.config.parent,
+            single_machine=self.config.single_machine,
+        )
+        self.cluster_version = version
+        self.start()
+        return True
 
     def interference_detector(self):
         raise NotImplementedError("Peer.interference_detector: the monitors are not ported yet "

@@ -4,19 +4,24 @@ What `env.Config` and the launcher need: a peer's identity, the ranked
 peer list, the host list of `-H` and the cluster document.  Parsing,
 formatting and the peer-list fill match the JAX package, so both read and
 write the same KungFu env contract and produce the same digests.  The
-elastic parts (resize, serving tiers, JSON round trips) wait for the
-elastic slice.
+cluster document's resize, JSON round trips and the peer-list set
+algebra are what the elastic config server, the watch launcher and the
+resize protocol use (`elastic/`, `run/launcher.py`).  A document's serving
+`tiers` map is kept through `from_json` and `to_json`, so its bytes and
+digest match the JAX package's; the tier methods wait for the serving
+slice (ROADMAP A.2) and `ring_buddies` for the recovery ladder (A.5b).
 """
 from __future__ import annotations
 
 import hashlib
 import json
 from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 DEFAULT_RUNNER_PORT = 38080
 DEFAULT_WORKER_PORT_BASE = 10000
 DEFAULT_WORKER_PORT_LIMIT = 11000
+SERVING_TIERS = ("prefill", "decode")
 
 
 @dataclass(frozen=True, order=True)
@@ -38,6 +43,10 @@ class PeerID:
 
     def to_json(self) -> dict:
         return {"host": self.host, "port": self.port}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "PeerID":
+        return cls(host=d["host"], port=int(d["port"]))
 
 
 class PeerList(tuple):
@@ -61,8 +70,36 @@ class PeerList(tuple):
                 r += 1
         return None
 
+    def local_size(self, p: PeerID) -> int:
+        return sum(1 for q in self if q.host == p.host)
+
     def host_count(self) -> int:
         return len({p.host for p in self})
+
+    def hosts(self) -> List[str]:
+        """Distinct hosts in first-appearance order."""
+        return list(dict.fromkeys(p.host for p in self))
+
+    def partition_by_host(self) -> Dict[str, "PeerList"]:
+        out: Dict[str, List[PeerID]] = {}
+        for p in self:
+            out.setdefault(p.host, []).append(p)
+        return {h: PeerList(v) for h, v in out.items()}
+
+    def diff(self, other: "PeerList") -> "PeerList":
+        """Peers in self but not in other (order preserved)."""
+        o = set(other)
+        return PeerList(p for p in self if p not in o)
+
+    def intersection(self, other: "PeerList") -> "PeerList":
+        o = set(other)
+        return PeerList(p for p in self if p in o)
+
+    def disjoint(self, other: "PeerList") -> bool:
+        return not set(self) & set(other)
+
+    def eq(self, other: "PeerList") -> bool:
+        return tuple(self) == tuple(other)
 
     def bytes(self) -> bytes:
         return ";".join(str(p) for p in self).encode()
@@ -72,6 +109,10 @@ class PeerList(tuple):
 
     def to_json(self) -> list:
         return [p.to_json() for p in self]
+
+    @classmethod
+    def from_json(cls, xs: list) -> "PeerList":
+        return cls(PeerID.from_json(x) for x in xs)
 
     def __repr__(self) -> str:
         return f"PeerList[{', '.join(str(p) for p in self)}]"
@@ -149,10 +190,13 @@ class HostList(tuple):
 
 @dataclass
 class Cluster:
-    """The cluster document: runners (one per host) + ranked workers."""
+    """The cluster document: runners (one per host) + ranked workers, and
+    an optional serving `tiers` map (worker "host:port" -> tier) that is
+    serialized only when present."""
 
     runners: PeerList
     workers: PeerList
+    tiers: Optional[Dict[str, str]] = None
 
     @classmethod
     def from_hostlist(cls, hl: HostList, np: int) -> "Cluster":
@@ -169,9 +213,58 @@ class Cluster:
             raise ValueError("duplicate workers")
         if len(set(self.runners)) != len(self.runners):
             raise ValueError("duplicate runners")
+        if self.tiers is not None:
+            workers = {str(w) for w in self.workers}
+            for spec, tier in self.tiers.items():
+                if spec not in workers:
+                    raise ValueError(f"tier entry {spec!r} is not a worker")
+                if tier not in SERVING_TIERS:
+                    raise ValueError(f"unknown tier {tier!r} for {spec!r}")
 
     def size(self) -> int:
         return len(self.workers)
+
+    def resize(self, new_size: int) -> "Cluster":
+        """Shrink from the tail, or grow one worker at a time on the
+        least-loaded host (reference Cluster.Resize + growOne,
+        srcs/go/plan/cluster.go:88-118).  A tiered document keeps the tiers
+        of the workers it keeps, and a grown worker joins "decode"."""
+        if new_size < 0:
+            raise ValueError("negative size")
+        workers = list(self.workers)
+        grown: List[PeerID] = []
+        if new_size <= len(workers):
+            workers = workers[:new_size]
+        else:
+            while len(workers) < new_size:
+                p = self._grow_one(PeerList(workers))
+                workers.append(p)
+                grown.append(p)
+        tiers = None
+        if self.tiers is not None:
+            alive = {str(w) for w in workers}
+            tiers = {s: t for s, t in self.tiers.items() if s in alive}
+            for p in grown:
+                tiers.setdefault(str(p), "decode")
+        c = Cluster(runners=self.runners, workers=PeerList(workers), tiers=tiers)
+        c.validate()
+        return c
+
+    def _grow_one(self, workers: PeerList) -> PeerID:
+        # the least-loaded runner host gets the next worker, at its lowest
+        # free port from the default base (cluster.go:107-118)
+        load = {r.host: 0 for r in self.runners}
+        used_ports: Dict[str, set] = {r.host: set() for r in self.runners}
+        for w in workers:
+            if w.host in load:
+                load[w.host] += 1
+                used_ports[w.host].add(w.port)
+        order = list(load)
+        host = min(load, key=lambda h: (load[h], order.index(h)))
+        port = DEFAULT_WORKER_PORT_BASE
+        while port in used_ports[host]:
+            port += 1
+        return PeerID(host, port)
 
     def bytes(self) -> bytes:
         return json.dumps(self.to_json(), sort_keys=True).encode()
@@ -180,5 +273,14 @@ class Cluster:
         return hashlib.sha256(self.bytes()).hexdigest()[:16]
 
     def to_json(self) -> dict:
-        return {"runners": self.runners.to_json(),
-                "workers": self.workers.to_json()}
+        out = {"runners": self.runners.to_json(), "workers": self.workers.to_json()}
+        if self.tiers is not None:
+            out["tiers"] = dict(self.tiers)
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "Cluster":
+        tiers = d.get("tiers")
+        return cls(runners=PeerList.from_json(d["runners"]),
+                   workers=PeerList.from_json(d["workers"]),
+                   tiers=dict(tiers) if tiers is not None else None)

@@ -1,8 +1,9 @@
 """The launcher, `python -m kungfu_tpu_torch.run -np 4 <worker>` (counterpart
-of kungfu_tpu.run): static mode, and `run/distribute.py` (parallel ssh and
-remote static jobs); watch, heal and elastic mode wait for the elastic
-slice (ROADMAP A.5)."""
+of kungfu_tpu.run): static mode, watch mode (`-w`: the elastic config
+service's document drives which workers run) and `run/distribute.py`
+(parallel ssh and remote static jobs); the self-healing supervisor waits
+for ROADMAP A.5b."""
 from .job import ChipPool, Job, Proc
-from .launcher import ProcRunner, simple_run
+from .launcher import ProcRunner, WatchRunner, simple_run
 
-__all__ = ["ChipPool", "Job", "Proc", "ProcRunner", "simple_run"]
+__all__ = ["ChipPool", "Job", "Proc", "ProcRunner", "WatchRunner", "simple_run"]

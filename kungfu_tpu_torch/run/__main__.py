@@ -1,8 +1,12 @@
 """The launcher CLI: `python -m kungfu_tpu_torch.run -np 4 python train.py`.
 
-Static mode of the JAX package's CLI (kungfu_tpu/run/__main__.py), with
-its flags: -np, -H, -self, -strategy, -k, -logdir, -q, -chips-per-host,
--platform and -devices-per-worker.  Each worker gets the KungFu env
+The JAX package's CLI (kungfu_tpu/run/__main__.py), with its flags: -np,
+-H, -self, -strategy, -k, -logdir, -q, -chips-per-host, -platform and
+-devices-per-worker, and watch mode: -w runs `launcher.WatchRunner`, which
+starts and stops this host's workers as the elastic config service's
+document changes (-timeout bounds it: exit 124), against the service at
+-config-server URL, or one embedded in this launcher
+(-builtin-config-server, or -w without a URL) at -port.  Each worker gets the KungFu env
 contract (`env.worker_env`) and picks its own card
 (`distributed.placement`); -chips-per-host N instead gives each worker one
 card slot of N through CUDA_VISIBLE_DEVICES, as the JAX CLI does with
@@ -10,8 +14,8 @@ TPU_VISIBLE_CHIPS.  -platform cpu puts the workers' Peer and Session on
 the CPU (KFT_PLATFORM); -devices-per-worker takes 1 only (a worker is one
 rank with one card).  `-strategy` reaches each worker's Session through
 KFT_ALLREDUCE_STRATEGY.  Every other flag of the JAX CLI raises, naming
-the ROADMAP item that will port it (A.5: watch, heal, elastic and the
-config servers; A.8: fleet telemetry); none is ignored.  Multi-host
+the ROADMAP item that will port it (A.5b: the self-healing supervisor and
+the replicated config ensemble; A.8: fleet telemetry); none is ignored.  Multi-host
 launches over ssh: `run/distribute.py`.
 """
 from __future__ import annotations
@@ -21,22 +25,19 @@ import socket
 import sys
 from typing import Dict, Optional, Sequence
 
+from ..elastic.config_client import ConfigClient
+from ..elastic.config_server import ConfigServer
 from ..plan import Cluster, HostList, Strategy
 from .job import Job
-from .launcher import install_signal_trap, simple_run
+from .launcher import WatchRunner, install_signal_trap, simple_run
 
 # flag -> (argparse options, what it does in the JAX CLI, the ROADMAP item porting it)
 UNPORTED: Dict[str, tuple] = {
-    "-w": ({"action": "store_true"}, "watch (elastic) mode", "A.5"),
-    "-heal": ({"action": "store_true"}, "self-healing watch mode", "A.5"),
-    "-restart-budget": ({"type": int}, "restarts after a heal", "A.5"),
-    "-heartbeat-timeout": ({"type": float}, "the healer's worker heartbeat", "A.5"),
-    "-suspicion-timeout": ({"type": float}, "the healer's host suspicion window", "A.5"),
-    "-timeout": ({"type": float}, "the watch-mode timeout", "A.5"),
-    "-config-server": ({}, "the elastic config server", "A.5"),
-    "-builtin-config-server": ({"action": "store_true"}, "an embedded config server", "A.5"),
-    "-port": ({"type": int}, "the embedded config server's port", "A.5"),
-    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5"),
+    "-heal": ({"action": "store_true"}, "self-healing watch mode", "A.5b"),
+    "-restart-budget": ({"type": int}, "restarts after a heal", "A.5b"),
+    "-heartbeat-timeout": ({"type": float}, "the healer's worker heartbeat", "A.5b"),
+    "-suspicion-timeout": ({"type": float}, "the healer's host suspicion window", "A.5b"),
+    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5b"),
     "-telemetry": ({"action": "store_true"}, "fleet telemetry", "A.8"),
     "-telemetry-port": ({"type": int}, "the fleet telemetry port", "A.8"),
     "-slo-file": ({}, "the fleet SLO rules", "A.8"),
@@ -94,6 +95,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="the workers' device: cpu or gpu (default: the card)")
     ap.add_argument("-devices-per-worker", dest="devices_per_worker", type=int, default=1,
                     help="devices per worker: 1 (a worker is one rank with one card)")
+    ap.add_argument("-w", dest="watch", action="store_true",
+                    help="watch mode: follow the elastic config service's cluster document")
+    ap.add_argument("-config-server", dest="config_server", default="",
+                    help="URL of the elastic config service (watch mode)")
+    ap.add_argument("-builtin-config-server", dest="builtin_cs", action="store_true",
+                    help="embed a config server in this launcher")
+    ap.add_argument("-port", type=int, default=None,
+                    help="the embedded config server's port (default 9100)")
+    ap.add_argument("-timeout", type=float, default=0.0,
+                    help="watch mode: stop the job after this many seconds (exit 124)")
     for flag, (opts, _, _) in UNPORTED.items():
         ap.add_argument(flag, dest="unported_" + flag[1:].replace("-", "_"), default=None,
                         help=argparse.SUPPRESS, **opts)
@@ -107,12 +118,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("missing worker command")
     hosts = HostList.parse(args.hosts) if args.hosts else HostList.parse(f"127.0.0.1:{args.np}")
     cluster = Cluster.from_hostlist(hosts, args.np)
+    self_host = args.self_host or infer_self_ip(hosts)
+    embed = args.builtin_cs or (args.watch and not args.config_server)
+    if args.timeout and not args.watch:
+        ap.error("-timeout bounds watch mode: pass -w")
+    if args.port is not None and not embed:
+        ap.error("-port is the embedded config server's: pass -builtin-config-server or -w "
+                 "without -config-server")
+    cs = None
+    config_url = args.config_server
+    if embed:
+        cs = ConfigServer(port=9100 if args.port is None else args.port, init=cluster).start()
+        config_url = cs.url
     job = Job(prog=prog[0], args=prog[1:], strategy=Strategy.parse(args.strategy),
-              cards_per_host=args.cards_per_host, platform=args.platform,
-              devices_per_worker=args.devices_per_worker)
+              cards_per_host=args.cards_per_host, config_server=config_url,
+              platform=args.platform, devices_per_worker=args.devices_per_worker)
     install_signal_trap()
-    return simple_run(job, cluster, args.self_host or infer_self_ip(hosts),
-                      logdir=args.logdir, quiet=args.quiet, keep=args.keep)
+    try:
+        if args.watch:
+            runner = WatchRunner(job, self_host, ConfigClient(config_url), logdir=args.logdir,
+                                 quiet=args.quiet, keep=args.keep)
+            return runner.run(initial=cluster, timeout_s=args.timeout)
+        return simple_run(job, cluster, self_host, logdir=args.logdir, quiet=args.quiet,
+                          keep=args.keep)
+    finally:
+        if cs is not None:
+            cs.stop()
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@ rank then picks card local_rank mod count itself
 (`distributed.placement`).  `platform` ("cpu" or "gpu", "" to inherit)
 reaches the workers as KFT_PLATFORM (`env.platform_device`); a worker is
 one rank with one card, so `devices_per_worker` takes 1 only.
+`config_server` (the elastic config service's URL, watch mode) reaches
+the workers as KFT_CONFIG_SERVER.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ class ChipPool:
     def get(self) -> Optional[int]:
         return self._free.pop(0) if self._free else None
 
+    def put(self, i: int) -> None:
+        if i >= 0 and i not in self._free:
+            self._free.append(i)
+            self._free.sort()
+
 
 @dataclasses.dataclass
 class Proc:
@@ -46,6 +53,7 @@ class Job:
     args: List[str]
     strategy: Strategy
     cards_per_host: int = 0  # 0 = leave CUDA_VISIBLE_DEVICES alone
+    config_server: str = ""  # the elastic config service (watch mode)
     platform: str = ""  # "" = inherit; "cpu" puts the workers on the CPU
     devices_per_worker: int = 1
 
@@ -60,7 +68,8 @@ class Job:
                  parent: Optional[PeerID] = None) -> Proc:
         env = dict(os.environ)
         env.update(worker_env(self_id=peer, cluster=cluster, version=version,
-                              strategy=self.strategy, parent=parent))
+                              strategy=self.strategy, parent=parent,
+                              config_server=self.config_server))
         if self.platform:
             env[PLATFORM] = self.platform
         if self.cards_per_host > 0 and chip >= 0:

@@ -5,8 +5,8 @@ hierarchical reductions against the JAX package's.
   on 2 and 4 gloo ranks put on the CPU by KFT_PLATFORM=cpu, as the
   launcher's -platform cpu does: identity, the blob store, the MST over
   the measured latencies and its neighbour masks (against the JAX
-  functions on the same matrix), the tree and strategy swaps, the
-  refusals that name A.5 and A.8;
+  functions on the same matrix), the tree and strategy swaps,
+  propose_new_size through a config server, the refusals that name A.8;
 * `python -m kungfu_tpu_torch.run -np N -platform cpu -- python -m
   kungfu_tpu_torch.torch.check`, the counterpart of
   tests/integration/test_torch.py, and the interop on one process;
@@ -42,7 +42,7 @@ import jax.numpy as jnp
 
 from _torch_ranks import REPO, _free_port_range, start_ranks, wait_ranks
 from _torch_reference import jax_reference
-from kungfu_tpu_torch.plan import HostList
+from kungfu_tpu_torch.plan import Cluster, HostList
 from kungfu_tpu_torch.run import __main__ as cli
 from kungfu_tpu_torch.run.distribute import rrun
 from kungfu_tpu_torch.run.job import Job
@@ -108,12 +108,16 @@ API_WORKER = textwrap.dedent("""
     res["var"] = kf.get_variable("x")
     res["refusals"] = {}
     for name, call in (("egress_rates", kf.egress_rates),
-                       ("check_interference", kf.check_interference),
-                       ("propose_new_size", lambda: kf.propose_new_size(2))):
+                       ("check_interference", kf.check_interference)):
         try:
             call()
         except NotImplementedError as e:
             res["refusals"][name] = str(e)
+    # rank 0 proposes through the config server; a proposal of the current
+    # size and any other rank's do nothing
+    kf.propose_new_size(len(kf.current_cluster().workers))
+    kf.run_barrier()
+    res["proposed"] = kf.propose_new_size(n + 1)
     print("API " + json.dumps(res), flush=True)
     kf.finalize()
 """)
@@ -121,14 +125,27 @@ API_WORKER = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def api_runs():
-    procs = {n: start_ranks(API_WORKER, n, [], max_port=30000, offsets=[15000],
-                            env={"KFT_PLATFORM": "cpu", "KFT_ALLREDUCE_STRATEGY": "PALLAS_RING"})
-             for n in (2, 4)}
-    out = {}
-    for n, ps in procs.items():
-        outs = wait_ranks(ps, timeout=180)
-        out[n] = {r: json.loads(next(line[4:] for line in o.splitlines()
-                                     if line.startswith("API "))) for r, o in outs.items()}
+    """{n: {rank: its results}} on 2 and 4 ranks, each run beside a config
+    server holding a document of n workers; {n: that server's document
+    after the run} under the key ("doc", n)."""
+    from kungfu_tpu_torch.elastic import ConfigServer
+
+    servers = {n: ConfigServer(port=0, init=Cluster.from_hostlist(HostList.parse("127.0.0.1:8"),
+                                                                   n)).start() for n in (2, 4)}
+    try:
+        procs = {n: start_ranks(API_WORKER, n, [], max_port=30000, offsets=[15000],
+                                env={"KFT_PLATFORM": "cpu", "KFT_ALLREDUCE_STRATEGY": "PALLAS_RING",
+                                     "KFT_CONFIG_SERVER": servers[n].url})
+                 for n in (2, 4)}
+        out = {}
+        for n, ps in procs.items():
+            outs = wait_ranks(ps, timeout=180)
+            out[n] = {r: json.loads(next(line[4:] for line in o.splitlines()
+                                         if line.startswith("API "))) for r, o in outs.items()}
+            out[("doc", n)] = servers[n].state.get()
+    finally:
+        for srv in servers.values():
+            srv.stop()
     return out
 
 
@@ -172,8 +189,19 @@ def test_api_interop_collectives(api_runs, n):
 
 def test_api_refusals_name_their_items(api_runs):
     refusals = api_runs[2][0]["refusals"]
+    assert refusals.keys() == {"egress_rates", "check_interference"}
     assert "A.8" in refusals["egress_rates"] and "A.8" in refusals["check_interference"]
-    assert "A.5" in refusals["propose_new_size"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_api_propose_new_size_acts(api_runs, n):
+    """Rank 0's proposal of n + 1 workers is the server's one change: the
+    same-size proposal and every other rank's did nothing, as in the JAX
+    api (which returns None)."""
+    cluster, version = api_runs[("doc", n)]
+    assert version == 1 and cluster.size() == n + 1
+    assert cluster.workers[:n] == Cluster.from_hostlist(HostList.parse("127.0.0.1:8"), n).workers
+    assert all(got["proposed"] is None for got in api_runs[n].values())
 
 
 def test_interop_on_one_process(monkeypatch):

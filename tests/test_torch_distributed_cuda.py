@@ -26,7 +26,6 @@ check runs in a fixture).
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -35,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ranks import MAX_WORKER_PORT, _free_port_range
 from kungfu_tpu_torch.models import transformer as tt
 from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
 from kungfu_tpu_torch.train import DataParallelTrainer
@@ -133,12 +133,6 @@ def cards():
     return torch.cuda.device_count()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _train_ranks(world, impl, tmp_path, worker=WORKER):
     """Every rank's final parameters and loss, checked to be the same on
     every rank; and the tokens of the whole batch."""
@@ -146,7 +140,7 @@ def _train_ranks(world, impl, tmp_path, worker=WORKER):
         0, COMMON["vocab_size"], (world * PER_RANK, COMMON["max_len"]))
     tmp_path.mkdir(parents=True, exist_ok=True)
     np.save(tmp_path / "run.tokens.npy", tokens)
-    port = _free_port()
+    port = _free_port_range(world, MAX_WORKER_PORT, ())
     peers = ",".join(f"127.0.0.1:{port + r}" for r in range(world))
     args = repr((COMMON, LR, STEPS, PER_RANK, world, impl))
     procs = [subprocess.Popen(

@@ -22,7 +22,6 @@ of a pair a tensor.  `segment_plan` splits a group into launches.
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -35,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_reference import jax_reference
+from _torch_ranks import MAX_WORKER_PORT, _free_port_range
 from kungfu_tpu_torch.ops import collective as C
 from kungfu_tpu_torch.ops import ring_collectives as RC
 from kungfu_tpu_torch.tools.ring_check import planted_faults
@@ -130,12 +130,6 @@ WORKER = textwrap.dedent("""
 """)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """{(n, dtype): {op: (n, ...) outputs}} of the rank-local wrappers on n
@@ -145,7 +139,7 @@ def ranks(tmp_path_factory):
     for n in NS:
         np.savez(tmp / f"n{n}.in.npz", **{f"{dt}/{k}": _np(v) for dt in DTYPES
                                           for k, v in _inputs(n, dt).items()})
-        port = _free_port()
+        port = _free_port_range(n, MAX_WORKER_PORT, ())
         peers = ",".join(f"127.0.0.1:{port + r}" for r in range(n))
         for r in range(n):
             env = dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,

@@ -3,13 +3,17 @@
 Workers see the KFT_* env block that the JAX package's `worker_env`
 writes for the same cluster; a failing worker stops the others and sets
 the launcher's exit code; a flag of the JAX CLI that is not ported raises.
-The workers here start no process group, so no test binds a port.
+The watch-mode flags (-w, -timeout, -config-server,
+-builtin-config-server, -port) each take effect.  The workers here start
+no process group, so no test binds a worker port; an embedded config
+server listens on a free port.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -131,10 +135,98 @@ def test_keep_lets_the_others_finish(tmp_path):
 @pytest.mark.parametrize("flag", sorted(cli.UNPORTED))
 def test_unported_flag_raises(flag):
     opts, _, item = cli.UNPORTED[flag]
-    assert item in ("A.5", "A.8")  # watch, heal, elastic and config servers; telemetry
+    assert item in ("A.5b", "A.8")  # the healer and the replicated config plane; telemetry
     args = [flag] if opts.get("action") == "store_true" else [flag, "1"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main([*args, "-np", "1", sys.executable, "-c", "pass"])
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# a worker that reads the config service it was handed: its URL, version, size
+SHOW_CONFIG = ("import json, os, urllib.request; url = os.environ['KFT_CONFIG_SERVER']; "
+               "doc = json.load(urllib.request.urlopen(url)); print('CONFIG ' + json.dumps("
+               "[url, doc['version'], len(doc['cluster']['workers'])]))")
+
+
+def _config_seen(out) -> list:
+    assert out.returncode == 0, out.stdout + out.stderr
+    return [json.loads(line.split("CONFIG ", 1)[1]) for line in out.stdout.splitlines()
+            if "CONFIG " in line]
+
+
+@pytest.mark.parametrize("flag", ["-w", "-timeout", "-config-server",
+                                  "-builtin-config-server", "-port"])
+def test_watch_flag_takes_effect(flag):
+    """Each flag the watch mode ported does what it does in the JAX CLI."""
+    port = _free_port()
+    if flag == "-w":  # watch mode without a URL embeds a config server
+        seen = _config_seen(_launch("-w", "-np", "2", "-port", str(port), sys.executable, "-c",
+                                    SHOW_CONFIG))
+        assert seen == [[f"http://127.0.0.1:{port}/config", 0, 2]] * 2
+    elif flag == "-timeout":  # the watch stops a job that outlives it: exit 124
+        t0 = time.monotonic()
+        out = _launch("-w", "-timeout", "2", "-port", str(port), "-np", "1", sys.executable,
+                      "-c", "import time; time.sleep(60)")
+        assert out.returncode == 124 and time.monotonic() - t0 < 40, out.stderr[-2000:]
+        with pytest.raises(SystemExit):  # it bounds watch mode only
+            cli.main(["-timeout", "2", "-np", "1", sys.executable, "-c", "pass"])
+    elif flag == "-config-server":  # an external service: the workers get its URL
+        from kungfu_tpu_torch.elastic import ConfigServer
+
+        cluster = Cluster.from_hostlist(HostList.parse("127.0.0.1:1"), 1)
+        srv = ConfigServer(port=port, init=cluster).start()
+        try:
+            seen = _config_seen(_launch("-w", "-config-server", srv.url, "-np", "1",
+                                        sys.executable, "-c", SHOW_CONFIG))
+        finally:
+            srv.stop()
+        assert seen == [[srv.url, 0, 1]]
+    elif flag == "-builtin-config-server":  # embedded in a static launch too
+        seen = _config_seen(_launch("-builtin-config-server", "-port", str(port), "-np", "2",
+                                    sys.executable, "-c", SHOW_CONFIG))
+        assert seen == [[f"http://127.0.0.1:{port}/config", 0, 2]] * 2
+    else:  # -port: the embedded server's port, refused where nothing is embedded
+        seen = _config_seen(_launch("-w", "-port", str(port), "-np", "1", sys.executable, "-c",
+                                    SHOW_CONFIG))
+        assert seen[0][0] == f"http://127.0.0.1:{port}/config"
+        with pytest.raises(SystemExit):
+            cli.main(["-port", str(port), "-np", "1", sys.executable, "-c", "pass"])
+
+
+def test_watch_failed_worker_stops_the_job(tmp_path):
+    worker = ("import os, sys, time\n"
+              "if os.environ['KFT_SELF_SPEC'].endswith(':10000'):\n"
+              "    time.sleep(0.5); sys.exit(3)\n"
+              "time.sleep(60)\n")
+    t0 = time.monotonic()
+    out = _launch("-w", "-port", str(_free_port()), "-np", "2", sys.executable, "-c", worker)
+    assert out.returncode == 3 and time.monotonic() - t0 < 45, out.stdout + out.stderr
+    keep = _launch("-w", "-k", "-port", str(_free_port()), "-np", "2", sys.executable, "-c",
+                   worker.replace("time.sleep(60)", "time.sleep(1)"))
+    assert keep.returncode == 0, keep.stdout + keep.stderr  # the failure is kept out
+
+
+def test_watch_runner_idle_host_and_healer_refusals(monkeypatch):
+    """A host the document shrank to no workers waits for the config
+    server to go away, then exits 0; the healer's options raise."""
+    from kungfu_tpu_torch.run.job import Job
+    from kungfu_tpu_torch.run.launcher import WatchRunner
+
+    elsewhere = Cluster.from_hostlist(HostList.parse("10.0.0.9:2"), 2)
+    answers = iter([(elsewhere, 1)])
+    client = type("Client", (), {"poll_cluster": lambda self: next(answers, None)})()
+    job = Job(prog=sys.executable, args=["-c", "pass"], strategy=Strategy.AUTO)
+    runner = WatchRunner(job, "127.0.0.1", client, poll_s=0.01)
+    monkeypatch.setattr(WatchRunner, "IDLE_EXIT_S", 0.2)
+    assert runner.run() == 0 and runner.version == 1 and not runner.current
+    for kw in ({"heal": True}, {"restart_budget": 2}, {"heartbeat_timeout_s": 5.0}):
+        with pytest.raises(NotImplementedError, match="A.5b"):
+            WatchRunner(job, "127.0.0.1", client, **kw)
 
 
 def test_serve_raises():

@@ -34,7 +34,7 @@ from kungfu_tpu_torch import env as kfenv
 from kungfu_tpu_torch.optimizers.gossip import (HEADER, HostPairAveraging,
                                                 OverlappedHostPairAveraging, layout_digest)
 from kungfu_tpu_torch.peer import Peer
-from kungfu_tpu_torch.plan import PeerID, PeerList
+from kungfu_tpu_torch.plan import Cluster, PeerID, PeerList
 from kungfu_tpu_torch.store import (STORE_PORT_OFFSET, Blob, Store, StoreClient, StoreServer,
                                     VersionedStore, store_port)
 
@@ -216,10 +216,21 @@ def test_peer_identity_and_refusals():
     assert (p.rank, p.size, p.local_rank, p.local_size, p.host_count) == (1, 3, 1, 2, 2)
     assert p.uid() == (3 << 32) | 1 and p.self_id == peers[1]
     assert p._bind_host() == "0.0.0.0"
-    for call, item in ((lambda: p.update_cluster(None, 1), "A.5"),
-                       (p.interference_detector, "A.8")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A.8"):
+        p.interference_detector()
+
+
+def test_peer_update_cluster_detaches_a_removed_peer():
+    """A document without this peer: update_cluster returns False and the
+    peer is detached, its identity untouched (the survivors' side runs on
+    gloo ranks in tests/test_torch_elastic.py)."""
+    peers = PeerList([PeerID("10.0.0.1", 10000), PeerID("10.0.0.1", 10001),
+                      PeerID("10.0.0.2", 10000)])
+    p = Peer(kfenv.Config(self_id=peers[2], peers=peers, runners=PeerList(), cluster_version=3),
+             device="cpu")
+    shrunk = Cluster(runners=PeerList([PeerID("10.0.0.1", 38080)]), workers=PeerList(peers[:2]))
+    assert p.update_cluster(shrunk, 4) is False
+    assert p.detached and p.cluster_version == 3 and p.config.peers == peers
 
 
 def test_peer_self_path_waits():
