@@ -210,6 +210,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              joiner's resume from the checkpoints at its start, the steady
              step at 4 ranks and the step after step 3's save at 2 (the
              schedule leaves no steady step there), each save's time
+ 8f. heal   KungFu's self-healing on the flagship (phase ranks' model and
+             S-SGD, batch 2 a rank): `python -m kungfu_tpu_torch.run -w
+             -heal -np 4 -restart-budget 1` (its restart backoff
+             HEAL_BACKOFF_S through this script's launcher wrapper) runs
+             elastic.run_elastic under KFT_FAULT_PLAN=HEAL_PLAN (launch
+             rank 2 exits 41 at the top of step 4), KFT_RING_TIMEOUT_S
+             HEAL_RING_TIMEOUT_S, snapshots every HEAL_SNAPSHOT_EVERY steps
+             shipped to the buddy, a checkpoint directory: the survivors'
+             B5 gives up on the dead neighbour, they climb the recovery
+             ladder, tear the group down without it, rejoin at 3 ranks and
+             sync; their second 3-rank step waits for the document of the
+             runner's regrow (after the backoff), so the next resize check
+             takes it and the victim joins as at 4; the launcher's own
+             KFT_INIT_TIMEOUT_S for heal-armed workers. Gates: the victim's exit 41, the runner's one
+             heal 4 -> 3 and the regrow; each survivor one heal event with
+             every phase, its rung and source, its parameters after the
+             heal's sync bit-equal to the source it named and to each
+             other; one B5 + B6 all-reduce of an integer-valued f32
+             payload on the 3-rank group bit-equal to its stacked plain
+             version, no workspace left unreaped; the joiner bit-equal to
+             rank 0 after its sync; the replicas bit-identical at the end
+             at 4 ranks, HEAL_SAMPLES trained; B1-B3 once a layer and B5/B6
+             once a bucket in every completed step; every group at its
+             fenced port with no workspace at its rendezvous; losses
+             finite, the first within 1e-2 of phase main's. Prints each
+             heal phase, mttr_s, each buddy ship's time or miss, the dead
+             group's workspace bytes freed and left mapped, the survivors'
+             wait for the regrow, the regrow's times, steady steps, host
+             peaks and the phase's time
  9. gqa      slice 3's main path: the GQA flagship on 4 ranks x batch 2,
              synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), impl="pallas_ring",
              compression="int8", bucket_bytes=--bucket-mib MiB) with
@@ -291,9 +320,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              family, phase gqa for the others; B11's entry also holds its
              launches in phase sp and in phase gossip (a) and (b),
              `launches_by_phase`; B5 and B6 theirs in phases ranks,
-             session and elastic, B1-B3 theirs in phases ranks and
-             elastic, B7 and B8 in phases gqa and session), then the last
-             line {"ok":
+             session, elastic and heal, B1-B3 theirs in phases ranks,
+             elastic and heal, B7 and B8 in phases gqa and session), each
+             phase's time and the whole smoke's, then the last line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
 A rank that fails fails the run: the parent prints the ranks' output and
@@ -407,6 +436,24 @@ ELASTIC_SCHEDULE = "4:2,2:2,4:2"
 ELASTIC_SAMPLES = 40  # 6 steps: 2 at 4 ranks, 2 at 2, 2 at 4 (batch 2 a rank)
 ELASTIC_CKPT_EVERY = 3
 ELASTIC_TIMEOUT = 540  # the phase's own limit (the launcher's -timeout)
+HEAL_LINE = "HEAL_RESULT "  # a worker of phase heal that trained to the end
+HEAL_PLAN = "crash@step=4:rank=2"  # launch rank 2 exits 41 at the top of step 4
+# KFT_RING_TIMEOUT_S in phase heal, the survivors' detect time: above the
+# skew a buddy ship puts between the ranks (6-15 s a 4.11 GiB ship)
+HEAL_RING_TIMEOUT_S = 20
+# WatchRunner's restart backoff (the JAX package's 2 s has no flag; the
+# runner caps a delay at 60 s, with +-20% jitter): the survivors detect the
+# crash only when B5 gives up (HEAL_RING_TIMEOUT_S), so at 2 s the regrow's
+# document would land first and the heal would go 4 -> 4 with the joiner,
+# leaving no 3-rank group; at 60 s they have taken the 3-rank document
+HEAL_BACKOFF_S = 60.0
+# 4 steps at 4 ranks, 2 at 3 (the survivors' second 3-rank step holds until
+# the regrow's document is up, and the check at step 6 takes it), then 4 at 4
+HEAL_SAMPLES = 72
+HEAL_SNAPSHOT_EVERY = 4  # two snapshots before the crash: the seed and step 4's
+HEAL_CKPT_EVERY = 100  # no periodic save: the heal's recovery save and the last one
+HEAL_CHECK_EVERY = 3  # the resize checks: step 4, where the crash lands, is none
+HEAL_TIMEOUT = 600  # the phase's own limit (the launcher's -timeout)
 # Phase session: (a) the interop S-SGD's steps under PALLAS_RING, (b) the
 # steps after the swap to PALLAS_RING_FUSED with int8, each at phase
 # adaptive's SGD rate; (c)'s bucket and the size of its small collectives
@@ -1591,6 +1638,169 @@ def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, main_loss1:
     return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
 
 
+def _heal_gates(res, runner, lines, main_loss1: float):
+    """Phase heal's gates over the ranks' records ({self spec: record}) and
+    the runner's heal events; (rank 0's record, the survivors, the
+    victim)."""
+    final = {rr["final_rank"]: rr for rr in res.values()}
+    r0 = final.get(0)
+    check(sorted(final) == list(range(N_RANKS)), f"heal: final ranks {sorted(final)}")
+    for who, rr in res.items():
+        check(rr["ok"], f"heal: {who} failed its checks: "
+              f"{json.dumps({k: v for k, v in rr['checks'].items() if not v})}")
+        check(rr["trained"] >= HEAL_SAMPLES and rr["final_size"] == N_RANKS,
+              f"heal: {who} trained {rr['trained']} samples, final size {rr['final_size']}")
+        check(all(st["launches"] == st["want"] for st in rr["steps"]),
+              f"heal: {who}'s launches in its steps "
+              f"{json.dumps([(st['step'], st['launches']) for st in rr['steps']])}")
+        check(all(i["workspaces"] == 0 and i["port"] == i["fenced_port"] for i in rr["inits"]),
+              f"heal: {who}'s groups {rr['inits']}")
+        check(all(math.isfinite(st["loss"]) for st in rr["steps"]), f"heal: {who}: a "
+              "non-finite loss")
+    # the runner: the victim's exit 41 healed 4 -> 3, one restart
+    check(len(runner) == 1 and runner[0]["rc"] == 41 and runner[0]["old_size"] == N_RANKS
+          and runner[0]["new_size"] == N_RANKS - 1,
+          f"heal: the runner's heal events {runner}, expected one 4 -> 3 after exit 41")
+    victim = runner[0]["peer"]
+    check(any(f"RESTART: re-grew {victim}" in line for line in lines),
+          f"heal: no regrow of {victim} in the runner's log")
+    survivors = [who for who in res if who != victim]
+    check(len(survivors) == N_RANKS - 1 and victim in res, f"heal: survivors {survivors}, "
+          f"the regrown joiner {victim in res}")
+    phases = {"detect_s", "teardown_s", "re_rendezvous_s", "resync_s", "state_source_s"}
+    for who in survivors:
+        rr = res[who]
+        evs = rr["heal_events"]
+        check(len(evs) == 1 and phases <= set(evs[0]["phases"]) and evs[0]["old_size"] == N_RANKS
+              and evs[0]["new_size"] == N_RANKS - 1 and "mttr_s" in evs[0]
+              and evs[0].get("recovery_rung") and evs[0].get("recovery_source"),
+              f"heal: {who}'s heal events {evs}")
+        heal_syncs = [s for s in rr["syncs"] if s["kind"] == "heal"]
+        check(len(heal_syncs) == 1 and heal_syncs[0]["out"] == heal_syncs[0]["in"],
+              f"heal: {who}'s parameters after the heal's sync differ from the source it named "
+              f"({evs[0].get('recovery_source')})")
+        check(rr["ring3"] is not None and rr["ring3"]["equal"] and rr["ring3"]["world"] == 3
+              and rr["ring3"]["orphans"] == 0,
+              f"heal: {who}'s B5 + B6 check on the healed group: {rr['ring3']}")
+        check(rr["held_s"] is not None, f"heal: {who} never waited for the regrow's document")
+    heal_out = {tuple(s["out"]) for who in survivors for s in res[who]["syncs"]
+                if s["kind"] == "heal"}
+    check(len(heal_out) == 1, "heal: the survivors' parameters differ after the heal's sync")
+    joiner = res[victim]
+    grow_v = joiner["inits"][0]["version"]
+    r0_grow = next(s["out"] for s in r0["syncs"] if s["version"] == grow_v)
+    check(joiner["syncs"][0]["out"] == r0_grow and joiner["resizes"] == 0,
+          "heal: the regrown joiner's parameters after its sync differ from rank 0's")
+    check(all(rr["final_checksum"] == r0["final_checksum"] for rr in res.values()),
+          "heal: the ranks' parameters differ after the last step")
+    first = r0["steps"][0]["loss"]
+    check(abs(first - main_loss1) <= TOL_RANKS_LOSS,
+          f"heal: first-step loss {first} vs phase main's {main_loss1}")
+
+    return r0, survivors, victim
+
+
+def phase_heal(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: float):
+    """KungFu's self-healing on N_RANKS ranks of the flagship: the launcher's
+    healer (`run -w -heal -restart-budget 1`), a scripted crash of launch
+    rank 2, the survivors' recovery to 3 ranks, the regrow to 4.  Returns
+    rank 0's launches in its completed steps."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.ops import flash, peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    t_phase = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="kft-heal-")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               KFT_FAULT_PLAN=HEAL_PLAN, KFT_RING_TIMEOUT_S=str(HEAL_RING_TIMEOUT_S))
+    env.pop("KFT_INIT_TIMEOUT_S", None)  # the launcher's own for heal-armed workers
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    print(f"[heal] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
+          f"card while {N_RANKS} ranks run; plan {HEAL_PLAN!r}, KFT_RING_TIMEOUT_S="
+          f"{HEAL_RING_TIMEOUT_S} (the default is {peer_memory._timeout_ns() / 1e9:g} s), "
+          f"restart backoff {HEAL_BACKOFF_S:g} s, KFT_INIT_TIMEOUT_S the launcher's")
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--rank-phase", "heal-launcher",
+             "-w", "-heal", "-np", str(N_RANKS), "-restart-budget", "1", "-timeout",
+             str(HEAL_TIMEOUT), "--", sys.executable, os.path.abspath(__file__),
+             "--rank-phase", "heal", "--batch", str(batch), "--seed", str(seed),
+             "--bucket-mib", str(bucket_mib), "--ckpt-dir", ckpt_dir],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=HEAL_TIMEOUT + 120)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = proc.stdout
+    lines = out.splitlines()
+    res = {}
+    for line in lines:
+        m = re.match(r"^\[\d+\] " + re.escape(HEAL_LINE) + r"(.*)$", line)
+        if m:
+            rr = json.loads(m.group(1))
+            res[rr["self"]] = rr
+    runner = next((json.loads(line.split("RUNNER_HEAL_EVENTS:", 1)[1]) for line in lines
+                   if line.startswith("RUNNER_HEAL_EVENTS:")), [])
+    if proc.returncode != 0 or len(res) != N_RANKS:
+        print("\n".join(line for line in lines if HEAL_LINE not in line), file=sys.stderr)
+        raise SmokeFailure(f"heal: launcher exit {proc.returncode}, results from "
+                           f"{sorted(res)}")
+    for line in lines:  # the ranks' and the runner's heal lines, not every step's
+        if (("[heal]" in line and " step " not in line) or "CHAOS" in line or "HEAL:" in line
+                or "RESTART:" in line or "healed" in line or "dirty distributed" in line
+                or "suspected peer failure" in line or "recovery ladder" in line
+                or "recovery attempt" in line or "resizing to version" in line
+                or "joined at" in line or "buddy ship" in line):
+            print(line)
+    try:
+        r0, survivors, victim = _heal_gates(res, runner, lines, main_loss1)
+    except Exception:  # the ranks' records, for the post-mortem
+        for line in lines:
+            if HEAL_LINE in line:
+                print(line, file=sys.stderr)
+        raise
+    joiner, first = res[victim], r0["steps"][0]["loss"]
+    for who in survivors:
+        ev = res[who]["heal_events"][0]
+        print(f"[heal] {who} healed {ev['old_size']} -> {ev['new_size']} at v{ev['version']} on "
+              f"{card}: mttr_s {ev['mttr_s']:.2f}, rung {ev['recovery_rung']}/"
+              f"{ev['recovery_source']} ({ev['recovery_demotions']} demotions), phases (s) "
+              f"{json.dumps(ev['phases'])}, dead group's ring workspaces freed "
+              f"{ev['workspace_bytes_freed'] / 2**20:.1f} MiB, left mapped "
+              f"{ev['workspace_bytes_leaked'] / 2**20:.1f} MiB")
+    for who, rr in sorted(res.items()):
+        ships = ", ".join(f"step {s['step']} {'shipped' if s['shipped'] else 'MISSED'} "
+                          f"{s['gib']:.2f} GiB in {s['s']:.2f} s" for s in rr["ships"])
+        print(f"[heal] {who} buddy snapshots: {ships or 'none'}")
+    held = " ".join(f"{res[who]['held_s']:.2f}" for who in survivors)
+    print(f"[heal] the survivors' second {N_RANKS - 1}-rank step held {held} s for the "
+          f"regrow's document")
+    enter = next(s["t0"] for s in joiner["syncs"])
+    print(f"[heal] the regrow: the joiner {victim} from its start to its group "
+          f"{joiner['inits'][0]['t_joined'] - joiner['t_start']:.2f} s, to its sync "
+          f"{enter - joiner['t_start']:.2f} s; restart to the end of the run on rank 0 "
+          f"{r0['t_end'] - enter:.2f} s")
+    peaks = " ".join(f"{rr['host_peak_gib']:.2f}" for rr in res.values())
+    for size in (N_RANKS - 1, N_RANKS):
+        times = [st["s"] for rr in res.values() for st in rr["steps"]
+                 if st["world"] == size and not st["first"]]
+        if times:
+            print(f"[heal] steady step at {size} ranks on {card}: slowest rank "
+                  f"{max(times) * 1e3:.1f} ms, median {statistics.median(times) * 1e3:.1f} ms "
+                  f"({len(times)} rank-steps)")
+    losses = [st["loss"] for st in r0["steps"]]
+    print(f"[heal] {N_RANKS} -> {N_RANKS - 1} -> {N_RANKS} ranks, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, first {first:.4f} vs phase main's "
+          f"{main_loss1:.4f}; survivors bit-equal to their source after the heal's sync, B5 + "
+          f"B6 on the healed group bit-equal to the plain version, the joiner bit-equal to rank "
+          f"0, replicas bit-identical at the end; host peak per rank {peaks} GiB; rank 0 "
+          f"launches {json.dumps(r0['launches'])}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
+
+
 def phase_shift(seed: int):
     """B11 on N_RANKS ranks against its stacked plain version, interleaved
     with B5-B8; its time, the plain version's and the bound."""
@@ -2574,6 +2784,220 @@ def rank_elastic(argv) -> int:
     return 0 if rec["ok"] else 1
 
 
+def launch_heal(argv) -> int:
+    """Phase heal's launcher: `python -m kungfu_tpu_torch.run` with the
+    healer's restart backoff set to HEAL_BACKOFF_S (WatchRunner's
+    `restart_backoff_s`, which the CLI does not expose, as the JAX
+    package's does not); every other setting is the CLI's."""
+    import functools
+
+    from kungfu_tpu_torch.run import __main__ as cli
+    from kungfu_tpu_torch.run import launcher
+
+    launcher.WatchRunner.__init__ = functools.partialmethod(launcher.WatchRunner.__init__,
+                                                            restart_backoff_s=HEAL_BACKOFF_S)
+    return cli.main(argv)
+
+
+def rank_heal(argv) -> int:
+    """One worker of phase heal (run by the healing launcher): the flagship
+    under elastic.run_elastic with KFT_HEAL, instrumented to record each
+    completed step's loss, time and launches, each group's rendezvous,
+    each sync's source and result, each buddy snapshot, and one B5 + B6
+    check on the healed 3-rank group."""
+    import resource
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed, train
+    from kungfu_tpu_torch import peer as peer_mod
+    from kungfu_tpu_torch.datasets import ElasticDataAdaptor
+    from kungfu_tpu_torch.elastic import trainer as ET
+    from kungfu_tpu_torch.elastic.config_client import ConfigClient
+    from kungfu_tpu_torch.env import parse_config_from_env
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import flash, peer_memory
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.models.transformer import FLAGSHIP_GPT, TransformerConfig
+    from kungfu_tpu_torch.resilience import buddy as BD
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens, lm_step_loss
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    ap.add_argument("--ckpt-dir", required=True)
+    args = ap.parse_args(argv)
+    tf32_off()
+    bucket = args.bucket_mib << 20
+    kernels = flash.KERNELS + RC.KERNELS
+    rec = {"self": os.environ["KFT_SELF_SPEC"], "steps": [], "inits": [], "syncs": [],
+           "ships": [], "ring3": None, "held_s": None, "t_start": time.time()}
+    first = {"flag": True, "heal": False}
+
+    # each group's rendezvous: its port, and the ring workspaces left then
+    init_distributed, init_process_group = distributed.init_distributed, dist.init_process_group
+
+    def init_pg(*a, **kw):
+        rec["inits"][-1]["port"] = int(kw["init_method"].rsplit(":", 1)[1])
+        return init_process_group(*a, **kw)
+
+    def init_rec(config=None, device=None):
+        cfg = config if config is not None else parse_config_from_env()
+        rec["inits"].append({"version": cfg.cluster_version, "world": len(cfg.peers),
+                             "workspaces": len(peer_memory._WORKSPACES),
+                             "fenced_port": peer_mod.coordinator_port(cfg.peers[0].port,
+                                                                      cfg.cluster_version)})
+        out = init_distributed(cfg, device)
+        rec["inits"][-1]["t_joined"] = time.time()
+        return out
+
+    distributed.init_distributed, dist.init_process_group = init_rec, init_pg
+
+    # a heal's dirty teardown: the next sync is the heal's
+    close = peer_mod.Peer.close
+
+    def close_rec(self, graceful=True):
+        if not graceful:
+            first["heal"] = True
+        return close(self, graceful)
+
+    peer_mod.Peer.close = close_rec
+
+    def ring3_check():
+        """One B5 + B6 all-reduce of an integer-valued f32 payload on the
+        healed group against the stacked plain version (its launches are
+        not the step's)."""
+        rank = dist.get_rank()
+        x = (torch.arange(1 << 22, device="cuda") % 251 + 3 * rank).float()
+        xs = list(C.all_gather(x))
+        ring = RC.ring_all_reduce(x, None, "sum")
+        peer_memory.check_all()
+        rec["ring3"] = {"equal": torch.equal(ring, C._plain_ring_all_reduce(xs)[rank]),
+                        "world": dist.get_world_size(), "orphans": len(peer_memory._ORPHANS)}
+        print(f"[heal] rank {rank}/{dist.get_world_size()}: B5 + B6 on the healed group "
+              f"bit-equal to the plain version: {rec['ring3']['equal']}", flush=True)
+
+    client = ConfigClient(parse_config_from_env().config_server)
+
+    def hold_for_regrow():
+        """The survivors' second step on the healed group waits until the
+        runner's regrow has put the N_RANKS-worker document, so the resize
+        check after it takes the regrow and the run ends at N_RANKS
+        whatever the 3-rank steps cost (on 4 cards they finished
+        HEAL_SAMPLES before the regrow landed)."""
+        t0 = time.time()
+        while True:
+            got = client.poll_cluster()
+            if got is not None and len(got[0].workers) == N_RANKS:
+                break
+            if time.time() - t0 > HEAL_TIMEOUT:
+                raise SmokeFailure(f"heal: no {N_RANKS}-worker document in {HEAL_TIMEOUT} s")
+            time.sleep(0.5)
+        rec["held_s"] = time.time() - t0
+        print(f"[heal] {rec['self']} held its second {N_RANKS - 1}-rank step "
+              f"{rec['held_s']:.2f} s for the regrow's document (v{got[1]})", flush=True)
+
+    # each completed step: its loss (the group's mean), time and launches
+    train_step = train.DataParallelTrainer.train_step
+    n_buckets = []
+
+    def step_rec(self, state, batch):
+        if not n_buckets:
+            n_buckets.append(len(_pack_buckets(list(state.params.parameters()), bucket)))
+        if self.world == N_RANKS - 1 and rec["ring3"] is None:
+            ring3_check()
+        elif self.world == N_RANKS - 1 and rec["held_s"] is None:
+            hold_for_regrow()  # after the heal's first step, which its mttr_s times
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(self, state, batch)
+        loss = metrics["loss"].item()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches - before[k.name] for k in kernels}
+        want = {k.name: 0 for k in kernels}
+        want.update({k.name: state.params.cfg.n_layers for k in
+                     (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
+        want.update({k.name: n_buckets[0] for k in (RC.RING_RS, RC.RING_AG)})
+        rec["steps"].append({"step": state.step, "world": self.world, "loss": loss, "s": dt,
+                             "first": first["flag"], "launches": launches, "want": want})
+        first["flag"] = False
+        print(f"[heal] {rec['self']} rank {dist.get_rank()}/{self.world} step {state.step}: "
+              f"loss {loss:.4f}, {dt * 1e3:.1f} ms", flush=True)
+        return state, metrics
+
+    train.DataParallelTrainer.train_step = step_rec
+
+    # each sync: the state each rank brought (the heal's source) and got
+    sync_state = ET._GroupPrograms.sync_state
+
+    def sync_rec(self, counters, host_tree):
+        kind = "heal" if first["heal"] else "sync"
+        given = state_checksum(host_tree["params"]) if host_tree["params"] is not None else None
+        t0 = time.time()
+        out = sync_state(self, counters, host_tree)
+        rec["syncs"].append({"version": peer_mod.default_peer().cluster_version, "kind": kind,
+                             "t0": t0, "t1": time.time(), "in": given,
+                             "out": state_checksum(out[1]["params"])})
+        first["flag"], first["heal"] = True, False  # the next step is the first on the group
+        return out
+
+    ET._GroupPrograms.sync_state = sync_rec
+
+    # each buddy snapshot: its time, size and whether the ship landed
+    update = BD.BuddySnapshots.update
+
+    def update_rec(self, step, offset, params, opt):
+        t0 = time.perf_counter()
+        update(self, step, offset, params, opt)
+        shipped = bool(self.ships and self.ships[-1][3]) if self.buddy_rank >= 0 else False
+        rec["ships"].append({"step": int(step), "s": time.perf_counter() - t0,
+                             "gib": self._own.nbytes / 2**30, "shipped": shipped})
+
+    BD.BuddySnapshots.update = update_rec
+
+    cfg = TransformerConfig(**FLAGSHIP_GPT)  # the tokens need only its vocab and length
+    tokens = flagship_tokens(cfg, args.batch, args.seed, "cuda").cpu().numpy()
+
+    def make_data(rank, size, offset):
+        it = iter(ElasticDataAdaptor(tokens, np.zeros(len(tokens), np.int32),
+                                     batch_size=args.batch // N_RANKS, rank=rank, size=size,
+                                     offset=offset, seed=args.seed))
+        return (torch.from_numpy(rows) for rows, _ in it)
+
+    def make_tx(axes=None):
+        return synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), group=axes, impl="pallas_ring",
+                               bucket_bytes=bucket or None)
+
+    for kern in kernels:
+        kern.launches = 0
+    out = ET.run_elastic(
+        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda")[1], make_tx, make_data,
+        ET.ElasticConfig(total_samples=HEAL_SAMPLES, batch_size=args.batch // N_RANKS,
+                         check_every=HEAL_CHECK_EVERY, checkpoint_dir=args.ckpt_dir,
+                         checkpoint_every=HEAL_CKPT_EVERY, snapshot_every=HEAL_SNAPSHOT_EVERY))
+    rec["t_end"] = time.time()
+    rec["final_rank"] = dist.get_rank()
+    rec["final_checksum"] = state_checksum(out["state"].params.state_dict())
+    rec["launches"] = {k.name: sum(st["launches"][k.name] for st in rec["steps"])
+                       for k in kernels}
+    rec["trained"], rec["final_size"] = out["trained_samples"], out["final_size"]
+    rec["resizes"], rec["heal_events"] = out["resizes"], out["heal_events"]
+    rec["checks"] = {"no JAX": jax_free()}
+    rec["ok"] = all(rec["checks"].values())
+    rec["host_peak_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"RESULT: heal trained={out['trained_samples']} heals={out['heals']} "
+          f"resizes={out['resizes']} final_size={out['final_size']} loss={out['loss']:.4f} "
+          f"rank={rec['final_rank']}", flush=True)
+    print(HEAL_LINE + json.dumps(rec), flush=True)
+    peer_mod.finalize_default_peer()
+    return 0 if rec["ok"] else 1
+
+
 def rank_ring(argv) -> int:
     """One rank of phase ring (run by the launcher)."""
     from kungfu_tpu_torch.tools import ring_check
@@ -2763,8 +3187,10 @@ def main() -> int:
         phase, rest = sys.argv[2], sys.argv[3:]
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
                    "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive,
-                   "gossip": rank_gossip, "session": rank_session, "elastic": rank_elastic}
+                   "gossip": rank_gossip, "session": rank_session, "elastic": rank_elastic,
+                   "heal": rank_heal, "heal-launcher": launch_heal}
         return workers[phase](rest)
+    t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8)
@@ -2779,38 +3205,65 @@ def main() -> int:
     from kungfu_tpu_torch.ops import fused_matmul as FM
     from kungfu_tpu_torch.ops import ring_collectives as RC
 
+    t_lap = [t_smoke]
+
+    def lap(name: str) -> None:  # each phase's time, host clock
+        now = time.perf_counter()
+        print(f"[smoke] {name} {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     try:
         card, kind, count = phase_device()
         phase_build()
+        lap("build")
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
+        lap("kernels")
         wide, wide_launches = phase_wide(args.seed)
         results.append(wide)
+        lap("wide")
         phase_model_check(args.seed)
+        lap("check")
         main_losses, n_params, fsdp_sizes, fsdp_groups = phase_main(args.steps, args.batch,
                                                                     args.seed)
+        lap("main")
         torch.cuda.empty_cache()
         phase_chunked(args.batch, args.seed)
+        lap("chunked")
         torch.cuda.empty_cache()  # the ranks need the card's memory
         gqa_loss, gqa_params, gqa_shapes = phase_gqa_reference(args.batch, args.seed)
         results.append(phase_ef(gqa_shapes, args.seed))
+        lap("gqa-ref, ef")
         results.append(phase_ring(n_params, gqa_params, fsdp_sizes, fsdp_groups, args.seed))
+        lap("ring")
         ranks_launches, ranks_losses = phase_ranks(args.rank_steps, args.batch, args.seed,
                                                    args.bucket_mib, main_losses[0])
+        lap("ranks")
         phase_adaptive(card, args.rank_steps, args.batch, args.seed, args.bucket_mib,
                        main_losses[0], ranks_losses)
+        lap("adaptive")
         gossip_shifts = phase_gossip(card, args.batch, args.seed, main_losses[0])
+        lap("gossip")
         session_launches = phase_session(card, args.batch, args.seed, main_losses[0])
+        lap("session")
         elastic_launches = phase_elastic(card, args.batch, args.seed, args.bucket_mib,
                                          main_losses[0])
+        lap("elastic")
+        heal_launches = phase_heal(card, args.batch, args.seed, args.bucket_mib, main_losses[0])
+        lap("heal")
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
+        lap("gqa")
         results.append(phase_shift(args.seed))
+        lap("shift")
         sp_loss = phase_sp_reference(args.seed)
         sp_launches = phase_sp(SP_STEPS, args.seed, args.bucket_mib, sp_loss)
+        lap("sp-ref, sp")
         fused, fused_launches = phase_fused(args.seed)
         results.append(fused)
+        lap("fused")
         phase_fsdp(FSDP_STEPS, args.batch, args.seed, main_losses[0],
                    ranks_losses[:FSDP_STEPS])
+        lap("fsdp")
         # each kernel's launches from the path that runs it
         launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
         launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
@@ -2840,6 +3293,10 @@ def main() -> int:
         if elastic_launches.get(k["name"]):  # B1-B3, B5 and B6 also run under run_elastic
             k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
             k["launches_by_phase"]["elastic"] = elastic_launches[k["name"]]
+        if heal_launches.get(k["name"]):  # and across phase heal's crash, heal and regrow
+            k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
+            k["launches_by_phase"]["heal"] = heal_launches[k["name"]]
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_smoke:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

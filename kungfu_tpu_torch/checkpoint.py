@@ -17,8 +17,9 @@ Saves are primary-only and asynchronous: `save` copies the state to the
 host and queues it; one writer thread writes the step under a temporary
 name, renames it to `<step>` (the step is then finalized) and commits
 its manifest by an atomic rename (resilience/manifest.py): the manifest is
-the real finalization marker, so a crash between the two leaves a
-detectably torn step.  `max_to_keep` finalized steps are kept.  A write
+the real finalization marker, so a crash between the two (the chaos
+harness's `crash_in_save` fault fires there) leaves a detectably torn
+step.  `max_to_keep` finalized steps are kept.  A write
 that fails is journaled as `checkpoint_save_failed` at the next drain point
 (save, wait, finalize_manifests, release) and never raises into training.
 
@@ -37,7 +38,7 @@ import os
 import queue
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,25 +119,39 @@ def _namedtuple(spec: str, fields: Dict[str, Any]) -> Any:
         return fields
 
 
-def _decode(x: Any, state_dir: str) -> Any:
+def _leaf_from(x: Dict[str, Any], raw) -> Any:
+    """The array leaf of record `x` over the buffer `raw` (writable: the
+    tensor shares its memory)."""
+    if "ndarray" in x:
+        return np.frombuffer(raw, dtype=np.dtype(x["dtype"])).reshape(x["shape"])
+    dtype = getattr(torch, x["dtype"])
+    store = torch.int16 if dtype == torch.bfloat16 else dtype
+    t = torch.frombuffer(raw, dtype=store) if len(raw) else torch.empty(0, dtype=store)
+    return t.view(dtype).reshape(x["shape"])
+
+
+def _decode_tree(x: Any, leaf: Callable[[Dict[str, Any]], Any]) -> Any:
+    """The tree `_encode` encoded; `leaf(record)` gives each array leaf."""
     if "tensor" in x or "ndarray" in x:
-        raw = open(os.path.join(state_dir, f"{x.get('tensor', x.get('ndarray'))}.bin"),
-                   "rb").read()
-        if "ndarray" in x:
-            return np.frombuffer(raw, dtype=np.dtype(x["dtype"])).reshape(x["shape"]).copy()
-        dtype = getattr(torch, x["dtype"])
-        store = torch.int16 if dtype == torch.bfloat16 else dtype
-        t = torch.frombuffer(bytearray(raw), dtype=store) if raw else torch.empty(0, dtype=store)
-        return t.view(dtype).reshape(x["shape"])
+        return leaf(x)
     if "dict" in x:
-        return {k: _decode(v, state_dir) for k, v in x["dict"]}
+        return {k: _decode_tree(v, leaf) for k, v in x["dict"]}
     if "ntuple" in x:
-        return _namedtuple(x["ntuple"], {f: _decode(v, state_dir) for f, v in x["fields"]})
+        return _namedtuple(x["ntuple"], {f: _decode_tree(v, leaf) for f, v in x["fields"]})
     if "tuple" in x:
-        return tuple(_decode(v, state_dir) for v in x["tuple"])
+        return tuple(_decode_tree(v, leaf) for v in x["tuple"])
     if "list" in x:
-        return [_decode(v, state_dir) for v in x["list"]]
+        return [_decode_tree(v, leaf) for v in x["list"]]
     return x["value"]
+
+
+def _decode(x: Any, state_dir: str) -> Any:
+    def leaf(rec):
+        with open(os.path.join(state_dir, f"{rec.get('tensor', rec.get('ndarray'))}.bin"),
+                  "rb") as f:
+            return _leaf_from(rec, bytearray(f.read()))
+
+    return _decode_tree(x, leaf)
 
 
 def _place_like(x: Any, like: Any) -> Any:
@@ -271,6 +286,11 @@ class CheckpointManager:
         manifest = build_manifest(step, host_state, meta=meta,
                                   cluster_version=meta.get("cluster_version"))
         os.replace(tmp, final)  # the step is finalized
+        # the chaos harness's crash_in_save fault fires here, between the
+        # leaves and the manifest: the torn step the restore ladder demotes
+        from .chaos.inject import maybe_crash_in_save
+
+        maybe_crash_in_save(step)
         write_manifest(self.directory, manifest)  # and committed
         for old in self.all_steps()[:-self._max_to_keep] if self._max_to_keep else []:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)

@@ -8,11 +8,17 @@ version)` as in the JAX package, and world size and rank from the peer
 list.  A cluster of one needs no group, and
 nothing is started for it.
 
-Card and backend (`placement`): a rank uses card local_rank mod the
-number of cards it sees, so ranks may share a card.  The group is NCCL
+Card and backend (`placement`): a rank uses card port mod the number of
+cards it sees, so ranks may share a card.  The port is the peer's
+identity, where its rank is not: a rank that a heal or a resize shifts
+keeps the card its model and state live on, and a worker regrown at its
+port takes the card its predecessor left (the launcher's consecutive
+ports from 10000 give local rank mod the cards).  The group is NCCL
 when every rank of a host has a card of its own and gloo when ranks share
-one, since NCCL refuses two ranks of one communicator on one card; the CPU
-is always gloo.  The group carries only the broadcast at init, the loss
+one (more ranks than cards, or two ports of a host with one residue, as a
+worker grown at the lowest free port from 10000 beside ranks launched
+from another base can get), since NCCL refuses two ranks of one
+communicator on one card; the CPU is always gloo.  The group carries only the broadcast at init, the loss
 mean and the ring workspace's handle exchange: the gradient mean of
 impl="pallas_ring" runs through the ring kernels on either backend.
 `sub_group` makes the groups of a mesh axis (`plan/mesh.py`) on the same
@@ -22,6 +28,9 @@ from __future__ import annotations
 
 import collections
 import datetime
+import importlib
+import os
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -35,7 +44,17 @@ from .utils import get_logger
 log = get_logger("kungfu.distributed")
 
 
-_RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
+INIT_TIMEOUT_ENV = "KFT_INIT_TIMEOUT_S"  # the group's rendezvous timeout, default 300
+# the group's operations, whatever the rendezvous got: a rank that waits
+# long in one (a peer's snapshot or save) must not read as a failure
+OP_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def _rendezvous_timeout() -> datetime.timedelta:
+    """KFT_INIT_TIMEOUT_S, as in the JAX package (a heal-armed worker gets
+    45 s from the launcher, so a rejoin that cannot convene fails in time
+    to chase a newer document)."""
+    return datetime.timedelta(seconds=float(os.environ.get(INIT_TIMEOUT_ENV) or 300))
 
 
 def placement(peers: PeerList, self_id: PeerID, device_type: str,
@@ -48,9 +67,11 @@ def placement(peers: PeerList, self_id: PeerID, device_type: str,
         return None, "gloo"
     if device_count < 1:
         raise RuntimeError("no CUDA card to place a rank on")
-    per_host = max(collections.Counter(p.host for p in peers).values())
-    backend = "nccl" if per_host <= device_count else "gloo"
-    return peers.local_rank(self_id) % device_count, backend
+    cards = collections.defaultdict(list)
+    for p in peers:
+        cards[p.host].append(p.port % device_count)
+    own_card = all(len(set(c)) == len(c) for c in cards.values())
+    return self_id.port % device_count, "nccl" if own_card else "gloo"
 
 
 def init_distributed(config: Optional[Config] = None, device=None) -> int:
@@ -73,6 +94,15 @@ def init_distributed(config: Optional[Config] = None, device=None) -> int:
         torch.cuda.set_device(card)
     from .peer import coordinator_port
 
+    # torch's optimizers import torch._dynamo at their first construction;
+    # imported while a process group exists, it keeps references to that
+    # group (seen with torch 2.13), which then outlives
+    # destroy_process_group with its gloo sockets open.  A heal's dirty
+    # teardown relies on those sockets closing: a peer blocked opposite
+    # this rank sees the reset and enters its own recovery.  So it is
+    # imported before the first group.
+    importlib.import_module("torch._dynamo")
+
     root = cfg.peers[0]
     port = coordinator_port(root.port, cfg.cluster_version)
     dist.init_process_group(
@@ -80,8 +110,12 @@ def init_distributed(config: Optional[Config] = None, device=None) -> int:
         init_method=f"tcp://{root.host}:{port}",
         world_size=world,
         rank=cfg.rank,
-        timeout=_RENDEZVOUS_TIMEOUT,
+        timeout=_rendezvous_timeout(),
     )
+    # torch gives the group's operations the rendezvous's timeout; the JAX
+    # package bounds only its rendezvous with KFT_INIT_TIMEOUT_S.  The TCP
+    # store keeps it, so NCCL's lazy communicator setup is bounded too.
+    dist.distributed_c10d._set_pg_timeout(OP_TIMEOUT)
     where = f"card {card} of {count}" if card is not None else "cpu"
     log.info("rank %d/%d joined at %s:%d (version %d): %s, backend %s", cfg.rank, world,
              root.host, port, cfg.cluster_version, where, backend)
@@ -97,10 +131,35 @@ def sub_group(partition: Sequence[Sequence[int]]):
     return mine
 
 
-def shutdown_distributed() -> None:
-    """Free the ring workspaces, then leave the process group, if any."""
-    if dist.is_initialized():
-        from .ops import peer_memory
+def shutdown_distributed(graceful: bool = True, peers: Optional[PeerList] = None) -> None:
+    """Free the ring workspaces, then leave the process group, if any.
 
+    graceful=False is the suspected-dead-peer path of a heal (the JAX
+    package's `teardown_distributed_runtime(graceful=False)`), which must
+    return with a dead rank in the group: no barrier and no collective.
+    NCCL's communicators are aborted (`_abort_process_group`: its
+    `destroy_process_group` can block on a communicator with a dead rank),
+    a gloo group is dropped (its destroy touches no peer), and the ring
+    workspaces are set aside (`peer_memory.abandon_all`, with `peers`, the
+    world's peer list) until `peer_memory.reap_orphans` frees them once
+    the healed group has met."""
+    if not dist.is_initialized():
+        return
+    from .ops import peer_memory
+
+    if graceful:
         peer_memory.close_all()
         dist.destroy_process_group()
+        return
+    t0 = time.perf_counter()
+    abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+    if dist.get_backend() == "nccl" and abort is not None:
+        abort()  # before the card sync below: an aborted NCCL kernel ends
+    else:
+        dist.destroy_process_group()
+    peer_memory.abandon_all(peers if peers is not None else [])
+    dt = time.perf_counter() - t0
+    from .monitor.journal import journal_event
+
+    journal_event("dirty_teardown", duration_s=round(dt, 4))
+    log.info("dirty distributed teardown in %.2fs", dt)

@@ -1,6 +1,6 @@
 """Elastic training (counterpart of kungfu_tpu.elastic): the config
 service, the resize protocol and the schedules.  The replicated config
-ensemble waits for ROADMAP A.5b."""
+ensemble waits for ROADMAP A.5c."""
 from .config_client import ConfigClient, propose_new_size
 from .config_server import ConfigServer
 from .schedule import StepBasedSchedule

@@ -13,7 +13,7 @@ PUT) are never retried.  `poll_cluster` is the variant the poll loops use:
 an outage past the retry budget is None ("no new config visible").
 
 A URL list (`KFT_CONFIG_URLS` with several URLs: the replicated ensemble's
-failover client) raises until the ensemble is ported (ROADMAP A.5b).
+failover client) raises until the ensemble is ported (ROADMAP A.5c).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class ConfigClient:
         if len(urls) > 1:
             raise NotImplementedError(f"ConfigClient({url!r}): the failover client of a "
                                       "replicated config ensemble is not ported yet "
-                                      "(ROADMAP A.5b)")
+                                      "(ROADMAP A.5c)")
         self.url = urls[0]
         self.timeout_s = timeout_s
         self.retries = retries

@@ -27,15 +27,17 @@ either package talks to a server of either:
     plane, which a single server fixes at 1, and GET /raft/status its
     single-replica status.
 
-The replicated control plane (`-replica-id`, `-peers`: the leader-leased
-ensemble of the JAX package) and the chaos harness's scripted outages
-(KFT_FAULT_PLAN) raise until they are ported (ROADMAP A.5b).
+A `flap@config_server=D[:after=N]` fault in KFT_FAULT_PLAN (chaos/) makes
+the server answer 503 to document requests for the scripted window, as the
+JAX server does (`ServerChaos.should_503` on every request; /health and the
+KV plane are the liveness plane and answer inside the window).  The
+replicated control plane (`-replica-id`, `-peers`: the leader-leased
+ensemble of the JAX package) raises until it is ported (ROADMAP A.5c).
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import threading
 import time
 import urllib.parse
@@ -48,7 +50,6 @@ from ..utils import get_logger
 log = get_logger("kungfu.configserver")
 
 LEADER_EPOCH = 1  # a single server is the leader of epoch 1 for its whole life
-FAULT_PLAN = "KFT_FAULT_PLAN"
 
 
 class _State:
@@ -146,11 +147,12 @@ class ConfigServer:
                  peers: Optional[List[str]] = None):
         if peers or replica_id:
             raise NotImplementedError("ConfigServer(replica_id=..., peers=...): the replicated "
-                                      "control plane is not ported yet (ROADMAP A.5b)")
-        if chaos is not None or os.environ.get(FAULT_PLAN):
-            raise NotImplementedError(f"ConfigServer under {FAULT_PLAN} (the chaos harness's "
-                                      "scripted outages) is not ported yet (ROADMAP A.5b)")
+                                      "control plane is not ported yet (ROADMAP A.5c)")
+        from ..chaos import server_chaos_from_env
+
         self.state = state = _State(init)
+        # scripted outage windows (KFT_FAULT_PLAN flap@config_server=...)
+        chaos = chaos if chaos is not None else server_chaos_from_env()
         this = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -166,6 +168,12 @@ class ConfigServer:
 
             def _json(self, code: int, body: dict) -> None:
                 self._send(code, json.dumps(body).encode())
+
+            def _flapped(self) -> bool:
+                if chaos is not None and chaos.should_503():
+                    self._send(503, b'{"error": "chaos flap"}')
+                    return True
+                return False
 
             def _read_body(self):
                 """(ok, parsed); ok False means a 400 was already sent."""
@@ -233,6 +241,8 @@ class ConfigServer:
                     self._json(200, {**state.health(), "role": "leader", "replica": 0,
                                      "leader_epoch": LEADER_EPOCH})
                     return
+                if self._flapped():
+                    return
                 got = state.get()
                 if got is None:
                     self._send(404, b'{"error": "no config"}')
@@ -243,12 +253,16 @@ class ConfigServer:
 
             def do_PUT(self):
                 key = self._kv_key()
+                if key:
+                    ok, doc = self._read_body()
+                    if ok:
+                        state.apply(state.kv_put, key, doc)
+                        self._json(200, {"leader_epoch": LEADER_EPOCH})
+                    return
+                if self._flapped():
+                    return
                 ok, doc = self._read_body()
                 if not ok:
-                    return
-                if key:
-                    state.apply(state.kv_put, key, doc)
-                    self._json(200, {"leader_epoch": LEADER_EPOCH})
                     return
                 c, version, reconvene = self._cluster_of(doc)
                 if c is not None:
@@ -256,6 +270,8 @@ class ConfigServer:
                     self._reply(state.apply(state.put, c, expect, reconvene))
 
             def do_POST(self):
+                if not self.path.startswith("/raft/") and self._flapped():
+                    return
                 ok, doc = self._read_body()
                 if not ok:
                     return
@@ -309,8 +325,8 @@ def main(argv=None):
     ap.add_argument("-host", default="0.0.0.0")
     ap.add_argument("-init", default="", help="path to the initial cluster JSON")
     ap.add_argument("-replica-id", dest="replica_id", type=int, default=0,
-                    help="replicated mode: not ported yet (ROADMAP A.5b)")
-    ap.add_argument("-peers", default="", help="replicated mode: not ported yet (ROADMAP A.5b)")
+                    help="replicated mode: not ported yet (ROADMAP A.5c)")
+    ap.add_argument("-peers", default="", help="replicated mode: not ported yet (ROADMAP A.5c)")
     args = ap.parse_args(argv)
     init = None
     if args.init:

@@ -38,22 +38,39 @@ never forms ends in TimeoutError instead of blocking.
 
 SIGTERM is a preemption notice: at the step boundary a final checkpoint,
 self-removal from the cluster document, a DETACHED line and a clean exit.
-The self-healing path of the JAX package (KFT_HEAL: the recovery ladder,
-buddy snapshots, the unplanned re-rendezvous), its chaos faults
-(KFT_FAULT_PLAN) and the progress beacon (KFT_PROGRESS_BEACON) raise until
-they are ported (ROADMAP A.5b), and so do the monitoring counters and the
-anomaly watchdog (KFT_CONFIG_ENABLE_MONITORING, A.8).
+
+Self-healing: under a `-heal` launcher (KFT_HEAL) the loop also survives an
+unplanned failure.  A step that dies because a peer vanished (a gloo
+"Connection closed", a consensus that times out, or a ring kernel that gave
+up waiting for its neighbour: `peer_memory.RingError`, by its type) enters
+the recovery path: climb the recovery ladder (resilience/: the live state when the
+failed step left it intact, then this rank's rolling snapshot, then the
+copy shipped to its buddy, then the newest verified disk step), save a
+state that is not yet durable, tear the group down without touching the
+dead peer (`Peer.close(graceful=False)`), wait for the healer's document
+(touching the heartbeat file; exit HEAL_WAIT_EXIT_CODE past
+`heal_timeout_s`), rejoin at its fenced port, sync from rank 0, free the
+dead group's ring workspaces, and go on at the new size.  The JAX
+package's state is functional and a failed step never assigns it; here
+the model and optimizer change in place, so the live rung is taken only
+while the optimizer says its state is the one from before the failed step
+(`OptimizerWrapper.live_dirty`).  Faults come from KFT_FAULT_PLAN
+(chaos/), keyed on the launch rank; rank 0 publishes its progress under
+KFT_PROGRESS_BEACON.  The monitoring counters and the anomaly watchdog
+(KFT_CONFIG_ENABLE_MONITORING) wait for ROADMAP A.8.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import inspect
 import math
 import os
 import signal
 import sys
 import time
+import traceback
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -62,14 +79,18 @@ import torch.distributed as dist
 from ..monitor.journal import journal_event
 from ..utils import get_logger
 from ..utils import trace as tracing
+from ..utils.stall import stall_detector
 from .config_client import ConfigClient, propose_new_size
 from .schedule import StepBasedSchedule
 
 log = get_logger("kungfu.elastic")
 
 # env -> the ROADMAP item that ports what it arms
-UNPORTED_ENV = {"KFT_HEAL": "A.5b", "KFT_FAULT_PLAN": "A.5b", "KFT_PROGRESS_BEACON": "A.5b",
-                "KFT_CONFIG_ENABLE_MONITORING": "A.8"}
+UNPORTED_ENV = {"KFT_CONFIG_ENABLE_MONITORING": "A.8"}
+
+# exit code when the suspected-dead-peer path finds no healed document in
+# time: distinct from crash codes, so the healer's logs show why we died
+HEAL_WAIT_EXIT_CODE = 86
 
 
 @dataclasses.dataclass
@@ -84,8 +105,13 @@ class ElasticConfig:
     # restarted job resumes from the latest verified checkpoint
     checkpoint_dir: str = ""
     checkpoint_every: int = 50
-    # the JAX package's heal_timeout_s and snapshot_every tune the
-    # self-healing path and come with it (ROADMAP A.5b)
+    # how long the suspected-dead-peer path waits for the healer's shrunk
+    # document before giving up (exit HEAL_WAIT_EXIT_CODE)
+    heal_timeout_s: float = 120.0
+    # heal-armed jobs keep a rolling snapshot of the train state every this
+    # many steps (shipped to the buddy rank): a heal that cannot take the
+    # live state loses at most this many steps.  0 = check_every
+    snapshot_every: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +127,10 @@ class _GroupPrograms:
     def __init__(self, trainer):
         self.trainer = trainer
         self.world = dist.get_world_size() if dist.is_initialized() else 1
+        # heal-armed jobs run the consensus and the sync under a forced
+        # stall watchdog: its ticks keep the launcher-facing heartbeat fresh
+        # (blocked on a hung peer reads as alive, not as a second hang)
+        self._stall_force = bool(os.environ.get("KFT_HEAL"))
         # NCCL carries only tensors on the card; gloo those on the host
         nccl = self.world > 1 and dist.get_backend() == "nccl"
         self.device = trainer.device if nccl else torch.device("cpu")
@@ -119,6 +149,10 @@ class _GroupPrograms:
         BytesConsensus retry loop (peer.go:245-254) as an elementwise min
         and max over the group, retried with `refresh`'s values until they
         agree; TimeoutError past `timeout_s`."""
+        with stall_detector("elastic_consensus", force=self._stall_force):
+            return self._agree_vec(values, timeout_s, refresh)
+
+    def _agree_vec(self, values, timeout_s, refresh) -> Tuple[int, ...]:
         t0 = time.monotonic()
         v = tuple(int(x) for x in values)
         n = len(v)
@@ -165,6 +199,10 @@ class _GroupPrograms:
         returns (synced counters, rank 0's tree)."""
         if self.world == 1:
             return tuple(int(c) for c in counters), host_tree
+        with stall_detector("elastic_state_sync", force=self._stall_force):
+            return self._sync_state(counters, host_tree)
+
+    def _sync_state(self, counters, host_tree):
         off = torch.tensor(list(counters), dtype=torch.int64, device=self.device)
         dist.all_reduce(off, op=dist.ReduceOp.MAX)
         tree = self._whole(host_tree)
@@ -195,6 +233,81 @@ def _to_host(tree: Any) -> Any:
     """A host copy of every tensor of the tree."""
     return _map_leaves(tree, lambda x: x.detach().to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else x)
+
+
+def _suspected_peer_failure(e: BaseException) -> bool:
+    """Does this exception look like a peer's death rather than a bug?
+
+    The JAX package's markers: gloo surfaces a dead peer as "... Connection
+    closed by peer", the runtime as RuntimeError with UNAVAILABLE or
+    heartbeat text, and a consensus that never converges as TimeoutError.
+    A ring kernel that gave up waiting for its neighbour raises
+    `peer_memory.RingError`, taken by its type, not its text."""
+    from ..ops.peer_memory import RingError
+
+    if isinstance(e, (TimeoutError, OSError, RingError)):
+        return True
+    text = f"{type(e).__name__}: {e}"
+    markers = (
+        "Gloo", "gloo", "Connection", "connection closed", "closed by peer",
+        "UNAVAILABLE", "DEADLINE_EXCEEDED", "heartbeat", "Heartbeat",
+        "coordination", "Coordination", "Socket", "socket", "distributed_runtime",
+        "preempted",
+    )
+    return isinstance(e, (RuntimeError, ValueError)) and any(m in text for m in markers)
+
+
+def _optimizers(opt):
+    """The optimizer and every wrapper's inner one, outermost first."""
+    while opt is not None:
+        yield opt
+        opt = getattr(opt, "inner", None)
+
+
+def _live_state(state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(parameters, optimizer state dict) of the live state, the recovery
+    ladder's "live" source: the state before the failed step, read in
+    place.  Raises when the step may already have changed it (a wrapper's
+    step began and did not show its failure point came first, the
+    optimizer stepped, or a compressed reduction wrote its residuals) or
+    when a resize had dropped it."""
+    if state is None:
+        raise RuntimeError("no live state: the failure came mid-resize")
+    why = next((o.live_dirty for o in _optimizers(state.opt_state)
+                if getattr(o, "live_dirty", None)), None)
+    if why:
+        raise RuntimeError(f"the live state is past the step's start: {why}")
+    return dict(state.params.state_dict()), state.opt_state.state_dict()
+
+
+def _mark_live(opt) -> None:
+    """A step completed: the live state is the next step's start."""
+    for o in _optimizers(opt):
+        if getattr(o, "live_dirty", None):
+            o.live_dirty = None
+
+
+def _drop_frames(e: Optional[BaseException]) -> None:
+    """Clear the locals of the finished frames in `e`'s tracebacks (and its
+    causes'), so nothing of a failed collective outlives the teardown."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        traceback.clear_frames(e.__traceback__)
+        e = e.__cause__ or e.__context__
+
+
+def _touch(path: str) -> None:
+    try:
+        os.utime(path, None)
+    except FileNotFoundError:
+        try:
+            with open(path, "w"):
+                pass
+        except OSError:
+            pass
+    except OSError:
+        pass
 
 
 def _refuse_unported() -> None:
@@ -232,8 +345,12 @@ def run_elastic(
     Returns the final metrics (on the ranks that survive to the end).
     """
     from .. import peer as peer_mod
+    from ..chaos import injector_from_env, set_launch_rank
     from ..checkpoint import CheckpointManager
+    from ..ops import peer_memory
     from ..plan import Impl, impl_of, make_hierarchical_mesh
+    from ..resilience import BuddySnapshots, buddy_enabled
+    from ..resilience import ladder
     from ..train import DataParallelTrainer, TrainState
 
     _refuse_unported()
@@ -251,6 +368,21 @@ def run_elastic(
     first_step_after_resize = False
     last_propose: Dict[str, Any] = {}
     preempted = {"flag": False}
+
+    # -- self-healing state: armed by the -heal launcher (KFT_HEAL); without
+    # a healer publishing shrunk documents, waiting for one would only delay
+    # the failure the supervisor needs to see
+    heal_armed = bool(os.environ.get("KFT_HEAL")) and client is not None
+    heal_events: List[Dict[str, Any]] = []
+    pending_heal: Optional[Dict[str, Any]] = None
+    chaos = injector_from_env()
+    # faults key on the LAUNCH rank: ranks shift when the cluster heals, and
+    # a drill's victim must stay the same process; the checkpoint writer's
+    # crash_in_save has no rank of its own, so it is registered here
+    chaos_rank = peer.rank
+    set_launch_rank(chaos_rank)
+    hb_file = os.environ.get("KFT_HEARTBEAT_FILE", "")
+    beacon_armed = bool(os.environ.get("KFT_PROGRESS_BEACON")) and client is not None
 
     def on_sigterm(signum, frame):  # noqa: ARG001
         preempted["flag"] = True
@@ -298,9 +430,9 @@ def run_elastic(
                                       per_replica_params=cfg.per_replica, device=peer.device)
         return trainer, _GroupPrograms(trainer), shape
 
-    def place(model, synced, step):
-        """TrainState of `model` holding the synced parameters and a fresh
-        optimizer holding the synced optimizer state."""
+    def place(synced, step):
+        """TrainState of the model holding the synced parameters and a
+        fresh optimizer holding the synced optimizer state."""
         with torch.no_grad():
             model.load_state_dict(synced["params"])
         opt = trainer.tx(model.parameters())
@@ -312,7 +444,7 @@ def run_elastic(
                 _to_host(state.opt_state.state_dict()))
 
     trainer, programs, mesh_shape = build()
-    model = init_params().to(trainer.device)
+    model = init_params().to(trainer.device)  # the one model, across every resize
     state = TrainState(params=model, opt_state=trainer.tx(model.parameters()), step=0)
     offset = 0
     step = 0  # the optimizer's step count (kept across resizes by the sync)
@@ -346,7 +478,7 @@ def run_elastic(
     # running cluster (spawned at version N) gets the survivors' state here;
     # it pairs with the survivors' sync in their resize path
     (offset, step), synced = programs.sync_state((offset, step), {"params": sp, "opt": so})
-    state = place(model, synced, step)
+    state = place(synced, step)
     del sp, so, synced
     data = make_data(peer.rank, peer.size, offset)
     # the sync is this step's rendezvous: nobody re-checks at this step, so
@@ -354,6 +486,32 @@ def run_elastic(
     skip_check_at = step
     t_start = time.monotonic()
     metrics: Dict[str, Any] = {"loss": torch.tensor(float("nan"))}
+
+    # the buddy tier: a rolling snapshot every snapshot_every steps, shipped
+    # to a ring-offset buddy rank (another host when one exists); rebuilt on
+    # every membership change (ranks shift)
+    snapshot_every = cfg.snapshot_every or max(1, cfg.check_every)
+    buddy: Optional[BuddySnapshots] = None
+
+    def update_buddy() -> None:
+        buddy.update(step, offset, dict(state.params.state_dict()),
+                     state.opt_state.state_dict())
+
+    def rebuild_buddy(seed: bool) -> None:
+        """(Re-)derive the buddy assignment for the current peer list; with
+        `seed`, stash and ship a snapshot at once, so the recovery ladder
+        never finds the tier empty."""
+        nonlocal buddy
+        if buddy is not None:
+            buddy.close()
+            buddy = None
+        if not heal_armed:
+            return
+        buddy = BuddySnapshots(peer)
+        if seed and buddy_enabled():
+            update_buddy()
+
+    rebuild_buddy(seed=True)
 
     def save_ckpt(force: bool = False) -> None:
         if ckpt is None or not ckpt.writes:
@@ -398,6 +556,189 @@ def run_elastic(
         print(f"DETACHED: preempted at step {step} ({offset} samples trained)", flush=True)
         sys.exit(0)
 
+    def put_suspect(reason: str) -> None:
+        """Best-effort `suspect/<self>` KV report on entering recovery: the
+        launchers' remote-host judgment reads these to tell a partition
+        from a host death."""
+        try:
+            client.kv_put(f"suspect/{peer.self_id}",
+                          {"reason": reason, "step": int(step),
+                           "cluster_version": peer.cluster_version})
+        except Exception as e:  # noqa: BLE001 - a control-plane brownout
+            log.debug("suspect report failed: %s", e)
+
+    def clear_suspect() -> None:
+        try:
+            client.kv_delete(f"suspect/{peer.self_id}")
+        except Exception as e:  # noqa: BLE001
+            log.debug("suspect clear failed: %s", e)
+
+    def beacon() -> None:
+        """Rank 0 publishes its progress every check_every steps for
+        step-keyed faults applied from outside the workers."""
+        if not beacon_armed or peer.rank != 0 or step % cfg.check_every:
+            return
+        try:
+            client.kv_put("progress", {"step": int(step), "size": peer.size,
+                                       "cluster_version": peer.cluster_version})
+        except Exception as e:  # noqa: BLE001
+            log.debug("progress beacon failed: %s", e)
+
+    def teardown_dirty() -> None:
+        """Leave a group with a dead rank in it; the watchdog keeps the
+        launcher-facing heartbeat fresh through the teardown's waits."""
+        with stall_detector("heal_teardown", force=True):
+            peer.close(graceful=False)
+
+    def recover(cause: BaseException) -> None:
+        """The suspected-dead-peer path: ladder -> save -> dirty teardown ->
+        wait for the healer's document -> rejoin -> resync."""
+        nonlocal trainer, programs, mesh_shape, state, data, offset, step, skip_check_at
+        nonlocal pending_heal, metrics
+        t_detect = time.perf_counter()
+        m_detect = time.monotonic()
+        old_size = peer.size
+        reason = type(cause).__name__
+        log.warning("suspected peer failure (%s: %s); entering recovery", reason,
+                    str(cause)[:200])
+        journal_event("peer_failure_suspected", reason=reason, detail=str(cause)[:200],
+                      step=step, old_size=old_size)
+        put_suspect(reason)
+        phases: Dict[str, float] = {}
+        # the ladder: the live state, this rank's rolling snapshot, the
+        # buddy's copy, then verified disk steps; every demotion journaled
+        outcome = ladder.climb(live_fn=lambda: _live_state(state), buddy=buddy, ckpt=ckpt,
+                               step=step, offset=offset)
+        if outcome is None:
+            journal_event("recovery_exhausted", step=step, reason=reason)
+            log.critical("recovery ladder exhausted; re-raising the failure")
+            raise cause
+        snap_params, snap_opt = outcome.params, outcome.opt
+        if outcome.source != "live":
+            log.warning("recovering from %s/%s: rolling back to step %d (%d samples)",
+                        outcome.rung, outcome.source, outcome.step, outcome.offset)
+        step, offset = outcome.step, outcome.offset
+        phases["state_source_s"] = outcome.elapsed_s
+        if ckpt is not None:
+            try:
+                # a best-effort durable point for the chosen state: the
+                # primary alone, no collective (a disk source is durable)
+                if ckpt.writes and not outcome.already_durable:
+                    ckpt.save(step, {"params": snap_params, "opt": snap_opt},
+                              meta={"trained_samples": offset, "step": step,
+                                    "cluster_size": peer.size,
+                                    "cluster_version": peer.cluster_version}, force=True)
+                ckpt.release()
+            except Exception as e:  # noqa: BLE001
+                log.warning("recovery checkpoint failed: %s", e)
+        # drop every reference into the dead group before the teardown: a
+        # process group kept alive (by the failed step's frames, in the
+        # exception's traceback) keeps its sockets open, and a peer blocked
+        # opposite this rank then never sees the reset that sends it into
+        # its own recovery.  The model keeps its tensors (they hold the
+        # live state when the ladder took it).
+        _drop_frames(cause)
+        state = data = trainer = programs = None
+        metrics = {"loss": torch.tensor(float("nan"))}
+        gc.collect()
+        m_td0 = time.monotonic()
+        tracing.record_span("heal:detect", m_detect, m_td0, cat="heal", args={"reason": reason})
+        phases["detect_s"] = round(m_td0 - m_detect, 4)
+        teardown_dirty()
+        m_rdv0 = time.monotonic()
+        tracing.record_span("heal:teardown", m_td0, m_rdv0, cat="heal")
+        phases["teardown_s"] = round(m_rdv0 - m_td0, 4)
+        while True:
+            deadline = time.monotonic() + cfg.heal_timeout_s
+            got = None
+            while time.monotonic() < deadline:
+                if preempted["flag"]:
+                    detach_preempted()
+                if hb_file:
+                    _touch(hb_file)  # waiting on the healer is liveness too
+                g = client.poll_cluster()
+                if g is not None and g[1] > peer.cluster_version:
+                    got = g
+                    break
+                time.sleep(0.25)
+            if got is None:
+                log.critical("no healed cluster document within %.0fs; exiting so the "
+                             "supervisor can act", cfg.heal_timeout_s)
+                sys.exit(HEAL_WAIT_EXIT_CODE)
+            cluster, version = got
+            try:
+                try:
+                    with stall_detector("heal_re_rendezvous", force=True):
+                        joined = peer.update_cluster(cluster, version)
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:  # noqa: BLE001 - a rejoin is retryable
+                    # a member of this document may be dead too: any init
+                    # failure means "this document did not convene"
+                    raise TimeoutError(f"re-rendezvous at v{version} failed: "
+                                       f"{type(e).__name__}: {str(e)[:200]}") from e
+                if not joined:
+                    # the healer decided we were the dead one (a hang that
+                    # came back after the heartbeat timeout): bow out
+                    print(f"DETACHED: rank left cluster at version {version}", flush=True)
+                    sys.exit(0)
+                trainer, programs, mesh_shape = build()
+                if ckpt is not None:
+                    ckpt.set_primary(peer.rank == 0)
+                m_sync0 = time.monotonic()
+                # the rejoin spans teardown end -> the new group's rebuild,
+                # failed attempts at older documents included
+                tracing.record_span("heal:re_rendezvous", m_rdv0, m_sync0, cat="heal",
+                                    args={"version": version})
+                phases["re_rendezvous_s"] = round(m_sync0 - m_rdv0, 4)
+                (offset, step), synced = programs.sync_state(
+                    (offset, step), {"params": snap_params, "opt": snap_opt})
+                m_sync1 = time.monotonic()
+                tracing.record_span("heal:resync", m_sync0, m_sync1, cat="heal")
+                phases["resync_s"] = round(m_sync1 - m_sync0, 4)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:  # noqa: BLE001 - vetted below
+                if not _suspected_peer_failure(e):
+                    raise
+                # another peer died between the healer's PUT and our rejoin
+                # or sync: update_cluster advanced the version, so the wait
+                # above takes only a strictly newer document
+                log.warning("recovery attempt at v%d failed (%s: %s); waiting for a newer "
+                            "cluster document", version, type(e).__name__, str(e)[:200])
+                put_suspect(type(e).__name__)
+                _drop_frames(e)
+                trainer = programs = None
+                gc.collect()
+                m_rt0 = time.monotonic()
+                teardown_dirty()
+                tracing.record_span("heal:teardown", m_rt0, cat="heal", args={"retry": True})
+                continue
+            break
+        tracing.record_span("heal", m_detect, cat="heal", args={
+            "version": version, "old_size": old_size, "new_size": peer.size, "reason": reason})
+        state = place(synced, step)
+        del snap_params, snap_opt, synced
+        # the healed group has met: the dead group's ring workspaces go
+        reaped = peer_memory.reap_orphans(peer.config.peers)
+        data = make_data(peer.rank, peer.size, offset)
+        skip_check_at = step
+        # new ranks: re-derive the buddy ring and seed it, so a second
+        # failure right after this one still finds the RAM tier
+        rebuild_buddy(seed=True)
+        clear_suspect()
+        pending_heal = {
+            "version": version, "old_size": old_size, "new_size": peer.size,
+            "reason": reason, "t_detect": t_detect,
+            "recovery_rung": outcome.rung, "recovery_source": outcome.source,
+            "recovery_demotions": len(outcome.demotions),
+            "workspace_bytes_freed": reaped["freed"],
+            "workspace_bytes_leaked": reaped["leaked"],
+            "phases": dict(phases),
+        }
+        log.info("recovered onto %d-worker cluster at v%d from %s/%s; resuming at step %d",
+                 peer.size, version, outcome.rung, outcome.source, step)
+
     def resize(cluster, version: int) -> None:
         """Snapshot, flush the checkpoint writer, leave the old group,
         rejoin at `version` (or exit if removed), rebuild, sync."""
@@ -426,7 +767,6 @@ def run_elastic(
         m_resize0 = time.monotonic()
         # a leaving rank needs no snapshot: it only takes part in the teardown
         snap_params, snap_opt = (None, None) if leaving else snap(state)
-        model = state.params
         state = None  # the old optimizer's state lives on in the snapshot only
         phase("snapshot")
         if ckpt is not None:
@@ -444,11 +784,13 @@ def run_elastic(
         (offset, step), synced = programs.sync_state(
             (offset, step), {"params": snap_params, "opt": snap_opt})
         del snap_params, snap_opt
-        state = place(model, synced, step)
+        state = place(synced, step)
         del synced
         phase("sync")
         data = make_data(peer.rank, peer.size, offset)
         skip_check_at = step
+        # membership changed: the buddy ring is stale; re-derive and re-seed
+        rebuild_buddy(seed=True)
         resizes += 1
         resize_events.append(ev)
         tracing.record_span("resize", m_resize0, cat="elastic",
@@ -458,6 +800,14 @@ def run_elastic(
 
     def step_once() -> None:
         nonlocal state, metrics, offset, step, first_step_after_resize, last_propose
+        nonlocal pending_heal
+
+        if hb_file:
+            _touch(hb_file)  # liveness for the healer's hang detection
+        beacon()
+        if chaos is not None:
+            # ckpt_dir arms the checkpoint-integrity faults (corrupt_ckpt)
+            chaos.on_step(step, chaos_rank, ckpt_dir=cfg.checkpoint_dir)
 
         # schedule-driven proposal (rank 0; reference hooks/elastic.py:14-88)
         if client is not None and schedule and peer.rank == 0:
@@ -494,12 +844,16 @@ def run_elastic(
 
         with tracing.trace_scope("step:data", cat="train", args={"step": step}):
             batch = trainer.shard_batch(next(data))
-        if first_step_after_resize:
-            t_fs = time.perf_counter()
+        t_fs = time.perf_counter()
+        first = first_step_after_resize or pending_heal is not None
+        with stall_detector("elastic_train_step", force=heal_armed):
             with tracing.trace_scope("step:train", cat="train",
-                                     args={"step": step, "first_after_resize": True}):
+                                     args={"step": step, "first_after_resize": first}):
                 state, metrics = trainer.train_step(state, batch)
-                float(metrics["loss"])  # the step's work inside its time
+                if first:
+                    float(metrics["loss"])  # the step's work inside its time
+        _mark_live(state.opt_state)
+        if first_step_after_resize:
             ev = resize_events[-1]
             ev["phases"]["first_step"] = round(time.perf_counter() - t_fs, 4)
             ev["total_s"] = round(sum(ev["phases"].values()), 4)
@@ -509,11 +863,22 @@ def run_elastic(
             journal_event("resize", version=ev["version"], old_size=ev["old_size"],
                           new_size=ev["new_size"], phases=ev["phases"], total_s=ev["total_s"])
             first_step_after_resize = False
-        else:
-            with tracing.trace_scope("step:train", cat="train", args={"step": step}):
-                state, metrics = trainer.train_step(state, batch)
+        if pending_heal is not None:
+            # MTTR: failure detection -> the first completed step after the heal
+            hev = dict(pending_heal)
+            now = time.perf_counter()
+            hev["mttr_s"] = round(now - hev.pop("t_detect"), 4)
+            hev.setdefault("phases", {})["first_step_s"] = round(now - t_fs, 4)
+            heal_events.append(hev)
+            journal_event("heal", **hev)
+            log.info("healed %d -> %d workers from %s/%s: mttr %.2fs", hev["old_size"],
+                     hev["new_size"], hev["recovery_rung"], hev["recovery_source"],
+                     hev["mttr_s"])
+            pending_heal = None
         offset += cfg.batch_size * trainer.world
         step += 1
+        if buddy is not None and buddy_enabled() and step % snapshot_every == 0:
+            update_buddy()
         if ckpt is not None and ckpt.writes:
             if step % max(1, cfg.checkpoint_every) == 0:
                 with tracing.trace_scope("step:checkpoint", cat="train", args={"step": step}):
@@ -524,11 +889,21 @@ def run_elastic(
     while offset < cfg.total_samples:
         m_step0 = time.monotonic()
         step_before = step
-        step_once()
-        tracing.record_span("step", m_step0, cat="train", args={"step": step_before})
+        try:
+            step_once()
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 - vetted below
+            if not (heal_armed and _suspected_peer_failure(e)):
+                raise
+            recover(e)
+        else:
+            tracing.record_span("step", m_step0, cat="train", args={"step": step_before})
 
     if prev_sigterm is not None:
         signal.signal(signal.SIGTERM, prev_sigterm)
+    if buddy is not None:
+        buddy.close()
     if ckpt is not None:
         ckpt.wait()  # settle queued saves: latest_step lists finalized steps only
         if ckpt.writes and ckpt.latest_step() != step:
@@ -554,13 +929,13 @@ def run_elastic(
         "resize_events": resize_events,
         "resize_p50_s": pct(0.50),
         "resize_p95_s": pct(0.95),
-        "heals": 0,
-        "heal_events": [],
-        "mttr_s": None,
+        "heals": len(heal_events),
+        "heal_events": heal_events,
+        "mttr_s": heal_events[-1]["mttr_s"] if heal_events else None,
         "mesh": mesh_shape,
         "state": state,
         "trainer": trainer,
     }
 
 
-__all__ = ["ElasticConfig", "run_elastic"]
+__all__ = ["ElasticConfig", "HEAL_WAIT_EXIT_CODE", "run_elastic"]

@@ -50,6 +50,19 @@ backward of ring attention's shift +1 stores into rank - 1).  `close_all`
 (from `distributed.shutdown_distributed`) unmaps every peer and frees the
 workspace once no rank can still touch it.
 
+A group with a dead rank cannot run that release: its barriers would wait
+for the dead rank, a live neighbour's kernel may still store into this
+rank's workspace, and unmapping a dead exporter's memory is a step the
+CUDA documentation leaves open.  `abandon_all` (the dirty teardown of a
+heal) therefore only waits for this rank's own kernels (every wait of
+theirs is bounded by KFT_RING_TIMEOUT_S) and sets the group's workspaces
+aside, each with the peers of the group it served.  Once the healed group
+has met, `reap_orphans` frees them: the mappings of peers still in the
+cluster are closed and this rank's allocation freed (every live rank
+synchronized its own kernels before the new group could meet), while a
+mapping of a peer that left, a dead exporter's memory, is left mapped and
+its bytes logged.
+
 The kernels' error record lives in mapped host memory: a wait that
 expires writes (kind, hop, block, seq) there, and `Workspace.check`
 raises it, once the current stream and the workspace's side stream (where
@@ -59,7 +72,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -115,6 +128,9 @@ class Workspace:
         self.device = device
         self.n = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        # the world rank of each group rank: the peers an orphan outlives
+        self.world_ranks = [dist.get_global_rank(group, r) if group is not dist.group.WORLD
+                            else r for r in range(self.n)]
         self.left = (self.rank - 1) % self.n
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         # every rank must agree on the grid and the flag layout
@@ -218,9 +234,30 @@ class Workspace:
 
     def close(self) -> None:
         self._release()
+        self._free_err()
+
+    def _free_err(self) -> None:
         if self.err_ptr is not None:
             _call("kft_host_free", self.err_ptr)
             self.err_ptr = None
+
+    def reap(self, dead: set) -> int:
+        """Free an abandoned workspace (no collective): close the mappings
+        of the group ranks not in `dead`, free this rank's allocation;
+        returns the bytes left mapped, those of the dead exporters."""
+        dev = self.device.index
+        leaked = 0
+        for r, ptr in self._peers.items():
+            if r in dead:
+                leaked += self.nbytes
+            else:
+                _call("kft_ws_close", dev, ptr)
+        if self.own is not None:
+            _call("kft_ws_free", dev, self.own)
+        self.own = None
+        self._handles, self._peers = [], {}
+        self._free_err()
+        return leaked
 
     def raise_if_failed(self) -> None:
         """Raise the error a finished ring kernel recorded, if any (no sync)."""
@@ -280,3 +317,44 @@ def close_all() -> None:
     while _WORKSPACES:
         _, ws = _WORKSPACES.popitem()
         ws.close()
+
+
+#: (workspace, the world's peer list when it was set aside) of each
+#: workspace that a dirty teardown abandoned and no reap has freed
+_ORPHANS: List[Tuple[Workspace, list]] = []
+
+
+def abandon_all(peers) -> None:
+    """The dirty teardown's half of `close_all` (no collective): wait for
+    this rank's own kernels, then set every workspace aside with `peers`,
+    the world's peer list, for `reap_orphans`."""
+    for ws in _WORKSPACES.values():
+        torch.cuda.synchronize(ws.device)
+    while _WORKSPACES:
+        _, ws = _WORKSPACES.popitem()
+        # the group goes: a workspace that held it would keep the dead
+        # group's sockets open past its teardown
+        ws.group = None
+        _ORPHANS.append((ws, list(peers)))
+
+
+def reap_orphans(live_peers) -> Dict[str, int]:
+    """Free the abandoned workspaces once the healed group has met (after a
+    collective of the new group, so every live rank of an old group has
+    finished its teardown): {"freed": bytes, "leaked": bytes left mapped}.
+    A peer of an old group that is not in `live_peers` is taken for dead:
+    its memory stays mapped here, and is logged."""
+    live = set(live_peers)
+    freed = leaked = 0
+    while _ORPHANS:
+        ws, peers = _ORPHANS.pop()
+        dead = {r for r, g in enumerate(ws.world_ranks) if peers[g] not in live}
+        size = ws.nbytes if ws.own is not None else 0
+        lost = ws.reap(dead)
+        freed += size
+        leaked += lost
+        if lost:
+            log.warning("rank %d: left %.1f MiB of a dead peer's ring workspace mapped "
+                        "(group of %d, dead ranks %s)", ws.rank, lost / 2**20, ws.n,
+                        sorted(dead))
+    return {"freed": freed, "leaked": leaked}

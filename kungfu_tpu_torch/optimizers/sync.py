@@ -54,6 +54,7 @@ group's average and steps the inner optimizer on the local gradients;
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable, List, NamedTuple, Optional, Union
 
 import torch
@@ -314,6 +315,28 @@ class OptimizerWrapper:
     inner's."""
 
     state = None
+    #: why this optimizer no longer holds the state from before the step in
+    #: flight, or None while it does (a failed step's "live" recovery rung
+    #: reads it; the elastic loop clears it after every completed step)
+    live_dirty: Optional[str] = None
+
+    def __init_subclass__(cls, **kwargs):
+        """Fail safe: every wrapper's step marks it dirty as it begins.  A
+        step that changes state in place before its failure point (a pull
+        mixed chunk by chunk, a broadcast leaf by leaf) so never hands over
+        a torn state as "live"; a step whose failure point comes before any
+        in-place write says so by clearing the mark."""
+        super().__init_subclass__(**kwargs)
+        step = cls.__dict__.get("step")
+        if step is None:
+            return
+
+        @functools.wraps(step)
+        def marked(self, *args, **kw):
+            self.live_dirty = f"{cls.__name__}.step began"
+            return step(self, *args, **kw)
+
+        cls.step = marked
 
     def __init__(self, inner, group=None):
         self.inner = inner
@@ -353,9 +376,16 @@ class SynchronousSGDOptimizer(OptimizerWrapper):
         self.state: Optional[CompressedGradState] = None
 
     def step(self) -> None:
+        if self.compression is not None:
+            # the residuals take g + e (and stochastic rounding draws) in
+            # place before the reduction can fail
+            self.live_dirty = "the compressed reduction changed its state in place"
+        else:  # the mean reduction writes only the gradients
+            self.live_dirty = None
         self.state = all_reduce_gradients(self.params(), self.group, self.impl,
                                           self.bucket_bytes, self.compression, self.seed,
                                           self.state)
+        self.live_dirty = "the optimizer stepped"
         self.inner.step()
 
 
@@ -419,7 +449,9 @@ class SynchronousAveragingOptimizer(OptimizerWrapper):
 
     def step(self) -> None:
         params = self.params()
+        self.live_dirty = None  # the pulls are taken from copies
         pulls = pull_toward_mean(params, self.group, self.alpha)
+        self.live_dirty = "the optimizer stepped"
         self.inner.step()
         with torch.no_grad():
             torch._foreach_add_(params, pulls)

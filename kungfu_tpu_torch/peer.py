@@ -229,8 +229,10 @@ class Peer:
         return [0.0 if r == self.rank else client.ping(p, timeout=timeout)
                 for r, p in enumerate(self.config.peers)]
 
-    def close(self) -> None:
-        """Stop the store; leave the process group if this peer joined it."""
+    def close(self, graceful: bool = True) -> None:
+        """Stop the store; leave the process group if this peer joined it.
+        graceful=False is a heal's teardown, with a dead rank in the group
+        (`distributed.shutdown_distributed(graceful=False)`)."""
         if self._store_server is not None:
             self._store_server.close()
             self._store_server = None
@@ -240,7 +242,7 @@ class Peer:
         if self._started:
             from .distributed import shutdown_distributed
 
-            shutdown_distributed()
+            shutdown_distributed(graceful, self.config.peers)
         self._started = False
         self._session = None
 

@@ -9,7 +9,8 @@ algebra are what the elastic config server, the watch launcher and the
 resize protocol use (`elastic/`, `run/launcher.py`).  A document's serving
 `tiers` map is kept through `from_json` and `to_json`, so its bytes and
 digest match the JAX package's; the tier methods wait for the serving
-slice (ROADMAP A.2) and `ring_buddies` for the recovery ladder (A.5b).
+slice (ROADMAP A.2).  `PeerList.ring_buddies` assigns the buddy that
+holds each rank's in-memory snapshot (resilience/buddy.py).
 """
 from __future__ import annotations
 
@@ -79,6 +80,35 @@ class PeerList(tuple):
     def hosts(self) -> List[str]:
         """Distinct hosts in first-appearance order."""
         return list(dict.fromkeys(p.host for p in self))
+
+    def ring_buddies(self) -> List[int]:
+        """Ring-offset buddy assignment: buddies[r] is the rank holding rank
+        r's in-memory snapshot (resilience/buddy.py).
+
+        For each rank the buddy is ``(r + k) % n`` for the smallest k >= 1
+        whose peer lives on a *different host*, falling back to the plain
+        k=1 ring when the cluster is single-host (where host disjointness
+        is unsatisfiable).  Never self (n > 1), host-disjoint whenever more
+        than one host exists (asserted: a whole-host loss must never take a
+        snapshot and its only copy together), and a function of the
+        document alone, so every peer computes the same assignment without
+        coordination.  Recomputed on every resize and heal (ranks shift).
+        A single peer has nobody to buddy with: buddies == [-1].
+        """
+        n = len(self)
+        if n <= 1:
+            return [-1] * n
+        multi_host = self.host_count() > 1
+        out: List[int] = []
+        for r, p in enumerate(self):
+            k = next(k for k in range(1, n) if self[(r + k) % n].host != p.host) \
+                if multi_host else 1
+            out.append((r + k) % n)
+        if multi_host:
+            assert all(self[b].host != p.host for p, b in zip(self, out)), (
+                f"ring_buddies produced a same-host pair on a multi-host document: "
+                f"{self!r} -> {out}")
+        return out
 
     def partition_by_host(self) -> Dict[str, "PeerList"]:
         out: Dict[str, List[PeerID]] = {}

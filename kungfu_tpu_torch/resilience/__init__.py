@@ -1,7 +1,22 @@
-"""Checkpoint integrity (counterpart of kungfu_tpu.resilience): the
-per-step manifests that the checkpoint manager commits and verifies
-(`manifest.py`).  The buddy snapshots and the recovery ladder of the
-self-healing path wait for ROADMAP A.5b."""
+"""Recovery ladder subsystem (counterpart of kungfu_tpu.resilience):
+peer-redundant RAM snapshots, checkpoint integrity manifests, and the
+tiered restore path the elastic heal climbs.
+
+  buddy.py     ring-offset buddy assignment (plan.PeerList.ring_buddies) and
+               host-RAM snapshots shipped over the p2p blob store
+  manifest.py  per-step integrity manifests (per-leaf crc32, structure hash,
+               atomic-rename commit) and their verification
+  ladder.py    the climb: buddy RAM -> latest verified disk step -> older
+               verified steps, with journaled demotions
+"""
+from .buddy import (
+    BUDDY_ENV,
+    BuddySnapshots,
+    buddy_enabled,
+    pack_snapshot,
+    unpack_snapshot,
+)
+from .ladder import RecoveryOutcome, climb
 from .manifest import (
     MANIFEST_NAME,
     CheckpointIntegrityError,
@@ -14,6 +29,13 @@ from .manifest import (
 )
 
 __all__ = [
+    "BUDDY_ENV",
+    "BuddySnapshots",
+    "buddy_enabled",
+    "pack_snapshot",
+    "unpack_snapshot",
+    "RecoveryOutcome",
+    "climb",
     "MANIFEST_NAME",
     "CheckpointIntegrityError",
     "build_manifest",

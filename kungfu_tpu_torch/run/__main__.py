@@ -6,7 +6,12 @@ The JAX package's CLI (kungfu_tpu/run/__main__.py), with its flags: -np,
 starts and stops this host's workers as the elastic config service's
 document changes (-timeout bounds it: exit 124), against the service at
 -config-server URL, or one embedded in this launcher
-(-builtin-config-server, or -w without a URL) at -port.  Each worker gets the KungFu env
+(-builtin-config-server, or -w without a URL) at -port.  -heal (implies
+-w) makes it the self-healing supervisor: a dead worker is removed from
+the document and the survivors heal around it, -restart-budget N restarts
+each worker up to N times, -heartbeat-timeout S kills a worker whose
+heartbeat file froze (a hang), -suspicion-timeout S judges remote hosts;
+the runner prints its heal events as a RUNNER_HEAL_EVENTS line.  Each worker gets the KungFu env
 contract (`env.worker_env`) and picks its own card
 (`distributed.placement`); -chips-per-host N instead gives each worker one
 card slot of N through CUDA_VISIBLE_DEVICES, as the JAX CLI does with
@@ -14,15 +19,17 @@ TPU_VISIBLE_CHIPS.  -platform cpu puts the workers' Peer and Session on
 the CPU (KFT_PLATFORM); -devices-per-worker takes 1 only (a worker is one
 rank with one card).  `-strategy` reaches each worker's Session through
 KFT_ALLREDUCE_STRATEGY.  Every other flag of the JAX CLI raises, naming
-the ROADMAP item that will port it (A.5b: the self-healing supervisor and
-the replicated config ensemble; A.8: fleet telemetry); none is ignored.  Multi-host
+the ROADMAP item that will port it (A.5c: -config-replicas above 1, the
+replicated config ensemble; A.8: fleet telemetry); none is ignored.  Multi-host
 launches over ssh: `run/distribute.py`.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import socket
 import sys
+import tempfile
 from typing import Dict, Optional, Sequence
 
 from ..elastic.config_client import ConfigClient
@@ -31,13 +38,10 @@ from ..plan import Cluster, HostList, Strategy
 from .job import Job
 from .launcher import WatchRunner, install_signal_trap, simple_run
 
-# flag -> (argparse options, what it does in the JAX CLI, the ROADMAP item porting it)
+# flag -> (argparse options, what it does in the JAX CLI, the ROADMAP item
+# porting it[, the one value that is ported: the JAX default])
 UNPORTED: Dict[str, tuple] = {
-    "-heal": ({"action": "store_true"}, "self-healing watch mode", "A.5b"),
-    "-restart-budget": ({"type": int}, "restarts after a heal", "A.5b"),
-    "-heartbeat-timeout": ({"type": float}, "the healer's worker heartbeat", "A.5b"),
-    "-suspicion-timeout": ({"type": float}, "the healer's host suspicion window", "A.5b"),
-    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5b"),
+    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5c", 1),
     "-telemetry": ({"action": "store_true"}, "fleet telemetry", "A.8"),
     "-telemetry-port": ({"type": int}, "the fleet telemetry port", "A.8"),
     "-slo-file": ({}, "the fleet SLO rules", "A.8"),
@@ -105,14 +109,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="the embedded config server's port (default 9100)")
     ap.add_argument("-timeout", type=float, default=0.0,
                     help="watch mode: stop the job after this many seconds (exit 124)")
-    for flag, (opts, _, _) in UNPORTED.items():
+    ap.add_argument("-heal", action="store_true",
+                    help="self-heal in watch mode: shrink the cluster around dead workers "
+                    "instead of stopping the job (implies -w)")
+    ap.add_argument("-restart-budget", dest="restart_budget", type=int, default=0,
+                    help="automatic restarts per worker after a heal (exponential backoff)")
+    ap.add_argument("-heartbeat-timeout", dest="heartbeat_timeout", type=float, default=0.0,
+                    help="seconds without a worker heartbeat before the healer kills it "
+                    "(0 = off; catches hung, not crashed, workers)")
+    ap.add_argument("-suspicion-timeout", dest="suspicion_timeout", type=float, default=0.0,
+                    help="heal mode: seconds a remote host's runner heartbeat must stay "
+                    "silent before its workers are shrunk out (0 = from -heartbeat-timeout)")
+    for flag, (opts, *_) in UNPORTED.items():
         ap.add_argument(flag, dest="unported_" + flag[1:].replace("-", "_"), default=None,
                         help=argparse.SUPPRESS, **opts)
     flags, prog = _split(argv, ap)
     args = ap.parse_args(flags)
-    for flag, (_, what, item) in UNPORTED.items():
-        if getattr(args, "unported_" + flag[1:].replace("-", "_")) not in (None, False):
+    for flag, (_, what, item, *ported) in UNPORTED.items():
+        if getattr(args, "unported_" + flag[1:].replace("-", "_")) not in (None, False,
+                                                                              *ported):
             raise NotImplementedError(f"{flag} ({what}) is not ported yet (ROADMAP {item})")
+    if args.heal:
+        args.watch = True  # healing is a watch-mode capability
 
     if not prog:
         ap.error("missing worker command")
@@ -130,15 +148,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if embed:
         cs = ConfigServer(port=9100 if args.port is None else args.port, init=cluster).start()
         config_url = cs.url
+    heartbeat_dir = ""
+    if args.heal and args.heartbeat_timeout > 0:
+        heartbeat_dir = tempfile.mkdtemp(prefix="kft-hb-")
     job = Job(prog=prog[0], args=prog[1:], strategy=Strategy.parse(args.strategy),
               cards_per_host=args.cards_per_host, config_server=config_url,
-              platform=args.platform, devices_per_worker=args.devices_per_worker)
+              platform=args.platform, devices_per_worker=args.devices_per_worker,
+              heal=args.heal, heartbeat_dir=heartbeat_dir)
     install_signal_trap()
     try:
         if args.watch:
             runner = WatchRunner(job, self_host, ConfigClient(config_url), logdir=args.logdir,
-                                 quiet=args.quiet, keep=args.keep)
-            return runner.run(initial=cluster, timeout_s=args.timeout)
+                                 quiet=args.quiet, keep=args.keep, heal=args.heal,
+                                 restart_budget=args.restart_budget,
+                                 heartbeat_timeout_s=args.heartbeat_timeout,
+                                 suspicion_s=args.suspicion_timeout)
+            rc = runner.run(initial=cluster, timeout_s=args.timeout)
+            if runner.heal_events:
+                print("RUNNER_HEAL_EVENTS: " + json.dumps(runner.heal_events), flush=True)
+            return rc
         return simple_run(job, cluster, self_host, logdir=args.logdir, quiet=args.quiet,
                           keep=args.keep)
     finally:

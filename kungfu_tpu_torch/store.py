@@ -98,12 +98,13 @@ class Blob:
         return struct.pack(">I", len(meta)) + meta + self.data
 
     @classmethod
-    def unpack(cls, payload: bytes) -> "Blob":
+    def unpack(cls, payload) -> "Blob":
+        """The blob of a packed payload; its data is a view of `payload`."""
         (mlen,) = struct.unpack(">I", payload[:4])
-        meta = payload[4 : 4 + mlen].decode()
+        meta = bytes(payload[4 : 4 + mlen]).decode()
         dtype, shape_s = meta.split(";")
         shape = None if shape_s == "*" else tuple(int(x) for x in shape_s.split(",") if x)
-        return cls(payload[4 + mlen :], dtype, shape)
+        return cls(memoryview(payload)[4 + mlen :], dtype, shape)
 
 
 class Store:
@@ -169,14 +170,18 @@ def poll_until(fn, wait: bool = True, deadline: float = 0.0, interval: float = 0
         time.sleep(interval)
 
 
-def _read_exact(sock: socket.socket, n: int) -> bytes:
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(min(1 << 20, n - len(buf)))
-        if not chunk:
+def _read_exact(sock: socket.socket, n: int) -> bytearray:
+    """n bytes into one buffer allocated once: a blob of several GiB (a
+    buddy snapshot) is received without a copy."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], min(1 << 20, n - got))
+        if not k:
             raise ConnectionError("peer closed")
-        buf.extend(chunk)
-    return bytes(buf)
+        got += k
+    return buf
 
 
 def _read_frame(sock) -> Tuple[int, str, str, bytes]:
@@ -190,13 +195,18 @@ def _read_frame(sock) -> Tuple[int, str, str, bytes]:
     return op, version, name, payload
 
 
-def _write_frame(sock, op: int, version: str, name: str, payload: bytes) -> None:
+def _write_frame(sock, op: int, version: str, name: str, payload) -> None:
+    """One frame; `payload` is bytes, or a tuple of buffers sent one after
+    the other (a large array's bytes go out without being copied)."""
+    parts = payload if isinstance(payload, tuple) else (payload,)
     v, nm = version.encode(), name.encode()
     sock.sendall(
         struct.pack(">BI", op, len(v)) + v
         + struct.pack(">I", len(nm)) + nm
-        + struct.pack(">Q", len(payload)) + payload
+        + struct.pack(">Q", sum(memoryview(p).nbytes for p in parts))
     )
+    for p in parts:
+        sock.sendall(p)
 
 
 class StoreServer:
@@ -230,8 +240,11 @@ class StoreServer:
                             if blob is None:
                                 self.request.sendall(struct.pack(">BQ", _ST_NOT_FOUND, 0))
                             else:
-                                data = blob.pack()
-                                self.request.sendall(struct.pack(">BQ", _ST_OK, len(data)) + data)
+                                head = Blob(b"", blob.dtype, blob.shape).pack()
+                                self.request.sendall(struct.pack(
+                                    ">BQ", _ST_OK, len(head) + memoryview(blob.data).nbytes)
+                                    + head)
+                                self.request.sendall(blob.data)
                         else:
                             return
                 except (ConnectionError, OSError):
@@ -345,8 +358,11 @@ class StoreClient:
         raise ConnectionError(f"store roundtrip to {ep} failed")
 
     def save(self, peer: PeerID, name: str, arr: np.ndarray, version: str = "") -> None:
-        """Push a blob into a remote peer's store."""
-        self._roundtrip(peer, _OP_SAVE, version, name, Blob.from_array(arr).pack())
+        """Push a blob into a remote peer's store; the array's bytes go out
+        as they are, without a copy."""
+        arr = np.asarray(arr, order="C")
+        head = Blob(b"", arr.dtype.str, arr.shape).pack()
+        self._roundtrip(peer, _OP_SAVE, version, name, (head, arr.reshape(-1).view(np.uint8)))
 
     def ping(self, peer: PeerID, timeout: float = 5.0) -> float:
         """Round-trip time to the peer's store in seconds (reference

@@ -9,6 +9,9 @@ under the launcher in watch mode::
     python -m kungfu_tpu_torch.run -w -np 2 -platform cpu -- \\
         python -m kungfu_tpu_torch.testing.fake_adaptive_trainer --schedule 2:8,3:8,2:8
 
+Under `-heal` its RESULT line counts the heals, and a HEAL_EVENTS line
+holds each heal's event (the chaos drills read both).
+
 The model is a quadratic bowl (a parameter `w` chasing the batch mean)
 under synchronous_sgd(SGD(0.1)); rank r's batches come from
 numpy.random.RandomState(r + offset % 7), as in the JAX package, so both
@@ -17,6 +20,7 @@ replays train on the same numbers.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import numpy as np
@@ -56,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--check-every", type=int, default=2)
     ap.add_argument("--checkpoint-dir", default="", help="durable checkpoint dir")
     ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="buddy/rolling RAM snapshot cadence (0 = check-every)")
     args = ap.parse_args(argv)
 
     from ..elastic.trainer import ElasticConfig, run_elastic
@@ -70,7 +76,8 @@ def main(argv=None) -> int:
         ElasticConfig(total_samples=args.total_samples, batch_size=args.batch_size,
                       schedule=args.schedule, check_every=args.check_every,
                       checkpoint_dir=args.checkpoint_dir,
-                      checkpoint_every=args.checkpoint_every),
+                      checkpoint_every=args.checkpoint_every,
+                      snapshot_every=args.snapshot_every),
     )
     mesh_desc = ",".join(f"{a}:{n}" for a, n in out["mesh"].items())
     print(
@@ -80,6 +87,8 @@ def main(argv=None) -> int:
         f"seconds={out['seconds']:.3f}",
         flush=True,
     )
+    if out["heal_events"]:
+        print("HEAL_EVENTS: " + json.dumps(out["heal_events"]), flush=True)
     return 0
 
 

@@ -1,6 +1,7 @@
 """The fake adaptive trainer's resize replay, in either package, with its
 result at full precision: `tests/test_torch_elastic.py` holds the port's
-replay against the JAX package's through it.
+replay against the JAX package's through it, and `tests/test_torch_heal.py`
+its heal replay (under `-heal`, with KFT_FAULT_PLAN and checkpoints).
 
     python tests/_elastic_replay.py launch jax|torch PORT_BASE <launcher flags> -- <worker>
     python tests/_elastic_replay.py worker jax|torch --schedule S --total-samples N ...
@@ -10,7 +11,8 @@ first worker port at PORT_BASE instead of 10000. `worker` runs
 `run_elastic` on the fake trainer's quadratic bowl with SGD(0.1), its
 batches centred on 1 (`w` then moves away from 0, where an elementwise
 rtol would measure cancellation and not rounding), and prints
-`REPLAY: {json}` with the final loss and `w` as Python floats.
+`REPLAY: {json}` with the final loss and `w` as Python floats, the heals
+and each heal's recovery rung and source.
 
 Under jax 0.9 the JAX package does not import without the alias that
 tests/_torch_reference.py explains; each role sets it first.
@@ -72,8 +74,7 @@ def _run_jax(args):
                                                         impl=impl),
         lambda rank, size, offset: ((x,) for x in batches(rank, offset, args.batch_size,
                                                           args.dim)),
-        ElasticConfig(total_samples=args.total_samples, batch_size=args.batch_size,
-                      schedule=args.schedule, check_every=args.check_every))
+        ElasticConfig(**_config(args)))
     w = np.asarray(out["state"].params["w"].addressable_shards[0].data).reshape(-1)
     return out, w
 
@@ -91,9 +92,15 @@ def _run_torch(args):
             lambda ps: torch.optim.SGD(ps, lr=0.1), group=axes, impl=impl),
         lambda rank, size, offset: ((torch.from_numpy(x),) for x in batches(
             rank, offset, args.batch_size, args.dim)),
-        ElasticConfig(total_samples=args.total_samples, batch_size=args.batch_size,
-                      schedule=args.schedule, check_every=args.check_every))
+        ElasticConfig(**_config(args)))
     return out, out["state"].params.w.detach().cpu().numpy()
+
+
+def _config(args) -> dict:
+    return dict(total_samples=args.total_samples, batch_size=args.batch_size,
+                schedule=args.schedule, check_every=args.check_every,
+                checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+                snapshot_every=args.snapshot_every)
 
 
 def worker(pkg: str, argv) -> int:
@@ -103,11 +110,17 @@ def worker(pkg: str, argv) -> int:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--check-every", type=int, default=2)
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--snapshot-every", type=int, default=0)
     args = ap.parse_args(argv)
     out, w = (_run_jax if pkg == "jax" else _run_torch)(args)
     print("REPLAY: " + json.dumps({
         "trained": int(out["trained_samples"]), "resizes": int(out["resizes"]),
         "final_size": int(out["final_size"]), "loss": float(out["loss"]),
+        "heals": int(out["heals"]),
+        "sources": [[e.get("recovery_rung"), e.get("recovery_source")]
+                    for e in out["heal_events"]],
         "w": [float(v) for v in w]}), flush=True)
     return 0
 

@@ -296,16 +296,16 @@ def test_unreachable_server_and_ensembles(jk):
     assert c.poll_cluster() is None and c.get_health() is None and c.kv_put("k", 1) is False
     with pytest.raises(OSError):
         c.get_cluster()
-    with pytest.raises(NotImplementedError, match="A.5b"):
+    with pytest.raises(NotImplementedError, match="A.5c"):
         CC.ConfigClient(f"{dead},{dead}")
-    with pytest.raises(NotImplementedError, match="A.5b"):
+    with pytest.raises(NotImplementedError, match="A.5c"):
         CS.ConfigServer(port=0, replica_id=1, peers=[dead, dead])
 
 
 def test_config_server_module(tmp_path, monkeypatch):
     """`python -m kungfu_tpu_torch.elastic.config_server -port P -init
-    file` serves the document until /stop; the chaos harness's outage
-    plan raises."""
+    file` serves the document until /stop; under the chaos harness's
+    outage plan the server answers 503 for its window."""
     c0, _, _ = _docs(tplan)
     (tmp_path / "init.json").write_text(json.dumps(c0.to_json()))
     port = _free_port()
@@ -322,9 +322,13 @@ def test_config_server_module(tmp_path, monkeypatch):
     finally:
         if p.poll() is None:
             p.kill()
-    monkeypatch.setenv("KFT_FAULT_PLAN", "flap@config_server=0:1")
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        CS.ConfigServer(port=0)
+    monkeypatch.setenv("KFT_FAULT_PLAN", "flap@config_server=30:after=1")
+    srv = CS.ConfigServer(port=0, init=c0).start()
+    try:
+        assert _raw(srv.url.rsplit("/", 1)[0], "GET", "/config")[0] == 200
+        assert _raw(srv.url.rsplit("/", 1)[0], "GET", "/config")[0] == 503
+    finally:
+        srv.stop()
 
 
 def _fake_peer(rank: int, url: str, plan):
@@ -647,14 +651,18 @@ def test_sigterm_to_watch_launcher_stops_its_workers():
 
 
 def test_run_elastic_refuses_unported_paths(monkeypatch):
-    from kungfu_tpu_torch.elastic.trainer import ElasticConfig, run_elastic
+    """The monitoring counters (A.8) still raise; the self-healing path's
+    variables (KFT_HEAL, KFT_FAULT_PLAN, KFT_PROGRESS_BEACON) are ported."""
+    from kungfu_tpu_torch.elastic import trainer as ET
 
-    for name, item in (("KFT_HEAL", "A.5b"), ("KFT_FAULT_PLAN", "A.5b"),
-                       ("KFT_PROGRESS_BEACON", "A.5b"), ("KFT_CONFIG_ENABLE_MONITORING", "A.8")):
+    for name in ("KFT_HEAL", "KFT_FAULT_PLAN", "KFT_PROGRESS_BEACON"):
         with monkeypatch.context() as m:
             m.setenv(name, "1")
-            with pytest.raises(NotImplementedError, match=item):
-                run_elastic(None, None, None, None, ElasticConfig(1, 1))
+            ET._refuse_unported()
+    with monkeypatch.context() as m:
+        m.setenv("KFT_CONFIG_ENABLE_MONITORING", "1")
+        with pytest.raises(NotImplementedError, match="A.8"):
+            ET.run_elastic(None, None, None, None, ET.ElasticConfig(1, 1))
 
 
 # -- one process, no resize, against the JAX package -----------------------------------------

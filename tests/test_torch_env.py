@@ -86,11 +86,86 @@ TWO_HOSTS = "a:10000,a:10001,b:10000,b:10001"
     (ONE_HOST, "127.0.0.1:10002", "cpu", 0, (None, "gloo")),
 ])
 def test_placement_picks_card_and_backend(peers, me, device, cards, want):
-    """Card = local rank mod the cards a rank sees; NCCL only when every
+    """Card = the peer's port mod the cards a rank sees (the launcher's
+    ports from 10000: local rank mod the cards); NCCL only when every
     rank of a host has a card of its own, since NCCL refuses two ranks of
     one communicator on one card."""
     peer_list = PeerList(PeerID.parse(p) for p in peers.split(","))
     assert placement(peer_list, PeerID.parse(me), device, cards) == want
+
+
+def test_placement_keeps_a_peer_on_its_card_across_a_heal():
+    """A heal drops 127.0.0.1:10002 of four ranks on four cards: the
+    survivor at 10003 becomes rank 2 and keeps card 3, where its model
+    lives; the worker regrown at 10002 (rank 3) takes card 2, the one it
+    left, and every rank keeps a card of its own (NCCL)."""
+    peers = [PeerID.parse(p) for p in ONE_HOST.split(",")]
+    healed = PeerList([peers[0], peers[1], peers[3]])
+    regrown = PeerList([*healed, peers[2]])
+    assert [placement(healed, p, "cuda", 4) for p in healed] == \
+        [(0, "nccl"), (1, "nccl"), (3, "nccl")]
+    assert [placement(regrown, p, "cuda", 4)[0] for p in regrown] == [0, 1, 3, 2]
+
+
+def test_placement_falls_back_to_gloo_when_a_grown_worker_shares_a_card():
+    """Ranks launched at 12345-12348 on four cards shrink to two (cards 1
+    and 2); the planned grow adds workers at the lowest free ports from
+    10000, and 10001 lands on card 1 beside 12345: the group is gloo, as
+    NCCL refuses two ranks of one communicator on one card."""
+    from kungfu_tpu_torch.plan import Cluster
+
+    launched = Cluster(runners=PeerList([PeerID("127.0.0.1", 38080)]),
+                       workers=PeerList(PeerID("127.0.0.1", 12345 + i) for i in range(4)))
+    assert {placement(launched.workers, p, "cuda", 4) for p in launched.workers} == \
+        {(1, "nccl"), (2, "nccl"), (3, "nccl"), (0, "nccl")}
+    shrunk = launched.resize(2)
+    assert [placement(shrunk.workers, p, "cuda", 4) for p in shrunk.workers] == \
+        [(1, "nccl"), (2, "nccl")]
+    grown = shrunk.resize(4)
+    assert [p.port for p in grown.workers] == [12345, 12346, 10000, 10001]
+    assert [placement(grown.workers, p, "cuda", 4) for p in grown.workers] == \
+        [(1, "gloo"), (2, "gloo"), (0, "gloo"), (1, "gloo")]
+
+
+TIMEOUTS = """
+import sys, time
+import torch, torch.distributed as dist
+from kungfu_tpu_torch.distributed import init_distributed
+from kungfu_tpu_torch.env import parse_config_from_env
+late_init, late_op = float(sys.argv[1]), float(sys.argv[2])
+rank = parse_config_from_env().rank
+t0 = time.monotonic()
+try:
+    if rank == 1:
+        time.sleep(late_init)
+    init_distributed(device="cpu")
+    if rank == 1:
+        time.sleep(late_op)
+    x = torch.ones(4)
+    dist.all_reduce(x)
+    print("OK", float(x[0]))
+    dist.destroy_process_group()
+except Exception as e:
+    print("FAILED", type(e).__name__, round(time.monotonic() - t0, 1))
+"""
+
+
+@pytest.mark.parametrize("late_init,late_op,want", [
+    (0, 5, ["OK 2.0", "OK 2.0"]),  # a rank 5 s late to an operation
+    (15, 0, ["FAILED"]),  # a rank 15 s late to the rendezvous: rank 0 gives up first
+])
+def test_init_timeout_bounds_the_rendezvous_not_the_operations(late_init, late_op, want):
+    """KFT_INIT_TIMEOUT_S (2 s here) bounds the group's rendezvous, as in
+    the JAX package; the group's operations get distributed.OP_TIMEOUT."""
+    from _torch_ranks import start_ranks, wait_ranks
+
+    outs = wait_ranks(start_ranks(TIMEOUTS, 2, [late_init, late_op],
+                                  env={"KFT_INIT_TIMEOUT_S": "2"}), timeout=90)
+    got = [outs[r].strip().splitlines()[-1] for r in (0, 1)]
+    if want == ["FAILED"]:
+        assert got[0].startswith("FAILED") and float(got[0].split()[-1]) < late_init, got
+    else:
+        assert got == want, outs
 
 
 def test_placement_needs_a_card_for_cuda():

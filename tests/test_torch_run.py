@@ -134,11 +134,44 @@ def test_keep_lets_the_others_finish(tmp_path):
 
 @pytest.mark.parametrize("flag", sorted(cli.UNPORTED))
 def test_unported_flag_raises(flag):
-    opts, _, item = cli.UNPORTED[flag]
-    assert item in ("A.5b", "A.8")  # the healer and the replicated config plane; telemetry
-    args = [flag] if opts.get("action") == "store_true" else [flag, "1"]
+    opts, _, item, *ported = cli.UNPORTED[flag]
+    assert item in ("A.5c", "A.8")  # the replicated config plane; telemetry
+    # a value past the one that is ported (-config-replicas 1, the JAX default)
+    args = [flag] if opts.get("action") == "store_true" else [flag, str((ported or [0])[0] + 1)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main([*args, "-np", "1", sys.executable, "-c", "pass"])
+
+
+@pytest.mark.parametrize("flag,value,kw", [
+    ("-heal", None, {"heal": True}),
+    ("-restart-budget", "3", {"restart_budget": 3}),
+    ("-heartbeat-timeout", "7.5", {"heartbeat_timeout_s": 7.5}),
+    ("-suspicion-timeout", "12", {"suspicion_s": 12.0}),
+])
+def test_healer_flag_reaches_watch_runner(monkeypatch, flag, value, kw):
+    """Each flag of the healer takes effect as in the JAX CLI: it reaches
+    WatchRunner (and -heal implies -w, arms the workers' recovery, and with
+    -heartbeat-timeout gives each worker a heartbeat file)."""
+    seen = {}
+
+    class Runner:
+        heal_events = [{"peer": "127.0.0.1:10000", "rc": 41}]
+
+        def __init__(self, job, self_host, client, **kwargs):
+            seen.update(kwargs, job=job)
+
+        def run(self, initial=None, timeout_s=0.0):
+            return 0
+
+    monkeypatch.setattr(cli, "WatchRunner", Runner)
+    heal = [] if flag == "-heal" else ["-heal"]
+    rc = cli.main([*heal, flag, *([value] if value else []), "-config-server",
+                   "http://127.0.0.1:9/config", "-np", "1", sys.executable, "-c", "pass"])
+    assert rc == 0 and {k: seen[k] for k in kw} == kw and seen["heal"] is True
+    assert seen["job"].heal is True
+    assert bool(seen["job"].heartbeat_dir) == (flag == "-heartbeat-timeout")
+    if seen["job"].heartbeat_dir:
+        os.rmdir(seen["job"].heartbeat_dir)
 
 
 def _free_port() -> int:
@@ -213,7 +246,8 @@ def test_watch_failed_worker_stops_the_job(tmp_path):
 
 def test_watch_runner_idle_host_and_healer_refusals(monkeypatch):
     """A host the document shrank to no workers waits for the config
-    server to go away, then exits 0; the healer's options raise."""
+    server to go away, then exits 0; the healer's options, once refused,
+    now arm it."""
     from kungfu_tpu_torch.run.job import Job
     from kungfu_tpu_torch.run.launcher import WatchRunner
 
@@ -224,9 +258,11 @@ def test_watch_runner_idle_host_and_healer_refusals(monkeypatch):
     runner = WatchRunner(job, "127.0.0.1", client, poll_s=0.01)
     monkeypatch.setattr(WatchRunner, "IDLE_EXIT_S", 0.2)
     assert runner.run() == 0 and runner.version == 1 and not runner.current
-    for kw in ({"heal": True}, {"restart_budget": 2}, {"heartbeat_timeout_s": 5.0}):
-        with pytest.raises(NotImplementedError, match="A.5b"):
-            WatchRunner(job, "127.0.0.1", client, **kw)
+    healer = WatchRunner(job, "127.0.0.1", client, heal=True, restart_budget=2,
+                         heartbeat_timeout_s=5.0)
+    assert (healer.heal, healer.restart_budget, healer.heartbeat_timeout_s) == (True, 2, 5.0)
+    assert healer._judge is not None and healer.suspicion_s == 10.0
+    assert WatchRunner(job, "127.0.0.1", client)._judge is None
 
 
 def test_serve_raises():
