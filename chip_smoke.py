@@ -63,6 +63,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              remat=True, remat_policy="dots" against remat=False on the
              same weights: the same loss and gradients (within 1e-6
              normwise; bit-equal expected) and a lower peak
+ 5c. cut-ref the flagship cut to CUT_LAYERS (8) of its 24 layers, full width,
+             the same seed: its loss on phase main's 8 sequences in one
+             process (forward only), the first-step reference of phases
+             session, elastic, heal and controlplane, which run the flagship
+             at that depth (their time is its state's bytes through the
+             host and its tensors' count; the whole smoke fits 1200 s)
  6. gqa-ref  the GQA flagship (n_kv_heads=8, otherwise as phase main) with
              the same seed: its loss on the same 8 sequences in one process
              (forward only), its parameter count and gradient shapes
@@ -158,14 +164,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  8d. session KungFu's Session (session.py) on 4 ranks started by `python -m
              kungfu_tpu_torch.run -strategy PALLAS_RING`, so the launcher's
              strategy reaches each rank's Session through env.Config; each
-             rank the full flagship, batch 2 of phase main's 8 sequences:
+             rank the flagship cut to CUT_LAYERS layers, batch 2 of phase
+             main's 8 sequences:
              (a) the torch interop (kungfu_tpu_torch.init, then
              kungfu_tpu_torch.torch.broadcast_parameters of a model made
              from seed + rank): Session.consensus true on every parameter,
              false after a one-bit flip on rank 1; SynchronousSGDOptimizer(
              SGD lr ADAPTIVE_SGD_LR) for SESSION_STEPS steps, one Session
              all_reduce a gradient: the first loss (the ranks' mean) within
-             1e-2 of phase main's, the loss falling, the replicas agreeing
+             1e-2 of phase cut-ref's, the loss falling, the replicas agreeing
              after every step (consensus on the parameters' position
              digests), B5 and B6 once a gradient a step (195), no B7/B8,
              B1-B3 once a layer a step, every gradient's span tagged
@@ -184,7 +191,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              on a 2 x 2 ("dcn", "ici") mesh, on 4 MB tensors, each equal to
              the answer every rank computes from the seed; each part's
              steady step, the ranks' calc_stats()
- 8e. elastic KungFu's elastic resize on the flagship (phase ranks' model,
+ 8e. elastic KungFu's elastic resize on the flagship cut to CUT_LAYERS
+             layers (otherwise phase ranks' model,
              batch 2 a rank of phase main's 8 sequences through
              datasets.ElasticDataAdaptor): `python -m kungfu_tpu_torch.run
              -w -np 4` with its embedded config server runs
@@ -199,7 +207,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              every phase; the joiners' parameter checksums after the grow's
              sync equal to rank 0's; the four ranks' checksums bit-identical
              after the last step; the first loss within 1e-2 of phase
-             main's, every loss finite; B1-B3 once a layer and B5/B6 once a
+             cut-ref's, every loss finite; B1-B3 once a layer and B5/B6 once a
              bucket in every step on every rank (the first after each
              resize too); no ring workspace left when each new group forms;
              each group's rendezvous at peer.coordinator_port(root port,
@@ -210,7 +218,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              joiner's resume from the checkpoints at its start, the steady
              step at 4 ranks and the step after step 3's save at 2 (the
              schedule leaves no steady step there), each save's time
- 8f. heal   KungFu's self-healing on the flagship (phase ranks' model and
+ 8f. heal   KungFu's self-healing on the flagship cut to CUT_LAYERS layers
+             (otherwise phase ranks' model and
              S-SGD, batch 2 a rank): `python -m kungfu_tpu_torch.run -w
              -heal -np 4 -restart-budget 1` (its restart backoff
              HEAL_BACKOFF_S through this script's launcher wrapper) runs
@@ -234,7 +243,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              at 4 ranks, HEAL_SAMPLES trained; B1-B3 once a layer and B5/B6
              once a bucket in every completed step; every group at its
              fenced port with no workspace at its rendezvous; losses
-             finite, the first within 1e-2 of phase main's. Prints each
+             finite, the first within 1e-2 of phase cut-ref's. Prints each
              heal phase, mttr_s, each buddy ship's time or miss, the dead
              group's workspace bytes freed and left mapped, the survivors'
              wait for the regrow, the regrow's times, steady steps, host
@@ -281,6 +290,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              rank r (the causal ring skips the blocks of later ranks), B5
              and B6 once per bucket; the slowest rank's step time, tokens/s
              and peak memory per rank
+12b. ulysses slice 21's sequence-parallel path: the same 8192-position
+             flagship on 4 ranks as dp=1 x sp=4 with attention="ulysses"
+             (each rank's 2048 positions resharded by all_to_all to 4 of
+             the 16 heads over the whole sequence and back: NCCL with a
+             card a rank, gloo through the host where the ranks share one;
+             the head group's attention on B1-B3), MeshTrainer as phase sp,
+             run by phase sp's rank processes after its steps (no second
+             start-up). Before (a) and (c) each rank holds one layer's
+             attention at their heads (2 x 8192, 16 heads of 64; 8 kv heads
+             for (c)) against flash over the gathered sequence: its chunk's
+             output and dq, dk, dv within the bf16 gate of the flash kernels
+             (tools/ulysses_check). (a) the dense head, 3 steps
+             (ULYSSES_STEPS): loss finite and falling, the first within
+             1e-2 of phase sp-ref's, the replicas bit-identical, B1, B2 and
+             B3 24 times a step on every rank (no B11), B5 and B6 once per
+             bucket; (b) head="hidden" (lm_loss_shard_chunked) for one step
+             on the same weights: its loss within 1e-3 of (a)'s first; (c)
+             GQA (8 kv heads, 2 a rank) for one step: B4 24 times in place
+             of B3; each part's step time and peak memory per rank, (a)'s
+             tokens/s
 13. fused    B9's and B10's product body alone on this card (tools/fused_time:
              `mm_product` at the per-hop and per-rank shapes below, against
              the f32 product, timed beside torch.matmul and the bound), then
@@ -313,6 +342,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              step, B1-B3 once per layer, no other kernel; the slowest
              rank's step time, tokens/s,
              peak memory per rank
+14b. controlplane KungFu's replicated control plane: (a) `python -m
+             kungfu_tpu_torch.chaos --coordinator-drill --replicas 3` (CAS
+             and KV traffic through a leader SIGKILL and a leader SIGSTOP)
+             holds every invariant, its summary printed (started after the
+             build, beside the one-process phases); (b) the flagship cut to
+             CUT_LAYERS layers (otherwise phase ranks' model and S-SGD, batch
+             2 a rank) on 4 ranks under
+             `python -m kungfu_tpu_torch.run -w -np 4 -config-replicas 3`
+             through this script's launcher wrapper, which holds the
+             ensemble: run_elastic with schedule CP_SCHEDULE, the leader
+             SIGKILLed once step 2 is done, rank 0's shrink 4 -> 2 proposed
+             through the failover client (KFT_CONFIG_URLS) after the next
+             leader is up, landing at step 4, the run ending at step 6.
+             Gates: the launcher's exit 0, the epoch moved, leader_elected
+             and replica_respawned journaled, the respawned replica at the
+             leader's commit, rank 0's proposal committed, every rank given
+             the 3 URLs, the 2 survivors bit-identical, B1-B3 once a layer
+             and B5/B6 once a bucket in every step on every rank, losses
+             finite, the first within 1e-2 of phase cut-ref's; the
+             election's and the shrink's times
 15. report   one JSON line of kernels B1-B11, the wide flash family and the
              residual kernel (launches from rank 0 of the path that runs
              each: phase ranks for B1-B3, B5, B6, phase sp for B11, phase
@@ -320,8 +369,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              family, phase gqa for the others; B11's entry also holds its
              launches in phase sp and in phase gossip (a) and (b),
              `launches_by_phase`; B5 and B6 theirs in phases ranks,
-             session, elastic and heal, B1-B3 theirs in phases ranks,
-             elastic and heal, B7 and B8 in phases gqa and session), each
+             session, elastic, heal, ulysses and controlplane, B1-B3 theirs
+             in phases ranks, elastic, heal, ulysses and controlplane, B4
+             in phases gqa and ulysses, B7 and B8 in phases gqa and
+             session), each
              phase's time and the whole smoke's, then the last line {"ok":
              true, "device": {"platform": "gpu", ...}}
 
@@ -403,6 +454,11 @@ TOL_DROPOUT_SAME = 1e-6
 DROPOUT_MOVES = 1e-4
 FSDP_STEPS = 3  # phase fsdp: each step makes 24 ring calls (a card switch each on one card)
 N_RANKS = 4
+# Phases session, elastic, heal and controlplane: the flagship at full width
+# cut to this depth, against phase cut-ref's loss at the same depth (their
+# costs are its state's bytes through the host and its tensors' count:
+# the whole smoke must fit 1200 s)
+CUT_LAYERS = 8
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
 SHIFT_GRIDS = "8,16,32,66"  # phase shift: B11's grids checked and timed
@@ -415,7 +471,7 @@ ADAPTIVE_LINE = "ADAPTIVE_RESULT "
 ADAPTIVE_STEPS = 4
 ADAPTIVE_SWITCH = 2
 ADAPTIVE_SGD_LR = 0.1
-NAC_STEPS = 3
+NAC_STEPS = 2
 GOSSIP_LINE = "GOSSIP_RESULT "
 # Phase gossip: the steps of runs (a) and (b), at phase adaptive's SGD rate
 # (the loss falls on each replica's rows, mixed with its partner's model
@@ -428,6 +484,9 @@ HOST_GOSSIP_STEPS = 2
 GOSSIP_SHIFT_BYTES = 265314304
 DIGEST_ROW = 1 << 14  # int32 words a row of a gossip chunk's position digest
 SP_LINE = "SP_RESULT "
+ULYSSES_LINE = "ULYSSES_RESULT "
+ULYSSES_STEPS = 3  # phase ulysses (a): the dense head's steps (steady: 2 and 3)
+ULYSSES_GQA_HEADS = 8  # phase ulysses (c): kv heads, split 2 a rank over sp=4
 FSDP_LINE = "FSDP_RESULT "
 SESSION_LINE = "SESSION_RESULT "
 ELASTIC_LINE = "ELASTIC_RESULT "  # a rank that trained to the end
@@ -437,6 +496,15 @@ ELASTIC_SAMPLES = 40  # 6 steps: 2 at 4 ranks, 2 at 2, 2 at 4 (batch 2 a rank)
 ELASTIC_CKPT_EVERY = 3
 ELASTIC_TIMEOUT = 540  # the phase's own limit (the launcher's -timeout)
 HEAL_LINE = "HEAL_RESULT "  # a worker of phase heal that trained to the end
+CP_LINE = "CONTROLPLANE_RESULT "  # a worker of phase controlplane that trained to the end
+CP_LEFT = "CONTROLPLANE_LEFT "  # a worker of phase controlplane that detached, at its exit
+CP_RUNNER = "CONTROLPLANE_RUNNER: "  # the launcher's record of the ensemble's failover
+CP_REPLICAS = 3
+CP_SCHEDULE = "4:4,2:2"  # rank 0 proposes the shrink at the top of step 4
+CP_SAMPLES = 40  # 6 steps: 4 at 4 ranks, 2 at 2 (batch 2 a rank)
+CP_KILL_AT = 2  # the launcher SIGKILLs the ensemble's leader once step 2 is done
+CP_SHRINK_AT = 4  # rank 0's proposal (after the election) and the shrink, at step 4
+CP_TIMEOUT = 300  # the phase's own limit (the launcher's -timeout)
 HEAL_PLAN = "crash@step=4:rank=2"  # launch rank 2 exits 41 at the top of step 4
 # KFT_RING_TIMEOUT_S in phase heal, the survivors' detect time: above the
 # skew a buddy ship puts between the ranks (6-15 s a 4.11 GiB ship)
@@ -458,7 +526,7 @@ HEAL_TIMEOUT = 600  # the phase's own limit (the launcher's -timeout)
 # steps after the swap to PALLAS_RING_FUSED with int8, each at phase
 # adaptive's SGD rate; (c)'s bucket and the size of its small collectives
 # (4 MB of f32 a rank).
-SESSION_STEPS = 3
+SESSION_STEPS = 2
 SWAP_STEPS = 2
 SESSION_BUCKET = 256 << 20
 SESSION_SMALL = 1 << 20
@@ -535,6 +603,11 @@ def phase_device():
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     tf32_off()
     print("[device] tf32 off for matmuls and cuDNN: f32 products run in full f32")
+    try:  # where it covers the fixed ports (stores 25000+, rendezvous 30000+), binds wait
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            print(f"[device] ephemeral ports {'-'.join(f.read().split())}")
+    except OSError:
+        pass
     return card, kind, count
 
 
@@ -1053,6 +1126,27 @@ def phase_gqa_reference(batch: int, seed: int):
     return loss, n_params, shapes
 
 
+def phase_cut_reference(batch: int, seed: int):
+    """The flagship cut to CUT_LAYERS layers: its loss on phase main's
+    sequences in one process (forward only), phase session's, elastic's,
+    heal's and controlplane's reference."""
+    from kungfu_tpu_torch.models import lm_loss
+    from kungfu_tpu_torch.models.transformer import FLAGSHIP_GPT
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens
+
+    cfg, model = flagship_model(seed, "cuda", n_layers=CUT_LAYERS)
+    tokens = flagship_tokens(cfg, batch, seed)
+    with torch.no_grad():
+        loss = lm_loss(model(tokens), tokens).item()
+    check(math.isfinite(loss), f"cut-ref: non-finite loss {loss}")
+    print(f"[cut-ref] the flagship at {CUT_LAYERS} of its {FLAGSHIP_GPT['n_layers']} layers, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, on phase main's {batch} "
+          f"sequences in one process: loss {loss:.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
 def phase_ef(shapes, seed: int):
     """The error-feedback residual kernel against its plain version at the
     GQA flagship's gradient sizes; its times and bound."""
@@ -1434,9 +1528,10 @@ def phase_gossip(card: str, batch: int, seed: int, main_loss1: float):
     return runs["a"]["launches"][FM.SHIFT.name] + runs["b"]["launches"][FM.SHIFT.name]
 
 
-def phase_session(card: str, batch: int, seed: int, main_loss1: float):
+def phase_session(card: str, batch: int, seed: int, cut_loss1: float):
     """KungFu's Session on N_RANKS ranks started with the launcher's
-    -strategy PALLAS_RING: (a) the torch interop's S-SGD on the flagship,
+    -strategy PALLAS_RING: (a) the torch interop's S-SGD on the flagship
+    cut to CUT_LAYERS layers,
     (b) the runtime swap to PALLAS_RING_FUSED with an int8 wire, (c) the
     rest of the Session on CUDA tensors.  Returns rank 0's B5-B8 launches
     in (a) and (b)."""
@@ -1453,8 +1548,8 @@ def phase_session(card: str, batch: int, seed: int, main_loss1: float):
               f"{json.dumps({k: v for k, v in rr['checks'].items() if not v})}; launches "
               f"{json.dumps(rr['launches'])}, expected {json.dumps(rr['expected_launches'])}")
     r0 = res[0]
-    check(abs(r0["losses"]["a"][0] - main_loss1) <= TOL_RANKS_LOSS,
-          f"session (a): first-step loss {r0['losses']['a'][0]} vs phase main's {main_loss1}")
+    check(abs(r0["losses"]["a"][0] - cut_loss1) <= TOL_RANKS_LOSS,
+          f"session (a): first-step loss {r0['losses']['a'][0]} vs phase cut-ref's {cut_loss1}")
     whats = {"a": f"SynchronousSGDOptimizer(SGD lr {ADAPTIVE_SGD_LR}) under PALLAS_RING, one "
                   "Session all_reduce a gradient (B5 + B6)",
              "b": "after set_strategy(PALLAS_RING_FUSED) and set_compression('int8') (B7 + B8)"}
@@ -1485,8 +1580,9 @@ def state_checksum(sd) -> list:
             for t in sd.values()]
 
 
-def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: float):
-    """KungFu's elastic resize on N_RANKS ranks of the flagship under the
+def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, cut_loss1: float):
+    """KungFu's elastic resize on N_RANKS ranks of the flagship (cut to
+    CUT_LAYERS layers) under the
     launcher's watch mode, then the checkpoints it left, read back and
     faulted in this process.  Returns rank 0's launches in the run."""
     import shutil
@@ -1554,8 +1650,8 @@ def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, main_loss1:
         losses = [st["loss"] for st in r0["steps"]]
         check(all(math.isfinite(x) for rr in [*res.values(), *left.values()]
                   for x in (st["loss"] for st in rr["steps"])), "elastic: a non-finite loss")
-        check(abs(losses[0] - main_loss1) <= TOL_RANKS_LOSS,
-              f"elastic: first-step loss {losses[0]} vs phase main's {main_loss1}")
+        check(abs(losses[0] - cut_loss1) <= TOL_RANKS_LOSS,
+              f"elastic: first-step loss {losses[0]} vs phase cut-ref's {cut_loss1}")
 
         # the checkpoints the run left: the last step restores and verifies
         # with rank 0's final parameters; a flipped byte demotes it
@@ -1630,15 +1726,15 @@ def phase_elastic(card: str, batch: int, seed: int, bucket_mib: int, main_loss1:
               f"{sv['save_s']:.2f} s, write + manifest {sv['write_s']:.2f} s, "
               f"{sv['gib']:.2f} GiB")
     print(f"[elastic] {N_RANKS} -> 2 -> {N_RANKS} ranks ({ELASTIC_SCHEDULE}), losses "
-          f"{' '.join(f'{x:.4f}' for x in losses)}, first {losses[0]:.4f} vs phase main's "
-          f"{main_loss1:.4f}; joiners synced bit-equal to rank 0; replicas bit-identical at the "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, first {losses[0]:.4f} vs phase cut-ref's "
+          f"{cut_loss1:.4f}; joiners synced bit-equal to rank 0; replicas bit-identical at the "
           f"end; restore_latest_verified step {last} in {restore_s:.2f} s, a flipped byte "
           f"demoted it to step {steps[-2]}; rank 0 launches {json.dumps(r0['launches'])}; "
           f"the phase {time.perf_counter() - t_phase:.1f} s")
     return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
 
 
-def _heal_gates(res, runner, lines, main_loss1: float):
+def _heal_gates(res, runner, lines, cut_loss1: float):
     """Phase heal's gates over the ranks' records ({self spec: record}) and
     the runner's heal events; (rank 0's record, the survivors, the
     victim)."""
@@ -1694,14 +1790,15 @@ def _heal_gates(res, runner, lines, main_loss1: float):
     check(all(rr["final_checksum"] == r0["final_checksum"] for rr in res.values()),
           "heal: the ranks' parameters differ after the last step")
     first = r0["steps"][0]["loss"]
-    check(abs(first - main_loss1) <= TOL_RANKS_LOSS,
-          f"heal: first-step loss {first} vs phase main's {main_loss1}")
+    check(abs(first - cut_loss1) <= TOL_RANKS_LOSS,
+          f"heal: first-step loss {first} vs phase cut-ref's {cut_loss1}")
 
     return r0, survivors, victim
 
 
-def phase_heal(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: float):
-    """KungFu's self-healing on N_RANKS ranks of the flagship: the launcher's
+def phase_heal(card: str, batch: int, seed: int, bucket_mib: int, cut_loss1: float):
+    """KungFu's self-healing on N_RANKS ranks of the flagship (cut to
+    CUT_LAYERS layers): the launcher's
     healer (`run -w -heal -restart-budget 1`), a scripted crash of launch
     rank 2, the survivors' recovery to 3 ranks, the regrow to 4.  Returns
     rank 0's launches in its completed steps."""
@@ -1755,7 +1852,7 @@ def phase_heal(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: fl
                 or "joined at" in line or "buddy ship" in line):
             print(line)
     try:
-        r0, survivors, victim = _heal_gates(res, runner, lines, main_loss1)
+        r0, survivors, victim = _heal_gates(res, runner, lines, cut_loss1)
     except Exception:  # the ranks' records, for the post-mortem
         for line in lines:
             if HEAL_LINE in line:
@@ -1792,11 +1889,175 @@ def phase_heal(card: str, batch: int, seed: int, bucket_mib: int, main_loss1: fl
                   f"({len(times)} rank-steps)")
     losses = [st["loss"] for st in r0["steps"]]
     print(f"[heal] {N_RANKS} -> {N_RANKS - 1} -> {N_RANKS} ranks, losses "
-          f"{' '.join(f'{x:.4f}' for x in losses)}, first {first:.4f} vs phase main's "
-          f"{main_loss1:.4f}; survivors bit-equal to their source after the heal's sync, B5 + "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, first {first:.4f} vs phase cut-ref's "
+          f"{cut_loss1:.4f}; survivors bit-equal to their source after the heal's sync, B5 + "
           f"B6 on the healed group bit-equal to the plain version, the joiner bit-equal to rank "
           f"0, replicas bit-identical at the end; host peak per rank {peaks} GiB; rank 0 "
           f"launches {json.dumps(r0['launches'])}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
+
+
+def start_coordinator_drill():
+    """Phase controlplane (a) in the background: `python -m
+    kungfu_tpu_torch.chaos --coordinator-drill --replicas 3`, host traffic
+    against an ensemble of its own; (its process, its directory, its
+    start).  The smoke starts it beside the one-process phases, whose
+    host is mostly idle while the card works."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="kft-drill-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env.pop("KFT_JOURNAL_DIR", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kungfu_tpu_torch.chaos", "--coordinator-drill", "--replicas",
+         str(CP_REPLICAS), "--json", os.path.join(tmp, "drill.json")],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def phase_controlplane(card: str, batch: int, seed: int, bucket_mib: int, cut_loss1: float,
+                       drill=None):
+    """KungFu's replicated control plane: (a) the coordinator drill, `python
+    -m kungfu_tpu_torch.chaos --coordinator-drill --replicas 3` (`drill`,
+    from start_coordinator_drill, or started here); (b) the flagship (cut
+    to CUT_LAYERS layers) on N_RANKS ranks under `run -w -config-replicas 3` (this
+    script's launcher wrapper holds the ensemble): the leader SIGKILLed
+    after step CP_KILL_AT, the shrink to 2 proposed by rank 0 through the
+    failover client once the next leader is up, landing at step 4.
+    Returns rank 0's launches in (b)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.monitor.journal import read_journal_segments
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+
+    t_phase = time.perf_counter()
+    drill = drill if drill is not None else start_coordinator_drill()
+    tmp = tempfile.mkdtemp(prefix="kft-controlplane-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    try:
+        # (a) the drill: host traffic against an ensemble of its own
+        proc, drill_dir, t_drill0 = drill
+        try:
+            out_a = proc.communicate(timeout=300)[0]
+            with open(os.path.join(drill_dir, "drill.json")) as f:
+                summary = json.load(f)
+        finally:
+            shutil.rmtree(drill_dir, ignore_errors=True)
+        if proc.returncode != 0:
+            print(out_a[-6000:], file=sys.stderr)
+            raise SmokeFailure(f"controlplane: the coordinator drill exited {proc.returncode}")
+        check(summary["ok"], f"controlplane: the drill's failures {summary['failures']}")
+        t_drill = time.perf_counter() - t_drill0
+        print("[controlplane] (a) " + out_a.strip().splitlines()[-1])
+        print(f"[controlplane] (a) drill summary {json.dumps(summary)}")
+
+        # (b) the flagship under the launcher's ensemble
+        jdir = os.path.join(tmp, "journal")
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        t_b0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--rank-phase", "controlplane-launcher",
+             tmp, "-w", "-np", str(N_RANKS), "-config-replicas", str(CP_REPLICAS), "-timeout",
+             str(CP_TIMEOUT), "--", sys.executable, os.path.abspath(__file__), "--rank-phase",
+             "controlplane", "--batch", str(batch), "--seed", str(seed), "--bucket-mib",
+             str(bucket_mib), "--drill-dir", tmp],
+            cwd=HERE, env=dict(env, KFT_JOURNAL_DIR=jdir,
+                               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=CP_TIMEOUT + 60)
+        t_b1 = time.time()
+        events = [e for path in sorted(glob.glob(os.path.join(jdir, "journal-*.jsonl")))
+                  for e in read_journal_segments(path)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    res, left = {}, []
+    for line in lines:
+        m = re.match(r"^\[(\d+)\] (" + re.escape(CP_LINE) + "|" + re.escape(CP_LEFT) + r")(.*)$",
+                     line)
+        if m:
+            rec = json.loads(m.group(3))
+            if m.group(2) == CP_LINE:
+                res[rec["rank"]] = rec
+            else:
+                left.append(rec)
+    runner = next((json.loads(line.split(CP_RUNNER, 1)[1]) for line in lines
+                   if line.startswith(CP_RUNNER)), None)
+    if proc.returncode != 0 or sorted(res) != [0, 1] or len(left) != 2 or runner is None:
+        print(proc.stdout[-12000:], file=sys.stderr)
+        raise SmokeFailure(f"controlplane: launcher exit {proc.returncode}, results from ranks "
+                           f"{sorted(res)}, {len(left)} detached ranks' records, runner record "
+                           f"{runner is not None}")
+    for line in lines:
+        if "[controlplane]" in line and " step " not in line:
+            print(line)
+    r0 = res[0]
+    results = [line for line in lines if re.match(r"^\[\d+\] RESULT: controlplane ", line)]
+    check(len(results) == 2 and all(f"trained={CP_SAMPLES} " in x and "final_size=2 " in x
+                                     for x in results),
+          f"controlplane: RESULT lines {results}")
+    check(runner["epoch1"] is not None and runner["epoch1"] > runner["epoch0"],
+          f"controlplane: the leader's epoch did not move: {runner}")
+    check(runner["converged"], f"controlplane: the respawned replica {runner['killed']} did not "
+          f"converge to the leader's commit: {runner['statuses']}")
+    kinds = {}
+    for e in events:
+        kinds.setdefault(e.get("event"), []).append(e)
+    epochs = {e["leader_epoch"] for e in kinds.get("leader_elected", [])}
+    check(len(epochs) >= 2 and runner["epoch1"] in epochs,
+          f"controlplane: leader_elected epochs journaled {sorted(epochs)}")
+    check([e["replica"] for e in kinds.get("replica_respawned", [])] == [runner["killed"]],
+          f"controlplane: replica_respawned events {kinds.get('replica_respawned')}")
+    check(r0["proposals"] == [True], f"controlplane: rank 0's CAS proposals {r0['proposals']}")
+    for who, rr in [*(("rank %d" % r, rr) for r, rr in res.items()),
+                    *(("a detached rank", rr) for rr in left)]:
+        check(rr["urls"] == CP_REPLICAS, f"controlplane: {who} saw {rr['urls']} config URLs")
+        check(all(st["launches"] == st["want"] for st in rr["steps"]),
+              f"controlplane: {who}'s launches in its steps "
+              f"{json.dumps([(st['step'], st['launches']) for st in rr['steps']])}")
+        check(all(math.isfinite(st["loss"]) for st in rr["steps"]), f"controlplane: {who}'s loss")
+    check([(st["step"], st["world"]) for st in r0["steps"]]
+          == [(i, N_RANKS if i <= CP_SHRINK_AT else 2) for i in range(1, 7)],
+          f"controlplane: rank 0's steps {[(st['step'], st['world']) for st in r0['steps']]}: "
+          f"the shrink must land at step {CP_SHRINK_AT}")
+    check(res[1]["final_checksum"] == r0["final_checksum"],
+          "controlplane: the survivors' parameters differ after the last step")
+    losses = [st["loss"] for st in r0["steps"]]
+    check(abs(losses[0] - cut_loss1) <= TOL_RANKS_LOSS,
+          f"controlplane: first-step loss {losses[0]} vs phase cut-ref's {cut_loss1}")
+    ev = r0["resize_events"][0]
+    print(f"[controlplane] (b) on {card}: replica {runner['killed']} (the leader of epoch "
+          f"{runner['epoch0']}) SIGKILLed after step {CP_KILL_AT}; replica {runner['leader1']} "
+          f"led epoch {runner['epoch1']} {runner['elect_s']:.2f} s later; the respawned replica "
+          f"at the leader's commit {runner['converge_s']:.2f} s after the kill; rank 0's "
+          f"proposal {'committed' if r0['proposals'] == [True] else 'FAILED'}, held "
+          f"{r0['held_s']:.2f} s for the election; the shrink {ev['old_size']} -> "
+          f"{ev['new_size']} in {ev['total_s']:.2f} s, phases (s) {json.dumps(ev['phases'])}")
+    t_end = time.time()
+    print(f"[controlplane] (b) timeline on {card} (s from the launcher's start): ranks started "
+          f"{min(rr['t_start'] for rr in res.values()) - t_b0:.1f}, first step done "
+          f"{r0['steps'][0]['t'] - t_b0:.1f}, step {CP_SHRINK_AT} done "
+          f"{r0['steps'][CP_SHRINK_AT - 1]['t'] - t_b0:.1f}, last step done "
+          f"{r0['steps'][-1]['t'] - t_b0:.1f}, run_elastic returned {r0['t_done'] - t_b0:.1f}, "
+          f"launcher exited {t_b1 - t_b0:.1f} (records read {t_end - t_b0:.1f})")
+    for size in (N_RANKS, 2):
+        times = [st["s"] for rr in res.values() for st in rr["steps"]
+                 if st["world"] == size and not st["first"]]
+        times += [st["s"] for rr in left for st in rr["steps"]
+                  if st["world"] == size and not st["first"]]
+        if times:
+            print(f"[controlplane] steady step at {size} ranks on {card}: slowest rank "
+                  f"{max(times) * 1e3:.1f} ms, median {statistics.median(times) * 1e3:.1f} ms")
+    print(f"[controlplane] {N_RANKS} -> 2 ranks through a leader kill, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, first {losses[0]:.4f} vs phase cut-ref's "
+          f"{cut_loss1:.4f}; survivors bit-identical; journal {len(epochs)} leader_elected "
+          f"epochs, {len(kinds.get('replica_respawned', []))} replica_respawned; rank 0 launches "
+          f"{json.dumps(r0['launches'])}; (a) {t_drill:.1f} s from its start, the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
 
@@ -1862,7 +2123,9 @@ def phase_sp_reference(seed: int):
 
 
 def phase_sp(steps: int, seed: int, bucket_mib: int, ref_loss: float):
-    """The sequence-parallel flagship step on N_RANKS ranks (dp=1 x sp=4)."""
+    """The sequence-parallel flagship step on N_RANKS ranks (dp=1 x sp=4),
+    ring attention, then phase ulysses in the same ranks.  Returns rank
+    0's launches of phase sp and of phase ulysses by part."""
     out, res = spawn_ranks(["sp", "--steps", str(steps), "--seed", str(seed), "--bucket-mib",
                             str(bucket_mib)], SP_LINE, 900)
     for line in out.splitlines():
@@ -1885,7 +2148,62 @@ def phase_sp(steps: int, seed: int, bucket_mib: int, ref_loss: float):
           f"steady step {step_s * 1e3:.1f} ms (slowest rank), {SP_BATCH * SP_SEQ / step_s:.0f} "
           f"tokens/s, peak memory per rank {peaks} GiB; launches per rank "
           + "; ".join(f"{r}: {json.dumps(res[r]['launches'])}" for r in sorted(res)))
-    return r0["launches"]
+    return r0["launches"], phase_ulysses(ref_loss, out)
+
+
+def phase_ulysses(ref_loss: float, out: str):
+    """The flagship at SP_SEQ positions on N_RANKS ranks (dp=1 x sp=4) with
+    Ulysses attention: (a) the dense head, (b) head="hidden", (c) GQA, run
+    by phase sp's ranks after its own steps (`out`, their output: no
+    second start-up).  Returns rank 0's launches by part."""
+    from kungfu_tpu_torch.utils.compare import REL_LIMIT
+
+    res = {}
+    for line in out.splitlines():
+        m = re.match(r"^\[(\d+)\] " + re.escape(ULYSSES_LINE) + r"(.*)$", line)
+        if m:
+            res[int(m.group(1))] = json.loads(m.group(2))
+    check(sorted(res) == list(range(N_RANKS)),
+          f"ulysses: results from ranks {sorted(res)} in phase sp's output")
+    for line in out.splitlines():
+        if "[ulysses]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        for part, pr in rr["parts"].items():
+            check(all(pr["checks"].values()),
+                  f"ulysses: rank {r} part {part} failed "
+                  f"{json.dumps({k: v for k, v in pr['checks'].items() if not v})}; launches "
+                  f"{json.dumps(pr['launches'])}, expected {json.dumps(pr['expected_launches'])}")
+    parts = res[0]["parts"]
+    dense, hidden, gqa = parts["dense"], parts["hidden"], parts["gqa"]
+    loss1 = dense["losses"][0]
+    check(abs(loss1 - ref_loss) <= TOL_SP_LOSS,
+          f"ulysses: first-step loss {loss1} vs phase sp-ref's {ref_loss}")
+    check(abs(hidden["losses"][0] - loss1) <= TOL_CHUNKED_LOSS,
+          f"ulysses: the chunked head's loss {hidden['losses'][0]} vs the dense head's {loss1}")
+    step_s = max(rr["parts"]["dense"]["step_s"] for rr in res.values())
+    for name, pr in parts.items():
+        peaks = " ".join(f"{res[r]['parts'][name]['peak_gib']:.2f}" for r in sorted(res))
+        slowest = max(res[r]["parts"][name]["step_s"] for r in res)
+        which = "median of steps 2-n" if len(pr["losses"]) > 1 else "its one step"
+        print(f"[ulysses] part {name}: losses {' '.join(f'{x:.4f}' for x in pr['losses'])}; "
+              f"step {slowest * 1e3:.1f} ms (slowest rank, {which}), peak memory per rank "
+              f"{peaks} GiB; rank 0 launches {json.dumps(pr['launches'])}")
+        if "against_flash" in pr:
+            worst = {k: max(res[r]["parts"][name]["against_flash"][k] for r in res)
+                     for k in pr["against_flash"]}
+            print(f"[ulysses] part {name}: one layer's attention ({SP_BATCH} x {SP_SEQ}, "
+                  f"{pr['heads']} heads, {pr['kv_heads']} kv heads, bf16) against flash over the "
+                  f"gathered sequence, worst block's normwise relative error over the ranks "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+                  + f" (limit {REL_LIMIT[torch.bfloat16]})")
+    print(f"[ulysses] {N_RANKS} ranks as dp=1 x sp=4 ({res[0]['backend']}), {SP_BATCH} x {SP_SEQ} "
+          f"tokens a step, the all_to_all {res[0]['exchange']}: first step {loss1:.4f} vs phase "
+          f"sp-ref's {ref_loss:.4f}, the chunked head's {hidden['losses'][0]:.4f}, GQA "
+          f"{gqa['losses'][0]:.4f}; replicas bit-identical; launches exact on every rank; "
+          f"steady step {step_s * 1e3:.1f} ms (slowest rank), {SP_BATCH * SP_SEQ / step_s:.0f} "
+          f"tokens/s")
+    return {name: pr["launches"] for name, pr in parts.items()}
 
 
 def phase_fused(seed: int):
@@ -2455,7 +2773,7 @@ def rank_session(argv) -> int:
               "on the card": sess.device.type == "cuda"}
 
     # (a) a model of its own a rank, then rank 0's everywhere
-    cfg, model = flagship_model(args.seed + rank, "cuda")
+    cfg, model = flagship_model(args.seed + rank, "cuda", n_layers=CUT_LAYERS)
     rows = flagship_tokens(cfg, args.batch, args.seed)[rank * per:(rank + 1) * per]
     params = list(model.parameters())
     kt.broadcast_parameters(model.state_dict())
@@ -2551,11 +2869,11 @@ def rank_session(argv) -> int:
         checks[f"(c) {name} B7/B8 bit-equal"] = torch.equal(
             fused, C._plain_fused_ring_all_reduce(xs, int8)[rank])
         del xs
-    one = timed("all_reduce x195", lambda: [sess.all_reduce(g, strategy=Strategy.PALLAS_RING)
-                                            for g in grads])
+    one = timed(f"all_reduce x{len(grads)}", lambda: [
+        sess.all_reduce(g, strategy=Strategy.PALLAS_RING) for g in grads])
     for kern in RC.KERNELS:
         kern.launches = 0
-    group = timed("group_all_reduce x195", lambda: sess.group_all_reduce(
+    group = timed(f"group_all_reduce x{len(grads)}", lambda: sess.group_all_reduce(
         grads, strategy=Strategy.PALLAS_RING, bucket_bytes=SESSION_BUCKET))
     ws = peer_memory.workspace(sess._group, grads[0].device)
     runs = {kind: sum(len(RC.segment_plan(
@@ -2765,7 +3083,8 @@ def rank_elastic(argv) -> int:
     for kern in kernels:
         kern.launches = 0
     out = ET.run_elastic(
-        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda")[1], make_tx, make_data,
+        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda", n_layers=CUT_LAYERS)[1],
+        make_tx, make_data,
         ET.ElasticConfig(total_samples=ELASTIC_SAMPLES, batch_size=args.batch // N_RANKS,
                          schedule=ELASTIC_SCHEDULE, check_every=2, checkpoint_dir=args.ckpt_dir,
                          checkpoint_every=ELASTIC_CKPT_EVERY))
@@ -2797,6 +3116,196 @@ def launch_heal(argv) -> int:
     launcher.WatchRunner.__init__ = functools.partialmethod(launcher.WatchRunner.__init__,
                                                             restart_backoff_s=HEAL_BACKOFF_S)
     return cli.main(argv)
+
+
+def launch_controlplane(argv) -> int:
+    """Phase controlplane's launcher: `python -m kungfu_tpu_torch.run` (its
+    flags argv[1:]) holding its ensemble.  Once rank 0 has written
+    `<argv[0]>/kill` (after step CP_KILL_AT) it SIGKILLs the leader, waits
+    for the next epoch's leader, writes `<argv[0]>/elected`, then waits for
+    the respawned replica to reach the leader's commit after the shrink;
+    prints its record as the CP_RUNNER line."""
+    import threading
+
+    from kungfu_tpu_torch.elastic import ensemble as EN
+    from kungfu_tpu_torch.run import __main__ as cli
+
+    drill_dir, argv = argv[0], argv[1:]
+    rec = {"killed": None, "epoch0": None, "epoch1": None, "leader1": None, "elect_s": None,
+           "converged": False, "converge_s": None, "statuses": None}
+
+    def wait_file(name: str, timeout_s: float) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while not os.path.exists(os.path.join(drill_dir, name)):
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.05)
+        return True
+
+    def drill(ens) -> None:
+        if not wait_file("kill", CP_TIMEOUT):
+            return
+        led = ens.leader(wait_s=5.0)
+        rec["epoch0"] = ens.raft_status(led)["epoch"]
+        t0 = time.monotonic()
+        rec["killed"] = ens.kill_leader()
+        while time.monotonic() - t0 < 30:
+            new = ens.leader()
+            st = ens.raft_status(new) if new is not None else None
+            if st is not None and st["epoch"] > rec["epoch0"]:
+                rec.update(epoch1=st["epoch"], leader1=new, elect_s=time.monotonic() - t0)
+                break
+            time.sleep(0.02)
+        with open(os.path.join(drill_dir, "elected"), "w"):
+            pass
+        while time.monotonic() - t0 < 120:  # the shrink committed, the respawned caught up
+            sts = ens.statuses()
+            lead = ens.leader()
+            if (ens.respawns >= 1 and lead is not None and all(sts)
+                    and (ens.client().get_health() or {}).get("version", 0) >= 1
+                    and sts[rec["killed"]]["commit"] == sts[lead]["commit"]):
+                rec.update(converged=True, converge_s=time.monotonic() - t0, statuses=sts)
+                break
+            time.sleep(0.1)
+        rec["statuses"] = rec["statuses"] or ens.statuses()
+
+    start = EN.ConfigEnsemble.start
+
+    def start_and_drill(self, *a, **kw):
+        out = start(self, *a, **kw)
+        threading.Thread(target=drill, args=(self,), daemon=True).start()
+        return out
+
+    EN.ConfigEnsemble.start = start_and_drill
+    rc = cli.main(argv)
+    print(CP_RUNNER + json.dumps(rec), flush=True)
+    return rc
+
+
+def rank_controlplane(argv) -> int:
+    """One worker of phase controlplane (run by the launcher in watch mode
+    with a config ensemble): the flagship under elastic.run_elastic
+    (schedule CP_SCHEDULE), instrumented to record each step's loss, time
+    and launches and rank 0's proposals; rank 0 writes the kill trigger
+    after step CP_KILL_AT and holds after step 4 until the next leader is
+    up, so its proposal comes after the election."""
+    import atexit
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import peer as peer_mod
+    from kungfu_tpu_torch import train
+    from kungfu_tpu_torch.datasets import ElasticDataAdaptor
+    from kungfu_tpu_torch.elastic import trainer as ET
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import adamw, synchronous_sgd
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.models.transformer import FLAGSHIP_GPT, TransformerConfig
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens, lm_step_loss
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    ap.add_argument("--drill-dir", required=True)
+    args = ap.parse_args(argv)
+    tf32_off()
+    bucket = args.bucket_mib << 20
+    kernels = flash.KERNELS + RC.KERNELS
+    rec = {"steps": [], "proposals": [], "held_s": None, "t_start": time.time(),
+           "urls": len(os.environ.get("KFT_CONFIG_URLS", "").split(","))}
+    first = {"flag": True}
+    train_step = train.DataParallelTrainer.train_step
+    n_buckets = []
+
+    def step_rec(self, state, batch):
+        if not n_buckets:
+            n_buckets.append(len(_pack_buckets(list(state.params.parameters()), bucket)))
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(self, state, batch)
+        loss = metrics["loss"].item()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches - before[k.name] for k in kernels}
+        want = {k.name: 0 for k in kernels}
+        want.update({k.name: state.params.cfg.n_layers for k in
+                     (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
+        want.update({k.name: n_buckets[0] for k in (RC.RING_RS, RC.RING_AG)})
+        rec["steps"].append({"step": state.step, "world": self.world, "loss": loss, "s": dt,
+                             "first": first["flag"], "launches": launches, "want": want,
+                             "t": time.time()})
+        first["flag"] = False
+        rank = dist.get_rank()
+        print(f"[controlplane] rank {rank}/{self.world} step {state.step}: loss {loss:.4f}, "
+              f"{dt * 1e3:.1f} ms", flush=True)
+        if rank == 0 and state.step == CP_KILL_AT:
+            with open(os.path.join(args.drill_dir, "kill"), "w"):
+                pass
+        if rank == 0 and state.step == CP_SHRINK_AT:  # the shrink is proposed next
+            t_hold = time.monotonic()
+            while not os.path.exists(os.path.join(args.drill_dir, "elected")):
+                if time.monotonic() - t_hold > 60:
+                    raise RuntimeError("no new leader 60 s after the kill")
+                time.sleep(0.05)
+            rec["held_s"] = time.monotonic() - t_hold
+        return state, metrics
+
+    train.DataParallelTrainer.train_step = step_rec
+    propose = ET.propose_new_size
+
+    def propose_rec(peer, new_size):
+        ok = propose(peer, new_size)
+        rec["proposals"].append(ok)
+        return ok
+
+    ET.propose_new_size = propose_rec
+    sync_state = ET._GroupPrograms.sync_state
+
+    def sync_rec(self, counters, host_tree):
+        first["flag"] = True  # the next step is the first on the new group
+        return sync_state(self, counters, host_tree)
+
+    ET._GroupPrograms.sync_state = sync_rec
+
+    def left_at_exit():
+        if not rec.get("done"):  # this rank detached: its record, for the parent
+            print(CP_LEFT + json.dumps(rec), flush=True)
+
+    atexit.register(left_at_exit)
+    cfg = TransformerConfig(**FLAGSHIP_GPT)  # the tokens need only its vocab and length
+    tokens = flagship_tokens(cfg, args.batch, args.seed, "cuda").cpu().numpy()
+
+    def make_data(rank, size, offset):
+        it = iter(ElasticDataAdaptor(tokens, np.zeros(len(tokens), np.int32),
+                                     batch_size=args.batch // N_RANKS, rank=rank, size=size,
+                                     offset=offset, seed=args.seed))
+        return (torch.from_numpy(rows) for rows, _ in it)
+
+    def make_tx(axes=None):
+        return synchronous_sgd(adamw(3e-4, b1=0.9, b2=0.95), group=axes, impl="pallas_ring",
+                               bucket_bytes=bucket or None)
+
+    for kern in kernels:
+        kern.launches = 0
+    out = ET.run_elastic(
+        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda", n_layers=CUT_LAYERS)[1],
+        make_tx, make_data,
+        ET.ElasticConfig(total_samples=CP_SAMPLES, batch_size=args.batch // N_RANKS,
+                         schedule=CP_SCHEDULE, check_every=2))
+    rec["done"] = True
+    rank = dist.get_rank()
+    rec.update(rank=rank, t_done=time.time(),
+               final_checksum=state_checksum(out["state"].params.state_dict()),
+               launches={k.name: k.launches for k in kernels},
+               resize_events=out["resize_events"], ok=jax_free())
+    print(f"RESULT: controlplane trained={out['trained_samples']} resizes={out['resizes']} "
+          f"final_size={out['final_size']} loss={out['loss']:.4f} rank={rank}", flush=True)
+    print(CP_LINE + json.dumps(rec), flush=True)
+    peer_mod.finalize_default_peer()
+    return 0 if rec["ok"] else 1
 
 
 def rank_heal(argv) -> int:
@@ -2976,7 +3485,8 @@ def rank_heal(argv) -> int:
     for kern in kernels:
         kern.launches = 0
     out = ET.run_elastic(
-        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda")[1], make_tx, make_data,
+        lambda: lm_step_loss, lambda: flagship_model(args.seed, "cuda", n_layers=CUT_LAYERS)[1],
+        make_tx, make_data,
         ET.ElasticConfig(total_samples=HEAL_SAMPLES, batch_size=args.batch // N_RANKS,
                          check_every=HEAL_CHECK_EVERY, checkpoint_dir=args.ckpt_dir,
                          checkpoint_every=HEAL_CKPT_EVERY, snapshot_every=HEAL_SNAPSHOT_EVERY))
@@ -3022,7 +3532,9 @@ def rank_shift(argv) -> int:
 
 
 def rank_sp(argv) -> int:
-    """One rank of phase sp (run by the launcher)."""
+    """One rank of phase sp (run by the launcher), then phase ulysses."""
+    import gc
+
     import torch.distributed as dist
 
     from kungfu_tpu_torch import distributed
@@ -3091,8 +3603,100 @@ def rank_sp(argv) -> int:
               "launches": launches, "expected_launches": want, "checks": checks,
               "ok": all(checks.values())}
     print(SP_LINE + json.dumps(result), flush=True)
+    # phase ulysses next, in this process: no second start-up
+    del cfg, trainer, state, shard, params, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = ulysses_parts(world, args.seed, bucket) and result["ok"]
     distributed.shutdown_distributed()
-    return 0 if result["ok"] else 1
+    return 0 if ok else 1
+
+
+def ulysses_parts(world: int, seed: int, bucket: int) -> bool:
+    """Phase ulysses on this rank of an initialised group: the flagship at
+    SP_SEQ positions as dp=1 x sp=4 with attention="ulysses", (a) the
+    dense head for ULYSSES_STEPS steps, (b) head="hidden" for one step,
+    (c) GQA (ULYSSES_GQA_HEADS kv heads, split over the ranks) for one
+    step; each part's losses, times, launches and replica checksums,
+    printed as the ULYSSES_LINE.  Before (a) and (c) one layer's attention
+    at their heads is held against flash over the gathered sequence
+    (tools/ulysses_check).  True if every check held."""
+    import gc
+
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.models.transformer import FLAGSHIP_GPT
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.tools import ulysses_check
+    from kungfu_tpu_torch.tools.step_profile import flagship_sp_step
+    from kungfu_tpu_torch.utils.compare import REL_LIMIT
+
+    rank = dist.get_rank()
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS + FM.KERNELS
+    probe = torch.zeros(1, device="cuda")
+    result = {"rank": rank, "backend": dist.get_backend(), "parts": {},
+              "exchange": "staged through the host (gloo)" if C._gloo_card(probe, None)
+              else "on the card (NCCL)"}
+    for part, steps, kw in (("dense", ULYSSES_STEPS, {}), ("hidden", 1, {"head": "hidden"}),
+                            ("gqa", 1, {"n_kv_heads": ULYSSES_GQA_HEADS})):
+        errs = None
+        if part != "hidden":  # (b)'s attention is (a)'s
+            heads = FLAGSHIP_GPT["n_heads"]
+            kv_heads = kw.get("n_kv_heads", heads)
+            errs = ulysses_check.against_flash(None, SP_BATCH, SP_SEQ, heads, kv_heads,
+                                               FLAGSHIP_GPT["d_model"] // heads, seed=seed)
+        cfg, trainer, state, shard = flagship_sp_step(
+            SP_BATCH, SP_SEQ, world, seed, impl="pallas_ring", bucket_bytes=bucket or None,
+            attention="ulysses", **kw)
+        params = list(state.params.parameters())
+        buckets = len(_pack_buckets(params, bucket)) if bucket else len(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        losses, times = [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, shard)
+            losses.append(metrics["loss"].item())  # waits for the step
+            times.append(time.perf_counter() - t0)
+            print(f"[ulysses] rank {rank} part {part} step {step + 1}: loss {losses[-1]:.4f}, "
+                  f"{times[-1] * 1e3:.1f} ms", flush=True)
+        launches = {k.name: k.launches for k in kernels}
+        sums = [p.detach().view(torch.int32).to(torch.int64).sum().item() for p in params]
+        every = [None] * world
+        dist.all_gather_object(every, sums)
+        # a step: each layer's attention once over the rank's head group on
+        # the whole sequence (B4 in place of B3 under GQA), each bucket once
+        dkv = flash.FLASH_BWD_DKV_GQA if cfg.kv_heads != cfg.n_heads else flash.FLASH_BWD_DKV
+        want = {k.name: 0 for k in kernels}
+        want.update({k.name: cfg.n_layers * steps for k in
+                     (flash.FLASH_FWD, flash.FLASH_BWD_DQ, dkv)})
+        want.update({k.name: buckets * steps for k in (RC.RING_RS, RC.RING_AG)})
+        checks = {"loss finite": all(math.isfinite(x) for x in losses),
+                  "replicas bit-identical": all(x == every[0] for x in every),
+                  "launches": launches == want, "no JAX": jax_free()}
+        if steps > 1:
+            checks["loss falls"] = losses[-1] < losses[0]
+        result["parts"][part] = {
+            "losses": losses, "step_s": statistics.median(times[1:]) if steps > 1 else times[0],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "buckets": buckets,
+            "launches": launches, "expected_launches": want, "checks": checks}
+        if errs is not None:
+            checks["attention against flash"] = max(errs.values()) <= REL_LIMIT[torch.bfloat16]
+            result["parts"][part].update(against_flash=errs, heads=cfg.n_heads,
+                                         kv_heads=cfg.kv_heads)
+        del cfg, trainer, state, shard, params, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["ok"] = all(all(pr["checks"].values()) for pr in result["parts"].values())
+    print(ULYSSES_LINE + json.dumps(result), flush=True)
+    return result["ok"]
 
 
 def rank_fused(argv) -> int:
@@ -3188,7 +3792,9 @@ def main() -> int:
         workers = {"ring": rank_ring, "train": rank_train, "shift": rank_shift, "sp": rank_sp,
                    "fused": rank_fused, "fsdp": rank_fsdp, "adaptive": rank_adaptive,
                    "gossip": rank_gossip, "session": rank_session, "elastic": rank_elastic,
-                   "heal": rank_heal, "heal-launcher": launch_heal}
+                   "heal": rank_heal, "heal-launcher": launch_heal,
+                   "controlplane": rank_controlplane,
+                   "controlplane-launcher": launch_controlplane}
         return workers[phase](rest)
     t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3212,10 +3818,12 @@ def main() -> int:
         print(f"[smoke] {name} {now - t_lap[0]:.1f} s")
         t_lap[0] = now
 
+    drill = None
     try:
         card, kind, count = phase_device()
         phase_build()
         lap("build")
+        drill = start_coordinator_drill()  # phase controlplane (a), beside the next phases
         results = [phase_kernels(args.seed), phase_kernels_gqa(args.seed)]
         lap("kernels")
         wide, wide_launches = phase_wide(args.seed)
@@ -3226,6 +3834,8 @@ def main() -> int:
         main_losses, n_params, fsdp_sizes, fsdp_groups = phase_main(args.steps, args.batch,
                                                                     args.seed)
         lap("main")
+        cut_loss = phase_cut_reference(args.batch, args.seed)
+        lap("cut-ref")
         torch.cuda.empty_cache()
         phase_chunked(args.batch, args.seed)
         lap("chunked")
@@ -3243,12 +3853,11 @@ def main() -> int:
         lap("adaptive")
         gossip_shifts = phase_gossip(card, args.batch, args.seed, main_losses[0])
         lap("gossip")
-        session_launches = phase_session(card, args.batch, args.seed, main_losses[0])
+        session_launches = phase_session(card, args.batch, args.seed, cut_loss)
         lap("session")
-        elastic_launches = phase_elastic(card, args.batch, args.seed, args.bucket_mib,
-                                         main_losses[0])
+        elastic_launches = phase_elastic(card, args.batch, args.seed, args.bucket_mib, cut_loss)
         lap("elastic")
-        heal_launches = phase_heal(card, args.batch, args.seed, args.bucket_mib, main_losses[0])
+        heal_launches = phase_heal(card, args.batch, args.seed, args.bucket_mib, cut_loss)
         lap("heal")
         gqa_launches, _ = phase_ranks(args.rank_steps, args.batch, args.seed, args.bucket_mib,
                                       gqa_loss, compression="int8")
@@ -3256,14 +3865,17 @@ def main() -> int:
         results.append(phase_shift(args.seed))
         lap("shift")
         sp_loss = phase_sp_reference(args.seed)
-        sp_launches = phase_sp(SP_STEPS, args.seed, args.bucket_mib, sp_loss)
-        lap("sp-ref, sp")
+        sp_launches, ulysses_launches = phase_sp(SP_STEPS, args.seed, args.bucket_mib, sp_loss)
+        lap("sp-ref, sp, ulysses (in phase sp's ranks)")
         fused, fused_launches = phase_fused(args.seed)
         results.append(fused)
         lap("fused")
         phase_fsdp(FSDP_STEPS, args.batch, args.seed, main_losses[0],
                    ranks_losses[:FSDP_STEPS])
         lap("fsdp")
+        cp_launches = phase_controlplane(card, args.batch, args.seed, args.bucket_mib, cut_loss,
+                                         drill)
+        lap("controlplane")
         # each kernel's launches from the path that runs it
         launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
         launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
@@ -3275,6 +3887,16 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if drill is not None and drill[0].poll() is None:  # a phase before it failed
+            try:  # the drill stops its own ensemble: let it end
+                drill[0].communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                drill[0].kill()
+                drill[0].communicate()
+            import shutil
+
+            shutil.rmtree(drill[1], ignore_errors=True)
     errs, ms, plain, library, bounds = ({k: v for r in results for k, v in r[i].items()}
                                         for i in range(5))
     kernels = [{
@@ -3296,6 +3918,14 @@ def main() -> int:
         if heal_launches.get(k["name"]):  # and across phase heal's crash, heal and regrow
             k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
             k["launches_by_phase"]["heal"] = heal_launches[k["name"]]
+        ulysses = sum(part.get(k["name"], 0) for part in ulysses_launches.values())
+        if ulysses:  # B1-B6 under Ulysses' all_to_all (B4 in its GQA part)
+            k.setdefault("launches_by_phase", {"gqa" if k["name"] == flash.FLASH_BWD_DKV_GQA.name
+                                               else "ranks": launches[k["name"]]})
+            k["launches_by_phase"]["ulysses"] = ulysses
+        if cp_launches.get(k["name"]):  # and under run_elastic through a leader failover
+            k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
+            k["launches_by_phase"]["controlplane"] = cp_launches[k["name"]]
     print(f"[smoke] every phase passed in {time.perf_counter() - t_smoke:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -19,16 +19,19 @@ writes and the manifest rename), phase 2 restarts against the same
 directory and must demote the bad step (journaled) and resume from the
 verified one before it.
 
+``--coordinator-drill [--replicas N]`` runs the replicated control plane's
+drill instead (chaos/controlplane.py): CAS and KV traffic against an
+N-replica config ensemble through a leader SIGKILL and a leader SIGSTOP;
+``--json PATH`` also writes its summary there.
+
 The JAX package's other drills raise, naming the ROADMAP item that ports
-what they drive: the coordinator drill the replicated control plane
-(A.5c), the straggler drills the telemetry fleet's detector (A.8, its
-network variant also the pod harness), the serve, trace and fairness
+what they drive: the straggler drills the telemetry fleet's detector (A.8,
+its network variant also the pod harness), the serve, trace and fairness
 drills the serving fleet (A.2).
 """
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import math
 import os
@@ -38,6 +41,7 @@ import sys
 import tempfile
 from typing import Optional, Sequence
 
+from .controlplane import _journal_events
 from .plan import FAULT_PLAN_ENV, parse_fault_plan
 
 LAUNCHER = (sys.executable, "-m", "kungfu_tpu_torch.run")
@@ -49,8 +53,6 @@ UNPORTED = {
     "--straggler-ms": ({"type": float}, "A.8"),
     "--straggler-steps": ({"type": int}, "A.8"),
     "--network": ({"choices": ("auto", "on", "off")}, "A.8"),
-    "--coordinator-drill": ({"action": "store_true"}, "A.5c"),
-    "--replicas": ({"type": int}, "A.5c"),
     "--serve-drill": ({"action": "store_true"}, "A.2"),
     "--serve-requests": ({"type": int}, "A.2"),
     "--serve-p99-bound": ({"type": float}, "A.2"),
@@ -59,7 +61,6 @@ UNPORTED = {
     "--trace-drill": ({"action": "store_true"}, "A.2"),
     "--fairness-drill": ({"action": "store_true"}, "A.2"),
     "--burst-plan": ({}, "A.2"),
-    "--json": ({}, "A.2"),
 }
 
 
@@ -112,15 +113,6 @@ def run_drill(plan: str, np: int, total_samples: int, timeout_s: float,
         "heal_events": heal_events,
         "runner_heal_events": runner_events,
     }
-
-
-def _journal_events(journal_dir: str) -> list:
-    from ..monitor.journal import read_journal_segments
-
-    events = []
-    for p in sorted(glob.glob(os.path.join(journal_dir, "journal-*.jsonl"))):
-        events.extend(read_journal_segments(p))
-    return events
 
 
 def run_ckpt_drill(kind: str, timeout_s: float = 240.0) -> int:
@@ -221,6 +213,15 @@ def main(argv=None) -> int:
                     help="hold the heal's recovery_rung")
     ap.add_argument("--ckpt-drill", choices=("corrupt", "crash_in_save"), default="",
                     help="run a checkpoint-integrity drill instead of the crash-and-heal one")
+    ap.add_argument("--coordinator-drill", action="store_true",
+                    help="run the replicated control plane's drill instead: CAS and KV "
+                    "traffic against a config ensemble through a leader SIGKILL and a leader "
+                    "SIGSTOP (no dropped request, no lost or doubled conditional PUT, the "
+                    "commit gap bounded, elections journaled, the replicas converged)")
+    ap.add_argument("--replicas", type=int, default=3, help="coordinator drill: ensemble size")
+    ap.add_argument("--json", default="",
+                    help="coordinator drill: also write its summary here (the serve drill's "
+                    "metrics wait for ROADMAP A.2)")
     for flag, (opts, item) in UNPORTED.items():
         ap.add_argument(flag, dest="unported_" + flag[2:].replace("-", "_"), default=None,
                         help=f"not ported yet (ROADMAP {item})", **opts)
@@ -230,6 +231,28 @@ def main(argv=None) -> int:
             raise NotImplementedError(f"chaos {flag}: what it drives is not ported yet "
                                       f"(ROADMAP {item})")
 
+    if args.coordinator_drill:
+        from .controlplane import run_coordinator_drill
+
+        summary = run_coordinator_drill(replicas=args.replicas, timeout_s=args.timeout)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(summary, f, indent=2)
+        if not summary["ok"]:
+            print("COORDINATOR DRILL FAILED: " + "; ".join(summary["failures"]),
+                  file=sys.stderr)
+            return 1
+        print(f"COORDINATOR DRILL OK: {summary['replicas']} replicas through a leader kill "
+              f"and a leader partition, 0 dropped requests, {summary['cas_commits']} "
+              f"conditional PUTs committed ({summary['cas_losses']} honest CAS losses, 0 lost "
+              f"updates), {summary['kv_commits']} KV writes, version {summary['v0']} -> "
+              f"{summary['final_version']}, max commit gap {summary['max_commit_gap_s']}s, "
+              f"{summary['elections_journaled']} leader_elected journaled, "
+              f"{summary['respawns']} respawns, converged in {summary['wall_s']}s")
+        return 0
+    if args.json:
+        raise NotImplementedError("chaos --json: only the coordinator drill's summary is "
+                                  "ported; the serve drill's metrics wait for ROADMAP A.2")
     if args.ckpt_drill:
         return run_ckpt_drill(args.ckpt_drill, timeout_s=args.timeout)
 

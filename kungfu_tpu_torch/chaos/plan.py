@@ -112,8 +112,9 @@ port parses them, and its pod harness waits for ROADMAP A.7):
                                     replica respawned and snapshot-caught-
                                     up — with zero dropped client requests
                                     and zero lost conditional-PUTs
-                                    (the replicated control plane,
-                                    ROADMAP A.5c)
+                                    (its injector is the pod harness's,
+                                    ROADMAP A.7; the ensemble and its
+                                    drill are ported)
 
 Durations accept a trailing "s" or "ms" ("3s", "250ms", bare numbers are
 seconds).  Ranks refer to the worker's LAUNCH rank (its rank when the

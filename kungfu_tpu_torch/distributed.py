@@ -40,6 +40,7 @@ from . import compat
 from .env import Config, parse_config_from_env
 from .plan import PeerID, PeerList
 from .utils import get_logger
+from .utils.ports import wait_until_bindable
 
 log = get_logger("kungfu.distributed")
 
@@ -105,6 +106,8 @@ def init_distributed(config: Optional[Config] = None, device=None) -> int:
 
     root = cfg.peers[0]
     port = coordinator_port(root.port, cfg.cluster_version)
+    if cfg.rank == 0:  # rank 0's TCP store listens there, on every address
+        wait_until_bindable(port, what="the rendezvous")
     dist.init_process_group(
         backend,
         init_method=f"tcp://{root.host}:{port}",

@@ -1,10 +1,21 @@
 """Elastic training (counterpart of kungfu_tpu.elastic): the config
-service, the resize protocol and the schedules.  The replicated config
-ensemble waits for ROADMAP A.5c."""
+service (one server or a replicated ensemble, `elastic.ensemble`), the
+resize protocol and the schedules."""
 from .config_client import ConfigClient, propose_new_size
 from .config_server import ConfigServer
 from .schedule import StepBasedSchedule
-from .trainer import ElasticConfig, run_elastic
+
+
+def __getattr__(name):
+    # the training loop needs torch: loaded on first use, so that a config
+    # replica (`python -m kungfu_tpu_torch.elastic.config_server`) starts
+    # without it
+    if name in ("ElasticConfig", "run_elastic"):
+        from . import trainer
+
+        return getattr(trainer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ConfigClient", "ConfigServer", "propose_new_size",

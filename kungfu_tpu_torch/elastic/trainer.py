@@ -36,6 +36,12 @@ with zero arrays, which the broadcast then fills.  Each try of the
 consensus is bounded by the collective's own wait, so a consensus that
 never forms ends in TimeoutError instead of blocking.
 
+Under KFT_CONFIG_URLS (the launcher's `-config-replicas N`) the loop's
+client is the failover client of the replicated ensemble: a leader that
+dies between two resize checks costs a poll its retries (the next leader
+answers within the client's budget), not a failed step, and a poll that
+outlasts the budget reads as "no new document" until the next check.
+
 SIGTERM is a preemption notice: at the step boundary a final checkpoint,
 self-removal from the cluster document, a DETACHED line and a clean exit.
 

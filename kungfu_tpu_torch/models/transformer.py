@@ -16,11 +16,14 @@ logits, loss and gradients:
 Parameter names follow the flax tree with torch's layout (Dense.kernel
 [in, out] becomes `weight` [out, in]; MLP "in" becomes `in_`).
 
-attention="ring" with a mesh (`plan.make_mesh(..., sp=n)`) is sequence
-parallelism: each rank of an sp group holds one chunk of the sequence
-(`trainer.MeshTrainer.shard_batch`), rotary or learned positions start at
-its chunk's absolute offset, and attention is `parallel.ring_attention`
-over the sp group.  Its loss is `lm_loss_shard`: this rank's share of the
+attention="ring" or "ulysses" with a mesh (`plan.make_mesh(..., sp=n)`)
+is sequence parallelism: each rank of an sp group holds one chunk of the
+sequence (`trainer.MeshTrainer.shard_batch`), rotary or learned positions
+start at its chunk's absolute offset, and attention is
+`parallel.ring_attention` over the sp group (K/V rotating around the
+ring) or `parallel.ulysses_attention` (the all_to_all to a head group over
+the whole sequence, on the flash kernels).  Its loss is `lm_loss_shard`,
+or `lm_loss_shard_chunked` with head="hidden": this rank's share of the
 global mean.
 
 head="hidden" returns ln_f's hidden states (f32) instead of logits, with
@@ -37,8 +40,8 @@ block in the backward, "dots" keeps the outputs of its matrix products
 jax.checkpoint_policies.dots_saveable; a block under dropout recomputes
 the same masks from the generator state it started with.
 
-Decode and generate, MoE and ulysses attention wait for later slices and
-raise NotImplementedError when configured.
+Decode and generate and MoE wait for later slices and raise
+NotImplementedError when configured.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from ..compat import kernel_mode, resolve_device
 from ..ops.chunked_ce import chunked_lm_head_ll
 from ..ops.flash import flash_attention
 from ..parallel.ring_attention import full_attention, ring_attention
+from ..parallel.ulysses import ulysses_attention
 from ..plan.mesh import Mesh
 
 
@@ -75,7 +79,7 @@ class TransformerConfig:
     d_ff: int = 2048
     max_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # "auto" = flash on a card, full on the CPU; "flash" | "full" | "ring"
+    # "auto" = flash on a card, full on the CPU; "flash" | "full" | "ring" | "ulysses"
     attention: str = "auto"
     causal: bool = True
     # grouped-query attention: number of K/V heads (0 = n_heads)
@@ -103,7 +107,7 @@ class TransformerConfig:
     # states, for lm_loss_chunked (the same parameters either way)
     head: str = "dense"
     n_experts: int = 0
-    # the rank mesh attention="ring" splits the sequence over (its sp_axis)
+    # the rank mesh attention="ring"/"ulysses" splits the sequence over (its sp_axis)
     mesh: Optional[Mesh] = None
     sp_axis: str = "sp"
     decode: bool = False
@@ -132,9 +136,6 @@ class TransformerConfig:
                 raise ValueError(f"{name}={value!r}, expected one of {allowed}")
         if not 0.0 <= self.dropout <= 1.0:
             raise ValueError(f"dropout={self.dropout} is not a rate in [0, 1]")
-        if self.attention == "ulysses":
-            raise NotImplementedError(
-                "attention='ulysses' is not ported yet (see ROADMAP.md A.6)")
         later = [
             (self.decode, "decode"),
             (self.n_experts > 0, "MoE (n_experts)"),
@@ -149,10 +150,11 @@ class TransformerConfig:
 
     @property
     def sequence_parallel(self) -> bool:
-        """Ring attention over the mesh's sp axis: each rank holds one chunk
-        of the sequence.  (attention="ring" without a mesh that has the
-        axis is full attention, as in the JAX package.)"""
-        return (self.attention == "ring" and self.mesh is not None
+        """Ring or Ulysses attention over the mesh's sp axis: each rank
+        holds one chunk of the sequence.  (attention="ring" or "ulysses"
+        without a mesh that has the axis is full attention, as in the JAX
+        package.)"""
+        return (self.attention in ("ring", "ulysses") and self.mesh is not None
                 and self.sp_axis in self.mesh.axis_names)
 
     def position_offset(self, chunk: int) -> int:
@@ -239,7 +241,13 @@ class Attention(nn.Module):
             pos = cfg.position_offset(L) + torch.arange(L, device=x.device)
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
-        if cfg.sequence_parallel:
+        if cfg.sequence_parallel and cfg.attention == "ulysses":
+            o = ulysses_attention(q, k, v, group=cfg.mesh.group(cfg.sp_axis), causal=cfg.causal,
+                                  attn_fn=functools.partial(
+                                      flash_attention, block_q=cfg.flash_block_q or 128,
+                                      block_k=cfg.flash_block_k or 128,
+                                      backward=cfg.flash_backward))
+        elif cfg.sequence_parallel:
             o = ring_attention(q, k, v, group=cfg.mesh.group(cfg.sp_axis), causal=cfg.causal)
         elif _attention_kind(cfg, x.device) == "flash":
             o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window or None,
@@ -465,3 +473,20 @@ def lm_loss_shard(logits: torch.Tensor, targets: torch.Tensor, count: int) -> to
     gradient."""
     ll, _ = _token_ll(logits, targets.clamp_min(0))
     return -torch.where(targets >= 0, ll, 0.0).sum() / count
+
+
+def lm_loss_shard_chunked(model: TransformerLM, tokens: torch.Tensor, targets: torch.Tensor,
+                          count: int, block: Optional[int] = None, train: bool = False,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """`lm_loss_shard` without logits, for a model with head="hidden":
+    this shard's hidden states against its `targets` (-1 where a sequence
+    ends) through `ops.chunked_ce.chunked_lm_head_ll`, summed and divided
+    by `count`, the targets of the whole batch.  The shares of all ranks
+    sum to `lm_loss_chunked` of the whole batch.  `train`/`generator` pass
+    to the forward (dropout)."""
+    if model.cfg.head != "hidden":
+        raise ValueError('lm_loss_shard_chunked needs TransformerConfig(head="hidden")')
+    h = model(tokens, train=train, generator=generator)
+    ll, _ = chunked_lm_head_ll(h.reshape(-1, h.shape[-1]), model.head_weight(),
+                               targets.clamp_min(0).reshape(-1), block)
+    return -torch.where(targets.reshape(-1) >= 0, ll, 0.0).sum() / count

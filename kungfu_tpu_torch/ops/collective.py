@@ -122,8 +122,11 @@ def _neighbours(group):
 
 
 def _exchange(send: torch.Tensor, recv: torch.Tensor, right: int, left: int, group) -> None:
-    reqs = [dist.isend(send.contiguous(), right, group=group),
-            dist.irecv(recv, left, group=group)]
+    """One hop: `send` to the right neighbour, `recv` from the left, as one
+    batch.  NCCL takes a hop's send and receive only together: issued one
+    by one, four ranks deadlock and two (left == right) fault."""
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send.contiguous(), right, group),
+                                   dist.P2POp(dist.irecv, recv, left, group)])
     for r in reqs:
         r.wait()
 

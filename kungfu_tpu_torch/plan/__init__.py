@@ -25,15 +25,21 @@ from .graph import (
 )
 from .strategy import (Strategy, Impl, DEFAULT_STRATEGY, PALLAS_IMPLS,
                        resolve_auto, impl_of, strategy_graphs)
-from .mesh import (
-    DATA_AXES,
-    Mesh,
-    MeshSpec,
-    make_mesh,
-    make_hierarchical_mesh,
-    mesh_digest,
-    AXIS_ORDER,
-)
+
+# the rank mesh needs torch.distributed: loaded on first use, so that a
+# process that needs only the cluster document (a config-service replica)
+# starts without torch
+_MESH = ("DATA_AXES", "Mesh", "MeshSpec", "make_mesh", "make_hierarchical_mesh",
+         "mesh_digest", "AXIS_ORDER")
+
+
+def __getattr__(name):
+    if name in _MESH:
+        from . import mesh
+
+        return getattr(mesh, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "PeerID", "PeerList", "HostSpec", "HostList", "Cluster",

@@ -6,7 +6,10 @@ The JAX package's CLI (kungfu_tpu/run/__main__.py), with its flags: -np,
 starts and stops this host's workers as the elastic config service's
 document changes (-timeout bounds it: exit 124), against the service at
 -config-server URL, or one embedded in this launcher
-(-builtin-config-server, or -w without a URL) at -port.  -heal (implies
+(-builtin-config-server, or -w without a URL) at -port, or with
+-config-replicas N above 1 a supervised ensemble of N replicas
+(`elastic.ensemble.ConfigEnsemble`) whose URL list reaches the workers as
+KFT_CONFIG_URLS and the runner's failover client.  -heal (implies
 -w) makes it the self-healing supervisor: a dead worker is removed from
 the document and the survivors heal around it, -restart-budget N restarts
 each worker up to N times, -heartbeat-timeout S kills a worker whose
@@ -19,9 +22,8 @@ TPU_VISIBLE_CHIPS.  -platform cpu puts the workers' Peer and Session on
 the CPU (KFT_PLATFORM); -devices-per-worker takes 1 only (a worker is one
 rank with one card).  `-strategy` reaches each worker's Session through
 KFT_ALLREDUCE_STRATEGY.  Every other flag of the JAX CLI raises, naming
-the ROADMAP item that will port it (A.5c: -config-replicas above 1, the
-replicated config ensemble; A.8: fleet telemetry); none is ignored.  Multi-host
-launches over ssh: `run/distribute.py`.
+the ROADMAP item that will port it (A.8: fleet telemetry); none is
+ignored.  Multi-host launches over ssh: `run/distribute.py`.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Dict, Optional, Sequence
 
 from ..elastic.config_client import ConfigClient
 from ..elastic.config_server import ConfigServer
+from ..elastic.ensemble import ConfigEnsemble
 from ..plan import Cluster, HostList, Strategy
 from .job import Job
 from .launcher import WatchRunner, install_signal_trap, simple_run
@@ -41,7 +44,6 @@ from .launcher import WatchRunner, install_signal_trap, simple_run
 # flag -> (argparse options, what it does in the JAX CLI, the ROADMAP item
 # porting it[, the one value that is ported: the JAX default])
 UNPORTED: Dict[str, tuple] = {
-    "-config-replicas": ({"type": int}, "a replicated config ensemble", "A.5c", 1),
     "-telemetry": ({"action": "store_true"}, "fleet telemetry", "A.8"),
     "-telemetry-port": ({"type": int}, "the fleet telemetry port", "A.8"),
     "-slo-file": ({}, "the fleet SLO rules", "A.8"),
@@ -107,6 +109,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="embed a config server in this launcher")
     ap.add_argument("-port", type=int, default=None,
                     help="the embedded config server's port (default 9100)")
+    ap.add_argument("-config-replicas", dest="config_replicas", type=int, default=1,
+                    help="the embedded config service's replicas: above 1 a leader-leased "
+                    "ensemble, dead replicas respawned, its URL list handed to the workers "
+                    "as KFT_CONFIG_URLS")
     ap.add_argument("-timeout", type=float, default=0.0,
                     help="watch mode: stop the job after this many seconds (exit 124)")
     ap.add_argument("-heal", action="store_true",
@@ -143,9 +149,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.port is not None and not embed:
         ap.error("-port is the embedded config server's: pass -builtin-config-server or -w "
                  "without -config-server")
+    if args.config_replicas < 1:
+        ap.error("-config-replicas takes 1 or more")
+    if args.config_replicas > 1 and args.port is not None:
+        ap.error("-port is the single embedded config server's: an ensemble takes free ports")
     cs = None
     config_url = args.config_server
-    if embed:
+    if embed and args.config_replicas > 1:
+        cs = ConfigEnsemble(replicas=args.config_replicas, init=cluster).start()
+        config_url = cs.urls_spec
+    elif embed:
         cs = ConfigServer(port=9100 if args.port is None else args.port, init=cluster).start()
         config_url = cs.url
     heartbeat_dir = ""

@@ -37,12 +37,14 @@ import numpy as np
 
 from .plan import PeerID
 from .utils import get_logger
+from .utils.ports import bind_when_free
 
 log = get_logger("kungfu.store")
 
 # store listens on worker_port + offset.  Default worker ports are
-# 10000-10999 (plan), putting stores at 25000-25999: below the Linux
-# ephemeral range (32768+) so outbound connections cannot squat our binds.
+# 10000-10999 (plan), putting stores at 25000-25999: below Linux's default
+# ephemeral range (32768+).  A host whose range starts lower can have an
+# outbound socket on one, which the bind waits out (utils.ports).
 STORE_PORT_OFFSET = 15000
 
 
@@ -254,7 +256,8 @@ class StoreServer:
             allow_reuse_address = True
             daemon_threads = True
 
-        self._srv = Server((host, port), Handler)
+        self._srv = bind_when_free(lambda: Server((host, port), Handler), port, host,
+                                   "the blob store")
         self.host, self.port = self._srv.server_address[:2]
         self._thread = threading.Thread(target=self._srv.serve_forever, daemon=True)
 

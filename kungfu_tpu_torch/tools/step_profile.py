@@ -20,10 +20,11 @@ profiles `--steps` more with torch.profiler.  Started by the launcher, each rank
 its share of the batch of `--batch` and profiles its own process: where
 ranks share a card, the others' kernels fill its idle time.  With `--sp
 N` the ranks form a mesh of dp = world / N x sp = N and train the
-flagship at `--seq-len` positions sequence-parallel (ring attention,
-MeshTrainer, the gradients summed with `--impl`), as chip_smoke.py's
-phase sp does (flagship_sp_step): each rank holds its rows and its
-chunk of every sequence.  With `--fsdp N` the ranks form a mesh of dp =
+flagship at `--seq-len` positions sequence-parallel (ring attention, or
+Ulysses' all_to_all with `--attention ulysses`; MeshTrainer, the gradients
+summed with `--impl`), as chip_smoke.py's phases sp and ulysses do
+(flagship_sp_step): each rank holds its rows and its chunk of every
+sequence.  With `--fsdp N` the ranks form a mesh of dp =
 world / N x fsdp = N and train the flagship with FSDPTrainer (every
 parameter chunked N ways, gathered through the ring all-gather B6 and its
 gradient reduce-scattered through B5), as chip_smoke.py's phase fsdp does
@@ -58,7 +59,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import distributed
 from ..models.transformer import (FLAGSHIP_GPT, TransformerConfig, TransformerLM, lm_loss,
-                                  lm_loss_chunked, lm_loss_shard)
+                                  lm_loss_chunked, lm_loss_shard, lm_loss_shard_chunked)
 from ..compression import error_feedback as EF
 from ..fsdp import FSDPTrainer
 from ..ops import flash
@@ -148,16 +149,25 @@ def flagship_step(batch: int, seed: int, device="cuda", impl: str = "pmean",
 
 
 def flagship_sp_step(batch: int, seq_len: int, sp: int, seed: int, device="cuda",
-                     impl: str = "pallas_ring", bucket_bytes=None):
+                     impl: str = "pallas_ring", bucket_bytes=None, attention: str = "ring",
+                     head: str = "dense", n_kv_heads: int = 0):
     """The flagship's sequence-parallel step: the world's ranks as a mesh
-    of dp = world / sp x sp, the flagship with `max_len=seq_len` and
-    attention="ring" over the mesh, MeshTrainer(lm_loss_shard,
-    adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes), and this rank's
-    shard of `flagship_tokens`.  Returns (cfg, trainer, state, shard)."""
+    of dp = world / sp x sp, the flagship (GQA with `n_kv_heads`) with
+    `max_len=seq_len`, `attention` ("ring" or "ulysses") over the mesh and
+    `head`, MeshTrainer(lm_loss_shard, or lm_loss_shard_chunked for
+    head="hidden"; adamw(3e-4, b1=0.9, b2=0.95), impl, bucket_bytes), and
+    this rank's shard of `flagship_tokens`.  Returns (cfg, trainer, state,
+    shard)."""
     mesh = make_mesh(dp=-1, sp=sp)
-    cfg, model = flagship_model(seed, device, attention="ring", mesh=mesh, max_len=seq_len)
-    trainer = MeshTrainer(lambda m, b: lm_loss_shard(m(b.tokens), b.targets, b.count),
-                          adamw(3e-4, b1=0.9, b2=0.95), mesh, impl=impl,
+    cfg, model = flagship_model(seed, device, n_kv_heads=n_kv_heads, attention=attention,
+                                mesh=mesh, max_len=seq_len, head=head)
+    if head == "hidden":
+        def loss(m, b):
+            return lm_loss_shard_chunked(m, b.tokens, b.targets, b.count)
+    else:
+        def loss(m, b):
+            return lm_loss_shard(m(b.tokens), b.targets, b.count)
+    trainer = MeshTrainer(loss, adamw(3e-4, b1=0.9, b2=0.95), mesh, impl=impl,
                           bucket_bytes=bucket_bytes, device=device)
     shard = trainer.shard_batch(flagship_tokens(cfg, batch, seed, device))
     return cfg, trainer, trainer.init(model), shard
@@ -193,9 +203,12 @@ def main() -> int:
     ap.add_argument("--n-heads", type=int, default=FLAGSHIP_GPT["n_heads"],
                     help="query heads of the flagship (16 of 64; 8: its row of heads of 128)")
     ap.add_argument("--head", default="dense", choices=("dense", "hidden"),
-                    help="hidden: the chunked head and lm_loss_chunked (data parallel only)")
+                    help="hidden: the chunked head and lm_loss_chunked (lm_loss_shard_chunked "
+                    "with --sp)")
     ap.add_argument("--sp", type=int, default=1,
                     help="ranks of a sequence-parallel group (ring attention, MeshTrainer)")
+    ap.add_argument("--attention", default="ring", choices=("ring", "ulysses"),
+                    help="with --sp: ring attention or Ulysses' all_to_all")
     ap.add_argument("--seq-len", type=int, default=2048, help="positions of a sequence (--sp)")
     ap.add_argument("--fsdp", type=int, default=0,
                     help="ranks of an fsdp group (FSDPTrainer; 0: data parallel)")
@@ -216,10 +229,11 @@ def main() -> int:
         shard = f"batch {tokens.shape[0]}, fsdp={args.fsdp}, " + (
             "NCCL a parameter" if args.nccl else f"{buckets or 'no'} buckets")
     elif args.sp > 1:
-        cfg, trainer, state, tokens = flagship_sp_step(args.batch, args.seq_len, args.sp,
-                                                       args.seed, impl=args.impl,
-                                                       bucket_bytes=bucket_bytes)
-        shard = f"batch {tuple(tokens.tokens.shape)}, sp={args.sp}"
+        cfg, trainer, state, tokens = flagship_sp_step(
+            args.batch, args.seq_len, args.sp, args.seed, impl=args.impl,
+            bucket_bytes=bucket_bytes, attention=args.attention, head=args.head,
+            n_kv_heads=args.n_kv_heads)
+        shard = f"batch {tuple(tokens.tokens.shape)}, sp={args.sp} ({args.attention})"
     else:
         cfg, trainer, state, tokens = flagship_step(args.batch, args.seed, impl=args.impl,
                                                     bucket_bytes=bucket_bytes,

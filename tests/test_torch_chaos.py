@@ -16,13 +16,20 @@ package's, on the CPU.
   plan answers the same codes as the JAX server to the same requests, and
   a client's retries ride the window out;
 * `python -m kungfu_tpu_torch.chaos`: the flap drill is ridden out without
-  a heal, a hang is caught by the heartbeat and healed, and every drill
-  flag that is not ported raises naming its ROADMAP item.
+  a heal, a hang is caught by the heartbeat and healed, the coordinator
+  drill (`--coordinator-drill --replicas 3` as the CLI runs it, and one of
+  5 replicas with elections of a few tenths of a second) holds every
+  invariant of its docstring, and every drill flag that is not ported
+  raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import subprocess
+import sys
+import textwrap
 import time
 import types
 import urllib.error
@@ -33,6 +40,7 @@ import pytest
 import torch
 
 from _torch_drills import drill
+from _torch_ranks import REPO
 from _torch_reference import jax_reference
 from kungfu_tpu_torch import chaos
 from kungfu_tpu_torch.chaos import inject, plan as tplan
@@ -323,3 +331,47 @@ def test_unported_drill_flag_raises(flag):
         args = [flag, (opts.get("choices") or ["1"])[0]]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(args)
+
+
+def test_json_is_the_coordinator_drills_only():
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+        cli.main(["--json", "out.json"])
+
+
+FIVE_REPLICAS_DRILL = textwrap.dedent("""
+    import json
+    from kungfu_tpu_torch.chaos.controlplane import run_coordinator_drill
+
+    print("SUMMARY " + json.dumps(run_coordinator_drill(replicas=5, timeout_s=60)))
+""")
+
+
+@pytest.mark.parametrize("how", ["cli", "five-replicas"])
+def test_coordinator_drill(tmp_path, how):
+    """The drill through a leader SIGKILL and a leader SIGSTOP: no dropped
+    request, each thread's versions monotonic, no version won twice, the
+    final version at least v0 + the commits, the commit gap bounded,
+    commits after both failovers, three elections and a respawn
+    journaled, every replica converged (its `failures` list empty)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KFT_JOURNAL_DIR", None)
+    if how == "cli":
+        cmd = [sys.executable, "-m", "kungfu_tpu_torch.chaos", "--coordinator-drill",
+               "--replicas", "3", "--json", str(tmp_path / "drill.json")]
+    else:
+        cmd = [sys.executable, "-c", FIVE_REPLICAS_DRILL]
+        env.update(KFT_RAFT_ELECT_S="0.3", KFT_RAFT_HB_S="0.08")
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    out = r.stdout + r.stderr
+    if how == "cli":
+        assert r.returncode == 0 and "COORDINATOR DRILL OK" in r.stdout, out[-3000:]
+        summary = json.loads((tmp_path / "drill.json").read_text())
+    else:
+        summary = json.loads(r.stdout.split("SUMMARY ", 1)[1].splitlines()[0])
+    assert summary["ok"] and not summary["failures"], summary
+    assert summary["replicas"] == (3 if how == "cli" else 5)
+    assert [k["mode"] for k in summary["kills"]] == ["SIGKILL", "SIGSTOP"]
+    assert summary["cas_commits"] > 0 and summary["kv_commits"] > 0
+    assert summary["final_version"] >= summary["v0"] + summary["cas_commits"]
+    assert summary["respawns"] >= 1 and summary["journal_counts"]["replica_respawned"] >= 1
+    assert summary["journal_counts"]["leader_elected"] >= 3

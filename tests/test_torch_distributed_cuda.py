@@ -20,8 +20,20 @@ against one process training on the whole batch: parameters to 1e-5
 absolute after three AdamW steps, f32, for the same reason as the NCCL
 case (the reduce-scatter sums four shards' gradients in the ring's order).
 
-Marked `cuda`; skips without a card, and the NCCL case without two (the
-check runs in a fixture).
+The plain rings of `ops/collective.py` over NCCL with a card a rank: the
+lax-schedule ring all-reduce on the world group and the hierarchical
+all-reduce on a 2 x 2 ("dcn", "ici") mesh (a 2-rank ici ring), each equal
+to the stacked sum of integer-valued f32 payloads.  Each hop's send and
+receive go to NCCL as one batch: sent one by one, the 4-rank ring
+deadlocked and the 2-rank one faulted (an illegal memory access).
+
+Ulysses attention over NCCL with a card a rank, at the flagship's heads:
+each rank's output and gradients against flash attention over the
+gathered sequence (`tools/ulysses_check.against_flash`), to the flash
+kernels' bf16 limit of `utils.compare.REL_LIMIT`.
+
+Marked `cuda`; skips without a card, and the NCCL cases without two or
+four (the check runs in a fixture).
 """
 from __future__ import annotations
 
@@ -188,3 +200,78 @@ def test_pallas_ring_ssgd_matches_pmean(cards, tmp_path):
     pmean, _ = _train_ranks(2, "pmean", tmp_path / "pmean")
     for key in pmean.files:
         np.testing.assert_array_equal(ring[key], pmean[key], err_msg=key)
+
+
+RINGS_WORKER = textwrap.dedent("""
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.plan import make_hierarchical_mesh
+
+    assert distributed.init_distributed(device="cuda") == 4
+    assert dist.get_backend() == "nccl"
+    rank = dist.get_rank()
+    mesh = make_hierarchical_mesh(2)
+    xs = [torch.randint(-3, 4, (1 << 20,), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(r)).float()
+          for r in range(4)]
+    want = torch.stack(xs).sum(0)
+    assert torch.equal(C.ring_all_reduce(xs[rank]), want)
+    assert torch.equal(C.hierarchical_all_reduce(xs[rank], mesh.group("ici"),
+                                                 mesh.group("dcn")), want)
+    torch.cuda.synchronize()
+    distributed.shutdown_distributed()
+""")
+
+
+def _nccl_ranks(worker):
+    """Run `worker` on 4 ranks, a card each; fails with a rank's output."""
+    port = _free_port_range(4, MAX_WORKER_PORT, ())
+    peers = ",".join(f"127.0.0.1:{port + r}" for r in range(4))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker],
+        env=dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,
+                 PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    outs = []
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out
+        outs.append(out)
+    return outs
+
+
+def test_plain_rings_over_nccl(cards):
+    if cards < 4:
+        pytest.skip("needs four CUDA cards")
+    _nccl_ranks(RINGS_WORKER)
+
+
+ULYSSES_WORKER = textwrap.dedent("""
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed
+    from kungfu_tpu_torch.tools import ulysses_check
+    from kungfu_tpu_torch.utils.compare import REL_LIMIT
+
+    assert distributed.init_distributed(device="cuda") == 4
+    assert dist.get_backend() == "nccl"
+    for kv_heads in (16, 8):  # MHA; GQA with 2 kv heads a rank
+        errs = ulysses_check.against_flash(None, 2, 8192, 16, kv_heads, 64)
+        print(f"rank {dist.get_rank()} kv_heads {kv_heads}: {errs}", flush=True)
+        assert max(errs.values()) <= REL_LIMIT[torch.bfloat16], errs
+    distributed.shutdown_distributed()
+""")
+
+
+def test_ulysses_over_nccl(cards):
+    """Ulysses attention with a card a rank (all_to_all_single on NCCL) at
+    the flagship's heads, 16 of 64 (MHA, and 8 kv heads split 2 a rank),
+    B=2, L=8192, bf16, causal: each rank's output, dq, dk and dv against
+    flash attention over the gathered sequence (tools/ulysses_check, the
+    flash kernels' bf16 gate)."""
+    if cards < 4:
+        pytest.skip("needs four CUDA cards")
+    for out in _nccl_ranks(ULYSSES_WORKER):
+        print(out)

@@ -9,7 +9,8 @@
   `peer.coordinator_port` against the JAX package's at versions 0, 1, 999
   and 1000 with the same refusal of a root port too high;
 * the wire: one sequence of raw requests to the port's and the JAX
-  package's config servers (GET, POST, PUT, a stale conditional PUT, a
+  package's single config servers (their ensembles:
+  tests/test_torch_replication.py) (GET, POST, PUT, a stale conditional PUT, a
   reconvene with identical bytes, DELETE and a PUT while cleared,
   /health, the KV plane, /raft/status) gives the same codes and bodies,
   timestamps aside; each client (port, JAX) against each server gives the
@@ -296,10 +297,19 @@ def test_unreachable_server_and_ensembles(jk):
     assert c.poll_cluster() is None and c.get_health() is None and c.kv_put("k", 1) is False
     with pytest.raises(OSError):
         c.get_cluster()
-    with pytest.raises(NotImplementedError, match="A.5c"):
-        CC.ConfigClient(f"{dead},{dead}")
-    with pytest.raises(NotImplementedError, match="A.5c"):
-        CS.ConfigServer(port=0, replica_id=1, peers=[dead, dead])
+    # a URL list is the failover client: a dead endpoint rotates to the next
+    srv = CS.ConfigServer(port=0, init=_docs(tplan)[0]).start()
+    try:
+        both = CC.ConfigClient(f"{dead},{srv.url}", retries=3, backoff_s=0.01,
+                               retry_deadline_s=5.0)
+        assert both.urls_spec == f"{dead},{srv.url}"
+        assert both.get_cluster() == (_docs(tplan)[0], 0) and both.url == srv.url
+    finally:
+        srv.stop()
+    # an ensemble's replica: a follower of no leader answers 421, never a document
+    lone = CS.ConfigServer(port=0, replica_id=1, peers=[dead, dead])
+    assert lone.status()["role"] == "follower" and lone.status()["replicas"] == 2
+    lone.stop()
 
 
 def test_config_server_module(tmp_path, monkeypatch):

@@ -4,7 +4,8 @@ Workers see the KFT_* env block that the JAX package's `worker_env`
 writes for the same cluster; a failing worker stops the others and sets
 the launcher's exit code; a flag of the JAX CLI that is not ported raises.
 The watch-mode flags (-w, -timeout, -config-server,
--builtin-config-server, -port) each take effect.  The workers here start
+-builtin-config-server, -port, -config-replicas) each take effect, and a
+resize rides a leader kill under -config-replicas 3.  The workers here start
 no process group, so no test binds a worker port; an embedded config
 server listens on a free port.
 """
@@ -17,6 +18,7 @@ import socket
 import subprocess
 import sys
 import time
+import urllib.request
 
 import pytest
 
@@ -135,8 +137,8 @@ def test_keep_lets_the_others_finish(tmp_path):
 @pytest.mark.parametrize("flag", sorted(cli.UNPORTED))
 def test_unported_flag_raises(flag):
     opts, _, item, *ported = cli.UNPORTED[flag]
-    assert item in ("A.5c", "A.8")  # the replicated config plane; telemetry
-    # a value past the one that is ported (-config-replicas 1, the JAX default)
+    assert item == "A.8"  # telemetry (-config-replicas, A.5c, is ported)
+    # a value past the one that is ported, where one is
     args = [flag] if opts.get("action") == "store_true" else [flag, str((ported or [0])[0] + 1)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main([*args, "-np", "1", sys.executable, "-c", "pass"])
@@ -192,12 +194,27 @@ def _config_seen(out) -> list:
             if "CONFIG " in line]
 
 
+SHOW_URLS = ("import json, os; from kungfu_tpu_torch.elastic.config_client import ConfigClient; "
+             "urls = os.environ['KFT_CONFIG_URLS']; got = ConfigClient(urls).get_cluster(); "
+             "print('CONFIG ' + json.dumps([urls, got[1], got[0].size()]))")
+
+
 @pytest.mark.parametrize("flag", ["-w", "-timeout", "-config-server",
-                                  "-builtin-config-server", "-port"])
+                                  "-builtin-config-server", "-port", "-config-replicas"])
 def test_watch_flag_takes_effect(flag):
     """Each flag the watch mode ported does what it does in the JAX CLI."""
     port = _free_port()
-    if flag == "-w":  # watch mode without a URL embeds a config server
+    if flag == "-config-replicas":  # an ensemble: each worker gets every replica's URL
+        seen = _config_seen(_launch("-w", "-config-replicas", "3", "-np", "2", sys.executable,
+                                    "-c", SHOW_URLS))
+        assert len(seen) == 2 and seen[0] == seen[1] and seen[0][1:] == [0, 2]
+        assert len(seen[0][0].split(",")) == 3
+        with pytest.raises(SystemExit):  # its replicas take free ports, not -port's
+            cli.main(["-w", "-config-replicas", "3", "-port", str(port), "-np", "1",
+                      sys.executable, "-c", "pass"])
+        with pytest.raises(SystemExit):
+            cli.main(["-w", "-config-replicas", "0", "-np", "1", sys.executable, "-c", "pass"])
+    elif flag == "-w":  # watch mode without a URL embeds a config server
         seen = _config_seen(_launch("-w", "-np", "2", "-port", str(port), sys.executable, "-c",
                                     SHOW_CONFIG))
         assert seen == [[f"http://127.0.0.1:{port}/config", 0, 2]] * 2
@@ -294,3 +311,98 @@ def test_peer_list_is_host_major():
         [PeerID("a", 10000), PeerID("a", 10001), PeerID("b", 10000)])
     with pytest.raises(ValueError):
         HostList.parse("a:1").gen_peer_list(2)
+
+
+def _replicas(launcher_pid: int) -> dict:
+    """{port: pid} of the config-server replicas the launcher spawned
+    (read from /proc: each child's command line)."""
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode().split("\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == launcher_pid and "kungfu_tpu_torch.elastic.config_server" in argv:
+            out[int(argv[argv.index("-port") + 1])] = int(pid)
+    return out
+
+
+def test_config_replicas_resize_through_a_leader_kill(tmp_path):
+    """`-w -config-replicas 3`: the workers get the ensemble's URL list
+    (KFT_CONFIG_URLS) and the fake trainer resizes 2 -> 3 -> 2 while the
+    test SIGKILLs the leader after the grow; the shrink lands through the
+    next leader, the killed replica is respawned at its port, and the
+    elections and the respawn are journaled."""
+    import signal
+
+    from _torch_drills import LAUNCHER
+    from _torch_ranks import MAX_WORKER_PORT, _free_port_range
+    from kungfu_tpu_torch.elastic.config_client import ConfigClient
+    from kungfu_tpu_torch.monitor.journal import read_journal_segments
+    from kungfu_tpu_torch.store import STORE_PORT_OFFSET
+
+    host, jdir = "127.0.0.21", tmp_path / "journal"
+    base = _free_port_range(2, MAX_WORKER_PORT, (STORE_PORT_OFFSET,))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", KFT_JOURNAL_DIR=str(jdir),
+               KFT_FAULT_PLAN="slow@step=0:rank=0:ms=300:steps=100")
+    p = subprocess.Popen(
+        [sys.executable, "-c", LAUNCHER, str(base), "-w", "-np", "2", "-H", f"{host}:4",
+         "-self", host, "-platform", "cpu", "-config-replicas", "3", "-timeout", "200", "--",
+         sys.executable, "-m", "kungfu_tpu_torch.testing.fake_adaptive_trainer", "--schedule",
+         "2:8,3:8,2:100", "--total-samples", "2048", "--check-every", "2"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while len(_replicas(p.pid)) < 3 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        pids = _replicas(p.pid)
+        assert len(pids) == 3, pids
+        urls = [f"http://127.0.0.1:{port}/config" for port in sorted(pids)]
+        client = ConfigClient(",".join(urls), retries=20, retry_deadline_s=30.0)
+        while (client.get_health() or {}).get("version", 0) < 1:  # the grow to 3 landed
+            assert time.monotonic() < deadline and p.poll() is None
+            time.sleep(0.05)
+        statuses = [_status(u) for u in urls]
+        at = next(i for i, st in enumerate(statuses) if st and st["role"] == "leader")
+        lead, epoch0, victim = statuses[at]["replica"], statuses[at]["epoch"], sorted(pids)[at]
+        os.kill(pids[victim], signal.SIGKILL)
+        new = None
+        while new is None and time.monotonic() < deadline:
+            sts = [_status(u) for u in urls]
+            new = next((st for st in sts if st and st["role"] == "leader"
+                        and st["epoch"] > epoch0), None)
+            time.sleep(0.05)
+        assert new is not None and new["replica"] != lead
+        while _replicas(p.pid).get(victim) in (None, pids[victim]):  # respawned at its port
+            assert time.monotonic() < deadline and p.poll() is None
+            time.sleep(0.1)
+        out, _ = p.communicate(timeout=200)
+    finally:
+        if p.poll() is None:  # a failed check: the launcher, then its replicas
+            left = _replicas(p.pid)
+            p.kill()
+            p.communicate()
+            for pid in left.values():
+                os.kill(pid, signal.SIGKILL)
+    assert p.returncode == 0, out[-4000:]
+    results = [line for line in out.splitlines() if "RESULT:" in line]
+    assert len(results) == 2 and out.count("DETACHED:") == 1, out[-4000:]
+    for line in results:
+        assert "resizes=2 " in line and "trained=2048 " in line and "final_size=2 " in line
+    events = [e for f in sorted(jdir.glob("journal-*.jsonl"))
+              for e in read_journal_segments(str(f))]
+    epochs = {e["leader_epoch"] for e in events if e["event"] == "leader_elected"}
+    assert len(epochs) >= 2 and max(epochs) >= new["epoch"], sorted(epochs)
+    assert [e["replica"] for e in events if e["event"] == "replica_respawned"] == [lead]
+    assert not _replicas(p.pid)  # the ensemble went with the launcher
+
+
+def _status(url: str):
+    try:
+        with urllib.request.urlopen(url.rsplit("/", 1)[0] + "/raft/status", timeout=1) as r:
+            return json.loads(r.read().decode())
+    except OSError:
+        return None

@@ -149,9 +149,11 @@ def test_bf16_forward_close_to_flax(kft):
 
 
 def test_later_slices_raise():
-    for kw in (dict(decode=True), dict(n_experts=4), dict(attention="ulysses")):
+    for kw in (dict(decode=True), dict(n_experts=4)):
         with pytest.raises(NotImplementedError):
             tt.TransformerConfig(**kw)
+    # ported: Ulysses attention (tests/test_torch_ulysses.py, test_torch_mesh_train.py)
+    assert tt.TransformerConfig(attention="ulysses").attention == "ulysses"
     for kw in (dict(ffn="relu"), dict(dropout=1.5), dict(head="logits")):
         with pytest.raises(ValueError):
             tt.TransformerConfig(**kw)
