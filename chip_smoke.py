@@ -362,15 +362,45 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              and B5/B6 once a bucket in every step on every rank, losses
              finite, the first within 1e-2 of phase cut-ref's; the
              election's and the shrink's times
+14c. mesh    tensor, expert and pipeline parallelism: the flagship cut to
+             CUT_LAYERS layers at full width (weights from the seed as
+             phase cut-ref makes them, cut to each rank's shards by the
+             rules table, convert.shard_state_dict), phase main's 8
+             sequences, MeshTrainer(adamw(3e-4, b1=0.9, b2=0.95),
+             impl="pallas_ring", --bucket-mib buckets over the data
+             group), one launch of 4 ranks running three parts in turn, 3
+             steps each: (a) dp=2 x tp=2 (Megatron: 8 heads, 2048 d_ff
+             columns and 16000 vocab rows a rank, the vocab-parallel
+             cross entropy); (b) dp=2 x ep=2 with 4 experts (2 a rank),
+             every second block MoE, capacity factor 1.25,
+             lm_loss_shard_with_aux, after rank 0 computes the
+             one-process MoE model's lm_loss_with_aux on all 8 sequences
+             (forward only); (c) pp=4, PipelinedLM with R=2 rounds and M=4
+             microbatches of 2 sequences, remat.  Gates: losses finite
+             and falling, the first within 1e-2 of phase cut-ref's (a, c)
+             or of rank 0's MoE model (b), the ranks that hold one shard
+             of a parameter bit-identical element by element
+             (`initializer.sync_check`: the tp pairs' norm scales, the
+             dp pairs' shards, the stages' embedding and head), exact
+             launches on every rank: (a), (b) B1-B3 once a layer a step
+             and B5/B6 once a bucket a step over the dp group; (c) B1
+             twice (remat) and B2, B3 once a layer group a step (R M = 8
+             groups of one block a stage), B11 once a hop, 10 hops
+             forward and 10 backward a step (11 ticks; no hop after the
+             last), no B5/B6.  Printed: each part's steady step, tokens/s
+             and peak memory per rank, the tp all-reduces' route, MoE's
+             dropped share and aux loss, the pipeline's idle ticks by
+             the schedule (3 of 11)
 15. report   one JSON line of kernels B1-B11, the wide flash family and the
              residual kernel (launches from rank 0 of the path that runs
              each: phase ranks for B1-B3, B5, B6, phase sp for B11, phase
              fused for B9 and B10, phase wide's model step for the wide
              family, phase gqa for the others; B11's entry also holds its
-             launches in phase sp and in phase gossip (a) and (b),
-             `launches_by_phase`; B5 and B6 theirs in phases ranks,
-             session, elastic, heal, ulysses and controlplane, B1-B3 theirs
-             in phases ranks, elastic, heal, ulysses and controlplane, B4
+             launches in phase sp, in phase gossip (a) and (b) and in
+             phase mesh, `launches_by_phase`; B5 and B6 theirs in phases
+             ranks, session, elastic, heal, ulysses, controlplane and mesh,
+             B1-B3 theirs in phases ranks, elastic, heal, ulysses,
+             controlplane and mesh, B4
              in phases gqa and ulysses, B7 and B8 in phases gqa and
              session), each
              phase's time and the whole smoke's, then the last line {"ok":
@@ -459,6 +489,20 @@ N_RANKS = 4
 # costs are its state's bytes through the host and its tensors' count:
 # the whole smoke must fit 1200 s)
 CUT_LAYERS = 8
+# Phase mesh: the flagship at full width cut to CUT_LAYERS layers on the
+# model axes, one launch of N_RANKS ranks running its parts in turn: (a)
+# dp=2 x tp=2, (b) dp=2 x ep=2 with MESH_EXPERTS, (c) pp=4 with MESH_PIPE
+# (repeats R, microbatches M).  First losses against phase cut-ref's (a,
+# c) and rank 0's one-process MoE model (b): the same weights and
+# sequences, the bf16 products of other shapes, the loss a sum of shares
+# (a: the vocab-parallel cross entropy's max, exponentials and target
+# logit reduced over tp in f32; c: the f32 LayerNorm of PipelinedLM).
+MESH_LINE = "MESH_RESULT "
+MESH_STEPS = 3
+MESH_PARTS = (("tp", {"dp": 2, "tp": 2}), ("ep", {"dp": 2, "ep": 2}), ("pp", {"pp": 4}))
+MESH_EXPERTS = {"n_experts": 4, "moe_every": 2, "capacity_factor": 1.25}
+MESH_PIPE = (2, 4)
+TOL_MESH_LOSS = 1e-2
 SP_BATCH, SP_SEQ = 2, 8192  # phase sp: 16,384 tokens a step, 2048 positions a rank
 SP_STEPS = 3  # phase sp: a few steps at full depth (each shift costs a card switch)
 SHIFT_GRIDS = "8,16,32,66"  # phase shift: B11's grids checked and timed
@@ -2060,6 +2104,54 @@ def phase_controlplane(card: str, batch: int, seed: int, bucket_mib: int, cut_lo
           f"{json.dumps(r0['launches'])}; (a) {t_drill:.1f} s from its start, the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {k.name: r0["launches"][k.name] for k in (*flash.KERNELS, RC.RING_RS, RC.RING_AG)}
+
+
+def phase_mesh(batch: int, seed: int, bucket_mib: int, cut_loss1: float):
+    """The flagship (cut to CUT_LAYERS layers) on the model axes: one
+    launch of N_RANKS ranks running MESH_PARTS in turn (`mesh_part`).
+    Gates: each rank's own checks (loss finite and falling, the ranks that
+    hold one shard of a parameter bit-identical, exact launches), the
+    first losses of (a) and (c) within TOL_MESH_LOSS of phase cut-ref's and
+    (b)'s of rank 0's one-process MoE model.  Returns rank 0's launches
+    by part."""
+    out, res = spawn_ranks(["mesh", "--batch", str(batch), "--seed", str(seed),
+                            "--bucket-mib", str(bucket_mib)], MESH_LINE, 600)
+    for line in out.splitlines():
+        if "[mesh]" in line:
+            print(line)
+    for r, rr in sorted(res.items()):
+        for part, pr in rr["parts"].items():
+            check(all(pr["checks"].values()),
+                  f"mesh: rank {r} part {part} failed "
+                  f"{json.dumps({k: v for k, v in pr['checks'].items() if not v})}; launches "
+                  f"{json.dumps(pr['launches'])}, expected {json.dumps(pr['expected_launches'])}")
+    parts = res[0]["parts"]
+    refs = {"tp": (cut_loss1, "phase cut-ref's"), "pp": (cut_loss1, "phase cut-ref's"),
+            "ep": (parts["ep"]["reference_loss"], "the one-process MoE model's")}
+    for name, pr in parts.items():
+        ref, what = refs[name]
+        loss1 = pr["losses"][0]
+        check(abs(loss1 - ref) <= TOL_MESH_LOSS,
+              f"mesh: part {name}'s first-step loss {loss1} vs {what} {ref}")
+        step_s = max(res[r]["parts"][name]["step_s"] for r in res)
+        peaks = " ".join(f"{res[r]['parts'][name]['peak_gib']:.2f}" for r in sorted(res))
+        extra = ""
+        if name == "tp":
+            extra = f"; the tp all-reduces {pr['tp_route']}"
+        if name == "ep":
+            extra = (f"; moe_dropped by step and MoE layer {json.dumps(pr['dropped'])}, the aux "
+                     f"loss (summed over the MoE layers) by step "
+                     f"{' '.join(f'{x:.5f}' for x in pr['aux'])}")
+        if name == "pp":
+            extra = (f"; the schedule leaves {pr['idle_ticks']} of {pr['ticks']} ticks idle "
+                     f"on each stage (bubble share {pr['idle_ticks'] / pr['ticks']:.3f})")
+        print(f"[mesh] part {name} ({json.dumps(pr['mesh'])}): losses "
+              f"{' '.join(f'{x:.4f}' for x in pr['losses'])}, first step {loss1:.4f} vs {what} "
+              f"{ref:.4f}; shards bit-identical where held alike; launches exact on every "
+              f"rank; steady step {step_s * 1e3:.1f} ms (slowest rank, median of steps "
+              f"2-{MESH_STEPS}), {batch * 2048 / step_s:.0f} tokens/s, peak memory per rank "
+              f"{peaks} GiB; rank 0 launches {json.dumps(pr['launches'])}{extra}")
+    return {name: pr["launches"] for name, pr in parts.items()}
 
 
 def phase_shift(seed: int):
@@ -3699,6 +3791,166 @@ def ulysses_parts(world: int, seed: int, bucket: int) -> bool:
     return result["ok"]
 
 
+def mesh_part(part: str, sizes, steps: int, batch: int, seed: int, bucket: int) -> dict:
+    """One part of phase mesh on this rank of an initialised group of
+    N_RANKS: the flagship cut to CUT_LAYERS layers (weights from `seed`
+    as phase cut-ref makes them, cut to this rank's shards by the rules
+    table) on `make_mesh(**sizes)` under MeshTrainer(adamw(3e-4, b1=0.9,
+    b2=0.95), impl="pallas_ring", bucket_bytes=`bucket`) for `steps` steps
+    on this rank's shard of the `batch` sequences of phase main.
+
+      tp  TransformerLM (Megatron: 8 of the 16 heads a rank), the
+          vocab-parallel lm_loss_shard; a step runs B1-B3 once a layer on
+          the rank's heads and B5/B6 once a bucket over the dp group
+      ep  TransformerLM with MESH_EXPERTS (experts 2 a rank; every second
+          block MoE), lm_loss_shard_with_aux; rank 0 first computes the
+          one-process model's lm_loss_with_aux on all the sequences
+          (forward only); launches as tp
+      pp  PipelinedLM at MESH_PIPE (R=2 rounds, M=4 microbatches of 2
+          sequences, remat): each stage applies R M layer groups of
+          CUT_LAYERS / (S R) = 1 block a step, B1 twice a group (the
+          checkpoint recomputes it in the backward), B2 and B3 once;
+          the schedule's R M + S - 1 = 11 ticks make R M + S - 2 = 10 hops
+          of B11 (none after the last tick) and the backward 10 more;
+          no data group, so no B5/B6
+
+    Returns the part's losses, times, peak memory, launches (and those
+    expected), checks and what it prints."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import convert
+    from kungfu_tpu_torch.compression import error_feedback as EF
+    from kungfu_tpu_torch.initializer import sync_check
+    from kungfu_tpu_torch.models import transformer as tt
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.ops import fused_matmul as FM
+    from kungfu_tpu_torch.ops import ring_collectives as RC
+    from kungfu_tpu_torch.optimizers import adamw
+    from kungfu_tpu_torch.optimizers.sync import _pack_buckets
+    from kungfu_tpu_torch.parallel import PipelinedLM, sharding
+    from kungfu_tpu_torch.parallel.moe import MoEMLP
+    from kungfu_tpu_torch.plan import make_mesh
+    from kungfu_tpu_torch.tools.step_profile import flagship_model, flagship_tokens
+    from kungfu_tpu_torch.trainer import MeshTrainer
+
+    rank = dist.get_rank()
+    cfg, whole = flagship_model(seed, "cuda", n_layers=CUT_LAYERS,
+                                **(MESH_EXPERTS if part == "ep" else {}))
+    tokens = flagship_tokens(cfg, batch, seed)
+    result = {"mesh": sizes}
+    if part == "ep" and rank == 0:
+        with torch.no_grad():
+            result["reference_loss"] = tt.lm_loss_with_aux(whole, tokens).item()
+    state_dict = whole.state_dict()
+    del whole
+    mesh = make_mesh(**sizes)
+    cfg = dataclasses.replace(cfg, mesh=mesh)
+    if part == "pp":
+        repeats, micro = MESH_PIPE
+        model = PipelinedLM(cfg, repeats=repeats, microbatches=micro, device="cuda")
+        state_dict = convert.stack_pipeline(state_dict, sizes["pp"], repeats)
+    else:
+        model = tt.TransformerLM(cfg, device="cuda")
+    model.load_state_dict(convert.shard_state_dict(state_dict, mesh))
+    del state_dict
+    if cfg.n_experts:
+        def loss_fn(m, b):
+            return tt.lm_loss_shard_with_aux(m, b.tokens, b.targets, b.count)
+    else:
+        def loss_fn(m, b):
+            return tt.lm_loss_shard(m(b.tokens), b.targets, b.count, m.vocab_group)
+    trainer = MeshTrainer(loss_fn, adamw(3e-4, b1=0.9, b2=0.95), mesh, impl="pallas_ring",
+                          bucket_bytes=bucket or None, device="cuda")
+    state = trainer.init(model)
+    shard = trainer.shard_batch(tokens)
+    params = list(model.parameters())
+    reduced = dist.get_world_size(trainer.data_group) > 1
+    buckets = (len(_pack_buckets(params, bucket)) if bucket else len(params)) * reduced
+    moe = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    kernels = flash.KERNELS + RC.KERNELS + EF.KERNELS + FM.KERNELS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    losses, times, dropped, aux = [], [], [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, shard)
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        if moe:
+            dropped.append([round(float(m.dropped), 5) for m in moe])
+            aux.append(sum(float(m.aux_loss) for m in moe))
+        print(f"[mesh] rank {rank} part {part} step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms", flush=True)
+    launches = {k.name: k.launches for k in kernels}
+    # the ranks that hold the same shard of a parameter (those that differ
+    # only on the axes it is not split over) hold the same bits, element
+    # by element
+    specs = sharding.param_shardings(mesh, [n for n, _ in model.named_parameters()])
+    alike = True
+    for n, p in model.named_parameters():
+        split = {a for a, _ in sharding.held_splits(specs[n])}
+        held = mesh.group(tuple(a for a in mesh.axis_names if a not in split))
+        alike = sync_check(p, held) and alike
+    want = {k.name: 0 for k in kernels}
+    if part == "pp":
+        S, (R, M) = sizes["pp"], MESH_PIPE
+        groups = R * M * (CUT_LAYERS // (S * R)) * steps
+        want.update({flash.FLASH_FWD.name: 2 * groups, flash.FLASH_BWD_DQ.name: groups,
+                     flash.FLASH_BWD_DKV.name: groups,
+                     FM.SHIFT.name: 2 * (R * M + S - 2) * steps})
+        result.update(ticks=R * M + S - 1, idle_ticks=S - 1)
+    else:
+        want.update({k.name: cfg.n_layers * steps for k in
+                     (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)})
+        want.update({k.name: buckets * steps for k in (RC.RING_RS, RC.RING_AG)})
+    checks = {"loss finite": all(math.isfinite(x) for x in losses),
+              "loss falls": losses[-1] < losses[0],
+              "shards bit-identical where held alike": alike,
+              "launches": launches == want, "no JAX": jax_free()}
+    if part == "tp":
+        result["tp_route"] = ("staged through the host (gloo)"
+                              if C._gloo_card(params[0], mesh.group("tp"))
+                              else "on the card (NCCL)")
+    if moe:
+        result.update(dropped=dropped, aux=aux)
+    result.update(losses=losses, step_s=statistics.median(times[1:]),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30, buckets=buckets,
+                  launches=launches, expected_launches=want, checks=checks)
+    return result
+
+
+def rank_mesh(argv) -> int:
+    """One rank of phase mesh (run by the launcher): MESH_PARTS in turn."""
+    import gc
+
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch import distributed
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bucket-mib", type=int, default=256)
+    args = ap.parse_args(argv)
+    tf32_off()
+    distributed.init_distributed(device="cuda")
+    result = {"rank": dist.get_rank(), "backend": dist.get_backend(), "parts": {}}
+    for part, sizes in MESH_PARTS:
+        result["parts"][part] = mesh_part(part, sizes, MESH_STEPS, args.batch, args.seed,
+                                          args.bucket_mib << 20)
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["ok"] = all(all(pr["checks"].values()) for pr in result["parts"].values())
+    print(MESH_LINE + json.dumps(result), flush=True)
+    distributed.shutdown_distributed()
+    return 0 if result["ok"] else 1
+
+
 def rank_fused(argv) -> int:
     """One rank of phase fused (run by the launcher)."""
     from kungfu_tpu_torch.tools import fused_check
@@ -3794,7 +4046,7 @@ def main() -> int:
                    "gossip": rank_gossip, "session": rank_session, "elastic": rank_elastic,
                    "heal": rank_heal, "heal-launcher": launch_heal,
                    "controlplane": rank_controlplane,
-                   "controlplane-launcher": launch_controlplane}
+                   "controlplane-launcher": launch_controlplane, "mesh": rank_mesh}
         return workers[phase](rest)
     t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3876,6 +4128,8 @@ def main() -> int:
         cp_launches = phase_controlplane(card, args.batch, args.seed, args.bucket_mib, cut_loss,
                                          drill)
         lap("controlplane")
+        mesh_launches = phase_mesh(args.batch, args.seed, args.bucket_mib, cut_loss)
+        lap("mesh")
         # each kernel's launches from the path that runs it
         launches = {name: n or gqa_launches[name] for name, n in ranks_launches.items()}
         launches[FM.SHIFT.name] = sp_launches[FM.SHIFT.name]
@@ -3926,6 +4180,10 @@ def main() -> int:
         if cp_launches.get(k["name"]):  # and under run_elastic through a leader failover
             k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
             k["launches_by_phase"]["controlplane"] = cp_launches[k["name"]]
+        mesh = sum(part.get(k["name"], 0) for part in mesh_launches.values())
+        if mesh:  # B1-B3, B5/B6 and B11 on the model axes (tp, ep, pp)
+            k.setdefault("launches_by_phase", {"ranks": launches[k["name"]]})
+            k["launches_by_phase"]["mesh"] = mesh
     print(f"[smoke] every phase passed in {time.perf_counter() - t_smoke:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -40,8 +40,42 @@ block in the backward, "dots" keeps the outputs of its matrix products
 jax.checkpoint_policies.dots_saveable; a block under dropout recomputes
 the same masks from the generator state it started with.
 
-Decode and generate and MoE wait for later slices and raise
-NotImplementedError when configured.
+A mesh with a tp axis (`plan.make_mesh(..., tp=n)`) is Megatron tensor
+parallelism, by the rules table (`parallel/sharding.py`): each rank holds
+its shard of every split parameter (`convert.shard_state_dict` cuts
+them) and
+
+  q, k, v, MLP in/gate  column-parallel: this rank's n_heads / tp heads
+                        (n_kv_heads / tp kv heads) and d_ff / tp columns;
+                        their input through `mappings.copy_to` (the sum of
+                        dx over tp in the backward)
+  attn out, MLP out     row-parallel, then the sum over tp
+                        (`mappings.reduce_from`, identity backward)
+  embedding             vocab-parallel: the rows of this rank's vocab
+                        block looked up, the others zero, summed over tp
+  head                  vocab-parallel logits [B, L, vocab / tp] (tied:
+                        the embedding shard); `lm_loss_shard(...,
+                        vocab_group=model.vocab_group)` is the
+                        vocab-parallel cross entropy, whose max, sum of
+                        exponentials and target logit are reduced over tp
+
+Grouped-query attention under tp follows the JAX model: where tp divides
+n_kv_heads the kv heads split over tp; otherwise the k/v projection's
+shard does not align with heads (the JAX rules still split its output
+columns), so the rank gathers the whole k/v projection weight
+(`mappings.gather_weight`), repeats the kv heads up to n_heads and takes
+its own.  Flash, ring and Ulysses attention run on the rank's heads, ring
+and Ulysses over sp inside each tp shard.  The collectives go through
+torch.distributed (NCCL with a card a rank, gloo through host memory
+where ranks share a card).
+
+n_experts > 0 makes every `moe_every`-th block (i % moe_every ==
+moe_every - 1) a `parallel.moe.MoEMLP`: top-1 Switch routing, experts
+split over the mesh's ep axis; `lm_loss_with_aux` and
+`lm_loss_shard_with_aux` add its load-balancing loss.  MoE under tp or
+sp, and head="hidden" under tp, raise NotImplementedError (ROADMAP
+A.6b).  Decode and generate wait for A.2 and raise NotImplementedError
+when configured.
 """
 from __future__ import annotations
 
@@ -58,7 +92,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..compat import kernel_mode, resolve_device
 from ..ops.chunked_ce import chunked_lm_head_ll
 from ..ops.flash import flash_attention
+from ..parallel import mappings
+from ..parallel.moe import MoEMLP, moe_aux_loss
 from ..parallel.ring_attention import full_attention, ring_attention
+from ..parallel.sharding import axis_size, data_size
 from ..parallel.ulysses import ulysses_attention
 from ..plan.mesh import Mesh
 
@@ -106,7 +143,10 @@ class TransformerConfig:
     # "dense": forward returns [B, L, V] logits; "hidden": ln_f's hidden
     # states, for lm_loss_chunked (the same parameters either way)
     head: str = "dense"
+    # MoE: every `moe_every`-th block uses experts (0 = dense model)
     n_experts: int = 0
+    moe_every: int = 2
+    capacity_factor: float = 1.25
     # the rank mesh attention="ring"/"ulysses" splits the sequence over (its sp_axis)
     mesh: Optional[Mesh] = None
     sp_axis: str = "sp"
@@ -136,13 +176,29 @@ class TransformerConfig:
                 raise ValueError(f"{name}={value!r}, expected one of {allowed}")
         if not 0.0 <= self.dropout <= 1.0:
             raise ValueError(f"dropout={self.dropout} is not a rate in [0, 1]")
+        if self.decode:
+            raise NotImplementedError("decode is not ported yet (ROADMAP A.2)")
+        tp = self.tp
         later = [
-            (self.decode, "decode"),
-            (self.n_experts > 0, "MoE (n_experts)"),
+            (self.n_experts > 0 and tp > 1, "MoE under tp"),
+            (self.n_experts > 0 and self.sequence_parallel, "MoE under sp"),
+            (self.head == "hidden" and tp > 1, 'head="hidden" under tp'),
         ]
         for configured, what in later:
             if configured:
-                raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.6b)")
+        if tp > 1:
+            for what, n in (("n_heads", self.n_heads), ("d_ff", self.d_ff),
+                            ("vocab_size", self.vocab_size)):
+                if n % tp:
+                    raise ValueError(f"tp={tp} must divide {what}={n}")
+            hd = self.d_model // self.n_heads
+            if (self.kv_heads * hd) % tp:
+                raise ValueError(f"tp={tp} must divide the k/v projection's "
+                                 f"{self.kv_heads * hd} columns")
+        if self.n_experts % axis_size(self.mesh, "ep"):
+            raise ValueError(f"ep={axis_size(self.mesh, 'ep')} must divide "
+                             f"n_experts={self.n_experts}")
 
     @property
     def kv_heads(self) -> int:
@@ -156,6 +212,20 @@ class TransformerConfig:
         package.)"""
         return (self.attention in ("ring", "ulysses") and self.mesh is not None
                 and self.sp_axis in self.mesh.axis_names)
+
+    @property
+    def tp(self) -> int:
+        """The mesh's tp size (1 without one)."""
+        return axis_size(self.mesh, "tp")
+
+    @property
+    def tp_group(self):
+        """The process group of this rank's tp shards (None at tp 1)."""
+        return self.mesh.group("tp") if self.tp > 1 else None
+
+    def use_moe(self, layer: int) -> bool:
+        """Whether block `layer` is a MoE block."""
+        return self.n_experts > 0 and layer % self.moe_every == self.moe_every - 1
 
     def position_offset(self, chunk: int) -> int:
         """Absolute position of this rank's first row for a chunk of
@@ -219,28 +289,52 @@ class Norm(nn.Module):
 
 
 class Attention(nn.Module):
+    """Self-attention on this rank's n_heads / tp heads (all at tp 1)."""
+
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
-        hd = cfg.d_model // cfg.n_heads
-        kv = cfg.kv_heads * hd
+        tp, hd = cfg.tp, cfg.d_model // cfg.n_heads
+        # the k/v output columns this rank holds: its kv heads, or where tp
+        # does not divide them its 1/tp of the columns, gathered in forward
+        kv = cfg.kv_heads * hd // tp
         ab = cfg.attention_bias
-        self.q = Dense(cfg.d_model, cfg.d_model, cfg.dtype, ab, device)
+        self.q = Dense(cfg.d_model, cfg.d_model // tp, cfg.dtype, ab, device)
         self.k = Dense(cfg.d_model, kv, cfg.dtype, ab, device)
         self.v = Dense(cfg.d_model, kv, cfg.dtype, ab, device)
-        self.out = Dense(cfg.d_model, cfg.d_model, cfg.dtype, False, device)
+        self.out = Dense(cfg.d_model // tp, cfg.d_model, cfg.dtype, False, device)
+
+    def _whole(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
+        """`dense` with its output columns gathered over tp: the whole k/v
+        projection (its gradient summed over tp, then cut to this shard)."""
+        group, dt = self.cfg.tp_group, dense.dtype
+        w = mappings.gather_weight(dense.weight, group, 0)
+        b = None if dense.bias is None else mappings.gather_weight(dense.bias, group, 0).to(dt)
+        return F.linear(x.to(dt), w.to(dt), b)
 
     def forward(self, x):
         cfg = self.cfg
         B, L, _ = x.shape
-        H, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.d_model // cfg.n_heads
+        tp, group = cfg.tp, cfg.tp_group
+        H, Hkv, D = cfg.n_heads // tp, cfg.kv_heads, cfg.d_model // cfg.n_heads
+        x = mappings.copy_to(x, group)
         q = self.q(x).view(B, L, H, D)
-        k = self.k(x).view(B, L, Hkv, D)
-        v = self.v(x).view(B, L, Hkv, D)
+        split = Hkv % tp == 0
+        if split:
+            Hkv //= tp
+            k = self.k(x).view(B, L, Hkv, D)
+            v = self.v(x).view(B, L, Hkv, D)
+        else:
+            k = self._whole(self.k, x).view(B, L, Hkv, D)
+            v = self._whole(self.v, x).view(B, L, Hkv, D)
         if cfg.rope:
             pos = cfg.position_offset(L) + torch.arange(L, device=x.device)
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
+        if not split:  # the JAX model's repeat up to n_heads, then this rank's heads
+            h0 = mappings.group_rank(group) * H
+            k = k.repeat_interleave(cfg.n_heads // Hkv, dim=2)[:, :, h0:h0 + H]
+            v = v.repeat_interleave(cfg.n_heads // Hkv, dim=2)[:, :, h0:h0 + H]
         if cfg.sequence_parallel and cfg.attention == "ulysses":
             o = ulysses_attention(q, k, v, group=cfg.mesh.group(cfg.sp_axis), causal=cfg.causal,
                                   attn_fn=functools.partial(
@@ -256,25 +350,30 @@ class Attention(nn.Module):
                                 backward=cfg.flash_backward)
         else:
             o = full_attention(q, k, v, causal=cfg.causal, window=cfg.window or None)
-        return self.out(o.reshape(B, L, cfg.d_model))
+        return mappings.reduce_from(self.out(o.reshape(B, L, H * D)), group)
 
 
 class MLP(nn.Module):
+    """The feed-forward on this rank's d_ff / tp columns."""
+
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
+        self.group = cfg.tp_group
         self.swiglu = cfg.ffn == "swiglu"
-        self.in_ = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False, device)
+        f = cfg.d_ff // cfg.tp
+        self.in_ = Dense(cfg.d_model, f, cfg.dtype, False, device)
         if self.swiglu:
-            self.gate = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False, device)
-        self.out = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, False, device)
+            self.gate = Dense(cfg.d_model, f, cfg.dtype, False, device)
+        self.out = Dense(f, cfg.d_model, cfg.dtype, False, device)
 
     def forward(self, x):
+        x = mappings.copy_to(x, self.group)
         h = self.in_(x)
         if self.swiglu:
             h = F.silu(self.gate(x)) * h
         else:
             h = F.gelu(h, approximate="tanh")  # flax nn.gelu's default
-        return self.out(h)
+        return mappings.reduce_from(self.out(h), self.group)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -290,19 +389,23 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device, use_moe: bool = False):
         super().__init__()
         self.rate = cfg.dropout
         self.ln1 = Norm(cfg, device)
         self.attn = Attention(cfg, device)
         self.ln2 = Norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """`generator`: dropout on both residual branches from it (None:
         no dropout)."""
         x = x + dropout(self.attn(self.ln1(x)), self.rate, generator)
-        return x + dropout(self.mlp(self.ln2(x)), self.rate, generator)
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + dropout(ffn(self.ln2(x)), self.rate, generator)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
@@ -326,20 +429,34 @@ def _block_from_state(block: Block, x: torch.Tensor, rng_state: Optional[torch.T
 
 
 class Embed(nn.Module):
+    """The embedding table: this rank's vocab / tp rows under tp."""
+
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
-        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+        self.group = cfg.tp_group
+        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size // cfg.tp, cfg.d_model,
+                                                  device=device))
 
     def forward(self, tokens, dtype):
-        return F.embedding(tokens, self.embedding).to(dtype)
+        if self.group is None:
+            return F.embedding(tokens, self.embedding).to(dtype)
+        rows = self.embedding.shape[0]
+        local = tokens - mappings.group_rank(self.group) * rows
+        mine = (local >= 0) & (local < rows)
+        e = F.embedding(local.clamp(0, rows - 1), self.embedding).to(dtype)
+        e = torch.where(mine[..., None], e, torch.zeros((), dtype=dtype, device=e.device))
+        # one rank holds each row: the sum in `dtype` adds zeros, exactly
+        return mappings.reduce_from(e, self.group)
 
 
 class _Head(nn.Module):
-    """lm_head: f32 logits = f32 hidden @ weight^T, weight [vocab, d_model]."""
+    """lm_head: f32 logits = f32 hidden @ weight^T, weight [vocab, d_model]
+    (this rank's vocab / tp rows under tp)."""
 
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+        self.weight = nn.Parameter(torch.empty(cfg.vocab_size // cfg.tp, cfg.d_model,
+                                               device=device))
 
     def forward(self, x):
         return F.linear(x.float(), self.weight)
@@ -362,7 +479,7 @@ class TransformerLM(nn.Module):
         if not cfg.rope:
             self.pos_embed = nn.Parameter(torch.empty(cfg.max_len, cfg.d_model, device=dev))
         for i in range(cfg.n_layers):
-            self.add_module(f"block_{i}", Block(cfg, dev))
+            self.add_module(f"block_{i}", Block(cfg, dev, cfg.use_moe(i)))
         self.ln_f = Norm(cfg, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _Head(cfg, dev)
@@ -382,6 +499,11 @@ class TransformerLM(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
+
+    @property
+    def vocab_group(self):
+        """The group the logits' vocab is split over (tp; None at tp 1)."""
+        return self.cfg.tp_group
 
     def head_weight(self) -> torch.Tensor:
         """The head's [vocab, d_model] weight: the embedding when tied."""
@@ -420,17 +542,32 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         if cfg.head == "hidden":
             return x
+        x = mappings.copy_to(x, cfg.tp_group)
         if cfg.tie_embeddings:
             return F.linear(x.float(), self.embed.embedding.float())
         return self.lm_head(x)
 
 
-def _token_ll(logits: torch.Tensor, targets: torch.Tensor):
-    """Per-token log-likelihood (f32) and the log normalizer log Z."""
+def _token_ll(logits: torch.Tensor, targets: torch.Tensor, vocab_group=None):
+    """Per-token log-likelihood (f32) and the log normalizer log Z.  With
+    `vocab_group`, `logits` are this rank's vocab block of vocab-parallel
+    logits (rank r holds [r V_r, (r + 1) V_r)): the max, the sum of
+    exponentials and the target's logit are each reduced over the group,
+    and every rank returns the whole answer."""
     lg = logits.float()
-    log_z = torch.logsumexp(lg, dim=-1)
-    ll = lg.gather(-1, targets[..., None])[..., 0] - log_z
-    return ll, log_z
+    if mappings.group_size(vocab_group) == 1:
+        log_z = torch.logsumexp(lg, dim=-1)
+        ll = lg.gather(-1, targets[..., None])[..., 0] - log_z
+        return ll, log_z
+    rows = lg.shape[-1]
+    m = mappings.all_max(lg.max(dim=-1).values, vocab_group)
+    z = mappings.reduce_from(torch.exp(lg - m[..., None]).sum(dim=-1), vocab_group)
+    log_z = m + torch.log(z)
+    local = targets - mappings.group_rank(vocab_group) * rows
+    mine = (local >= 0) & (local < rows)
+    picked = lg.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    target = mappings.reduce_from(torch.where(mine, picked, 0.0), vocab_group)
+    return target - log_z, log_z
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> torch.Tensor:
@@ -464,14 +601,17 @@ def lm_loss_chunked(model: TransformerLM, tokens: torch.Tensor, block: Optional[
     return loss
 
 
-def lm_loss_shard(logits: torch.Tensor, targets: torch.Tensor, count: int) -> torch.Tensor:
+def lm_loss_shard(logits: torch.Tensor, targets: torch.Tensor, count: int,
+                  vocab_group=None) -> torch.Tensor:
     """This rank's share of `lm_loss` over a batch split across ranks:
     the sum of its next-token losses over `count`, the targets of the
     whole batch (B * (L - 1)).  `targets` [B_shard, L_chunk] holds each
     position's next token, -1 where the sequence ends.  The shares of all
     ranks sum to `lm_loss` of the whole batch, and their gradients to its
-    gradient."""
-    ll, _ = _token_ll(logits, targets.clamp_min(0))
+    gradient.  Vocab-parallel logits (a model under tp) need the group
+    their vocab is split over, `model.vocab_group`: the ranks of that group
+    return the same share."""
+    ll, _ = _token_ll(logits, targets.clamp_min(0), vocab_group)
     return -torch.where(targets >= 0, ll, 0.0).sum() / count
 
 
@@ -490,3 +630,24 @@ def lm_loss_shard_chunked(model: TransformerLM, tokens: torch.Tensor, targets: t
     ll, _ = chunked_lm_head_ll(h.reshape(-1, h.shape[-1]), model.head_weight(),
                                targets.clamp_min(0).reshape(-1), block)
     return -torch.where(targets.reshape(-1) >= 0, ll, 0.0).sum() / count
+
+
+def lm_loss_with_aux(model: TransformerLM, tokens: torch.Tensor, aux_weight: float = 0.01,
+                     z_loss: float = 0.0) -> torch.Tensor:
+    """`lm_loss` plus `aux_weight` times the Switch load-balancing losses
+    of the model's MoE blocks (from this forward), which a MoE model needs:
+    without it the router collapses onto one expert."""
+    loss = lm_loss(model(tokens), tokens, z_loss=z_loss)
+    return loss + aux_weight * moe_aux_loss(model)
+
+
+def lm_loss_shard_with_aux(model: TransformerLM, tokens: torch.Tensor, targets: torch.Tensor,
+                           count: int, aux_weight: float = 0.01) -> torch.Tensor:
+    """This rank's share of `lm_loss_with_aux` over a batch split across
+    ranks (`trainer.MeshTrainer`): `lm_loss_shard` of its shard (its
+    vocab-parallel logits under tp) plus its share of the load-balancing
+    loss, which every rank of a data group computes whole (the routing
+    fractions are means over the whole batch) and adds divided by the
+    group's size, so that the shares sum to it once."""
+    loss = lm_loss_shard(model(tokens), targets, count, model.vocab_group)
+    return loss + aux_weight * moe_aux_loss(model) / data_size(model.cfg.mesh)

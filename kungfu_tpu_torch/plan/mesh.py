@@ -6,15 +6,19 @@ insert the collectives of each axis.  Here every rank is one process, so
 the mesh says where this rank sits and which ranks it talks to on each
 axis:
 
-  shape   the axis sizes, in AXIS_ORDER (dp outer, then fsdp, sp inner:
-          an sp group is consecutive ranks)
+  shape   the axis sizes, in AXIS_ORDER (dp outer, then fsdp, pp, sp, ep,
+          tp inner: a tp group is consecutive ranks)
   coords  this rank's index on each axis
   groups  one torch.distributed group per axis, holding the ranks that
-          differ from this one only on that axis (`distributed.sub_group`)
+          differ from this one only on that axis (`distributed.sub_group`);
+          `group(("dp", "sp"))` is the group of the ranks that differ only
+          on those axes, made on first use (collective)
 
-The data axes (dp, and fsdp: `fsdp.FSDPTrainer` shards the model over
-it) and the sequence axis (sp) are ported; a mesh that names pp, ep or tp
-raises NotImplementedError (ROADMAP.md A.6).  `make_hierarchical_mesh`
+Every axis of the JAX package is accepted: the data axes (dp, and fsdp:
+`fsdp.FSDPTrainer` shards the model over it), the sequence axis (sp), and
+the model axes tensor (tp), expert (ep) and pipeline (pp) parallelism,
+which `trainer.MeshTrainer` and the models split by the rules table of
+`parallel/sharding.py`.  `make_hierarchical_mesh`
 makes the ("dcn", "ici") mesh of the Session's hierarchical strategies.
 The JAX module's `data_sharding` and `replicated` name jax shardings and
 have no counterpart: a rank holds its own rows.
@@ -32,7 +36,6 @@ import torch.distributed as dist
 # Canonical axis order, outermost first, as in the JAX package.
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "ep", "tp")
 DATA_AXES = ("dp", "fsdp")  # gradient reduction axes
-PORTED_AXES = ("dp", "fsdp", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +69,7 @@ class MeshSpec:
 
 
 class Mesh:
-    """This rank's place in a dp x fsdp x sp layout of the world's ranks."""
+    """This rank's place in a layout of the world's ranks over named axes."""
 
     def __init__(self, shape: Dict[str, int], rank: int, groups: Dict[str, Any]):
         self.shape = dict(shape)
@@ -74,6 +77,7 @@ class Mesh:
         self.rank = rank
         self.coords = coords(rank, self.shape)
         self.groups = groups
+        self._multi: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def size(self) -> int:
@@ -83,9 +87,34 @@ class Mesh:
         """This rank's index on `axis` (0 on an axis the mesh lacks)."""
         return self.coords.get(axis, 0)
 
-    def group(self, axis: str):
-        """The process group of `axis` that holds this rank."""
-        return self.groups[axis]
+    def group(self, axis):
+        """The process group of `axis` that holds this rank; for a tuple of
+        axes, the group of the ranks whose coordinates differ from this
+        rank's only on those axes (a group of this rank alone for none of
+        them).  None only without a process group (a world of one).  A
+        tuple's group is made on its first call, which every rank makes at
+        the same point (collective)."""
+        if isinstance(axis, str):
+            return self.groups[axis]
+        axes = tuple(a for a in self.axis_names if a in axis)
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        if axes not in self._multi:
+            if self.size == 1 or not dist.is_initialized():
+                self._multi[axes] = None
+            else:
+                from ..distributed import sub_group
+
+                self._multi[axes] = sub_group(axis_partition(self.shape, axes))
+        return self._multi[axes]
+
+    def index(self, axes) -> int:
+        """This rank's row-major index within its group over `axes`."""
+        i = 0
+        for a in self.axis_names:
+            if a in axes:
+                i = i * self.shape[a] + self.coords[a]
+        return i
 
 
 def coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
@@ -96,13 +125,15 @@ def coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
     return {a: out[a] for a in shape}
 
 
-def axis_partition(shape: Dict[str, int], axis: str):
-    """The ranks of every group of `axis`: lists of the ranks whose
-    coordinates differ only on `axis`, in rank order."""
+def axis_partition(shape: Dict[str, int], axis):
+    """The ranks of every group of `axis` (a name, or a tuple of names):
+    lists of the ranks whose coordinates differ only on those axes, in
+    rank order."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
     groups: Dict[Tuple[int, ...], list] = {}
     for r in range(math.prod(shape.values())):
         c = coords(r, shape)
-        groups.setdefault(tuple(v for a, v in c.items() if a != axis), []).append(r)
+        groups.setdefault(tuple(v for a, v in c.items() if a not in axes), []).append(r)
     return list(groups.values())
 
 
@@ -110,14 +141,12 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int) -> Mesh:
     """The mesh over every rank of the process group (this process alone
     without one).  `make_mesh(dp=-1)` is pure data parallelism;
     `make_mesh(fsdp=4)` one model sharded over four ranks;
-    `make_mesh(dp=1, sp=4)` one sequence over four ranks.  Collective:
-    every rank makes the same mesh, in the same order."""
+    `make_mesh(dp=1, sp=4)` one sequence over four ranks;
+    `make_mesh(dp=2, tp=2)` each data shard on a pair of tensor-parallel
+    ranks.  Collective: every rank makes the same mesh, in the same
+    order."""
     if spec is None:
         spec = MeshSpec.make(**(sizes or {"dp": -1}))
-    later = [a for a, _ in spec.axes if a not in PORTED_AXES]
-    if later:
-        raise NotImplementedError(
-            f"mesh axes {later} are not ported yet (dp, fsdp and sp are; see ROADMAP.md A.6)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     return _mesh(spec.resolve(world))
 

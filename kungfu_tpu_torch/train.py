@@ -119,12 +119,16 @@ class DataParallelTrainer:
         if self.has_aux and model_state is None:
             raise ValueError("has_aux=True requires model_state at init/place_state")
         model.to(self.device)
-        broadcast_params(model, self.group)
+        self._broadcast_params(model)
         model_state = _tree_map(lambda x: x.to(self.device), model_state)
         opt = self.tx(model.parameters())
         if opt_state is not None:
             opt.load_state_dict(opt_state)
         return TrainState(params=model, opt_state=opt, step=step, model_state=model_state)
+
+    def _broadcast_params(self, model: nn.Module) -> None:
+        """Every rank takes rank 0's parameters."""
+        broadcast_params(model, self.group)
 
     def shard_batch(self, batch: Any) -> Any:
         """Place this rank's batch shard on the trainer's device."""

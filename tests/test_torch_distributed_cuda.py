@@ -32,6 +32,14 @@ each rank's output and gradients against flash attention over the
 gathered sequence (`tools/ulysses_check.against_flash`), to the flash
 kernels' bf16 limit of `utils.compare.REL_LIMIT`.
 
+Tensor parallelism over NCCL with a card a rank: MeshTrainer on dp=2 x
+tp=2 (the Megatron all-reduces on the card) against one process training
+the same weights on the whole batch, 3 SGD steps: the first step's
+gradients to 1e-5 of each leaf's largest, parameters and loss to 1e-5.
+Each leaf also prints how far apart the two gradients would send Adam's
+first step, whose normalization g / (|g| + eps) turns a near-zero
+element's summation order into a large part of a step.
+
 Marked `cuda`; skips without a card, and the NCCL cases without two or
 four (the check runs in a fixture).
 """
@@ -275,3 +283,111 @@ def test_ulysses_over_nccl(cards):
         pytest.skip("needs four CUDA cards")
     for out in _nccl_ranks(ULYSSES_WORKER):
         print(out)
+
+
+TP_COMMON = {**COMMON, "vocab_size": 512, "n_heads": 4, "n_kv_heads": 2}
+# plain SGD: a gradient's f32 summation order moves the parameters by as
+# much; AdamW's normalization makes a near-zero gradient element's order
+# a change of a whole step (one element of 32768 moved 2.9e-5 in 3 steps),
+# which the test reads from the first step's gradients (ADAM_EPS)
+TP_LR = 0.1
+ADAM_EPS = 1e-8  # optimizers.adamw's default
+TP_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from kungfu_tpu_torch import convert, distributed
+    from kungfu_tpu_torch.models import transformer as tt
+    from kungfu_tpu_torch.ops import collective as C
+    from kungfu_tpu_torch.ops import flash
+    from kungfu_tpu_torch.plan import make_mesh
+    from kungfu_tpu_torch.trainer import MeshTrainer
+
+    common, lr, steps = eval(sys.argv[2])
+    assert distributed.init_distributed(device="cuda") == 4
+    assert dist.get_backend() == "nccl"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    whole = tt.TransformerLM(tt.TransformerConfig(**common), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    mesh = make_mesh(dp=2, tp=2)
+    model = tt.TransformerLM(tt.TransformerConfig(mesh=mesh, **common), device="cuda")
+    model.load_state_dict(convert.shard_state_dict(whole.state_dict(), mesh))
+    assert not C._gloo_card(next(model.parameters()), mesh.group("tp"))  # on the card
+    trainer = MeshTrainer(lambda m, b: tt.lm_loss_shard(m(b.tokens), b.targets, b.count,
+                                                        m.vocab_group),
+                          lambda p: torch.optim.SGD(p, lr), mesh, device="cuda")
+    state = trainer.init(model)
+    tokens = torch.from_numpy(np.load(sys.argv[1] + ".tokens.npy")).long()
+    shard = trainer.shard_batch(tokens)
+    for step in range(steps):
+        state, m = trainer.train_step(state, shard)
+        if step == 0:  # the first step's gradients, summed over dp, gathered over tp
+            grads = convert.gather_state_dict({n: p.grad for n, p in model.named_parameters()},
+                                              mesh)
+    # each rank: its 2 of the 4 heads, 1 of the 2 kv heads (B4), every layer and step
+    assert all(k.launches == steps * common["n_layers"]
+               for k in (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV_GQA))
+    params = convert.gather_state_dict(trainer.eval_params(state), mesh)
+    if dist.get_rank() == 0:
+        np.savez(sys.argv[1] + ".npz", loss=m["loss"].item(),
+                 **{k: v.cpu().numpy() for k, v in params.items()},
+                 **{"grad." + k: v.cpu().numpy() for k, v in grads.items()})
+    distributed.shutdown_distributed()
+""")
+
+
+def _adam_reading(got: np.ndarray, want: np.ndarray) -> str:
+    """Where two gradients of a leaf send Adam's first step furthest apart:
+    the step is lr * g / (|g| + eps), so the reading is the largest
+    |g / (|g| + eps) - g' / (|g'| + eps)| (in units of lr) and the two
+    gradients of that element beside the leaf's largest."""
+    step = got / (np.abs(got) + ADAM_EPS) - want / (np.abs(want) + ADAM_EPS)
+    i = np.unravel_index(np.argmax(np.abs(step)), step.shape)
+    return (f"Adam's first step differs by lr x {abs(step[i]):.3g} at {tuple(map(int, i))}, "
+            f"gradients {got[i]:.3g} / {want[i]:.3g} (the leaf's largest "
+            f"{np.abs(want).max():.3g})")
+
+
+def test_tensor_parallel_over_nccl(cards, tmp_path):
+    """dp=2 x tp=2 with a card a rank: the Megatron all-reduces (attention
+    and MLP outputs, the vocab-parallel embedding and cross entropy) on
+    NCCL, MeshTrainer 3 SGD steps in f32 (GQA 4/2: one kv head a rank),
+    against one process training the same weights on the whole batch:
+    the first step's gathered gradients to 1e-5 of each leaf's largest
+    (each leaf's reading of Adam's first step printed), the gathered
+    parameters and the loss to 1e-5 absolute."""
+    if cards < 4:
+        pytest.skip("needs four CUDA cards")
+    tokens = np.random.default_rng(0).integers(0, TP_COMMON["vocab_size"],
+                                               (8, TP_COMMON["max_len"]))
+    np.save(tmp_path / "run.tokens.npy", tokens)
+    port = _free_port_range(4, MAX_WORKER_PORT, ())
+    peers = ",".join(f"127.0.0.1:{port + r}" for r in range(4))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_WORKER, str(tmp_path / "run"), repr((TP_COMMON, TP_LR, STEPS))],
+        env=dict(os.environ, KFT_SELF_SPEC=f"127.0.0.1:{port + r}", KFT_INIT_PEERS=peers,
+                 PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out
+    result = np.load(tmp_path / "run.npz")
+    model = tt.TransformerLM(tt.TransformerConfig(**TP_COMMON), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    trainer = DataParallelTrainer(lambda m, b: tt.lm_loss(m(b), b),
+                                  synchronous_sgd(lambda p: torch.optim.SGD(p, TP_LR)),
+                                  device="cuda")
+    batch = trainer.shard_batch(torch.from_numpy(tokens).long())
+    state, m = trainer.train_step(trainer.init(model), batch)
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+    state, m = trainer.train_steps(state, batch, STEPS - 1)
+    for key, want in grads.items():
+        got = result["grad." + key]
+        err = np.abs(got - want).max() / np.abs(want).max()
+        print(f"{key}: first-step gradient off by {err:.3g} of its largest; "
+              f"{_adam_reading(got, want)}")
+        assert err <= 1e-5, key
+    for key, want in trainer.eval_params(state).items():
+        np.testing.assert_allclose(result[key], want.cpu().numpy(), atol=1e-5, err_msg=key)
+    assert abs(float(result["loss"]) - m["loss"].item()) < 1e-5

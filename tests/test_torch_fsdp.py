@@ -425,7 +425,7 @@ def test_refusals():
     from kungfu_tpu_torch.trainer import MeshTrainer
 
     fake = pm.Mesh({"fsdp": 2}, 0, {"fsdp": None})
-    with pytest.raises(ValueError, match="FSDPTrainer"):
+    with pytest.raises(NotImplementedError, match="FSDPTrainer"):  # ROADMAP A.6b
         MeshTrainer(loss_fn, None, fake, device="cpu")
 
 

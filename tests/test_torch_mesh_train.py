@@ -225,9 +225,10 @@ def test_config_refusals():
     # ported: without a mesh axis sp, attention="ulysses" is full attention at offset 0
     cfg = tt.TransformerConfig(attention="ulysses", **COMMON)
     assert not cfg.sequence_parallel and cfg.position_offset(16) == 0
-    for axis in ("pp", "ep", "tp"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            pm.make_mesh(**{axis: 1})
+    for axis in ("pp", "ep", "tp"):  # ported: tests/test_torch_tp.py, _moe.py, _pp.py
+        assert pm.make_mesh(**{axis: 1}).shape == {axis: 1}
+    with pytest.raises(NotImplementedError, match="A.6b"):  # still refused
+        MeshTrainer(None, None, pm.Mesh({"fsdp": 2}, 0, {"fsdp": None}), device="cpu")
     assert pm.make_mesh(fsdp=1).shape == {"fsdp": 1}  # ported: fsdp.FSDPTrainer
     with pytest.raises(ValueError, match="unknown axes"):
         pm.make_mesh(xp=1)

@@ -149,9 +149,13 @@ def test_bf16_forward_close_to_flax(kft):
 
 
 def test_later_slices_raise():
-    for kw in (dict(decode=True), dict(n_experts=4)):
-        with pytest.raises(NotImplementedError):
-            tt.TransformerConfig(**kw)
+    with pytest.raises(NotImplementedError, match="A.2"):
+        tt.TransformerConfig(decode=True)
+    # ported: MoE (tests/test_torch_moe.py); every moe_every-th block is a MoE block
+    model = tt.TransformerLM(tt.TransformerConfig(n_experts=4, vocab_size=64, d_model=16,
+                                                  n_layers=2, n_heads=2, d_ff=32, max_len=8),
+                             device="cpu")
+    assert [hasattr(b, "moe") for b in model.blocks()] == [False, True]
     # ported: Ulysses attention (tests/test_torch_ulysses.py, test_torch_mesh_train.py)
     assert tt.TransformerConfig(attention="ulysses").attention == "ulysses"
     for kw in (dict(ffn="relu"), dict(dropout=1.5), dict(head="logits")):
